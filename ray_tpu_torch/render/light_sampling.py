@@ -1,0 +1,409 @@
+"""Next-event estimation: light picking + per-type position sampling.
+
+The port of ``ray_tpu.render.light_sampling`` for the light kinds this
+slice carries: emissive-triangle (TRI) lights, sampled by spherical-
+triangle solid angle with the uniform-area fallback, and a constant-color
+environment light, sampled over the hemisphere.  Lights are picked by the
+hierarchical light tree (stochastic descent, leaf→root pdf re-walk) or, on
+scenes with fewer lights than the tree threshold, by the power CDF.  The
+other kinds (sphere, directional, line, rect, disk, sky portals) and
+environment maps raise (ROADMAP Queue 1 items 30 and 31).
+
+``ls.pdf`` is the solid-angle pdf times the light pick probability, so an
+NEE contribution is ``ls.col·f_cos/ls.pdf``.  The tree descent is sampling
+and runs detached, as in ``ray_tpu``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ray_tpu_torch._roadmap import not_ported
+from ray_tpu_torch.ops.linalg import (
+    MAX_DIST,
+    cross,
+    dot,
+    offset_ray,
+    safe_div_pos,
+    safe_normalize,
+    world_from_tangent,
+)
+from ray_tpu_torch.render.bsdf.microfacet import PI
+from ray_tpu_torch.render.surface import fetch_tri_pieces
+from ray_tpu_torch.scene.lights import LightType
+
+
+class LightSample(NamedTuple):
+    """Analogue of ``light_sample_t`` (internal/CoreRef.h:123)."""
+
+    col: torch.Tensor       # (R, 3)
+    L: torch.Tensor         # (R, 3) direction to light
+    lp: torch.Tensor        # (R, 3) point on light (biased off surface)
+    area: torch.Tensor      # (R,) 0 → skip MIS (invisible/delta light)
+    dist_mul: torch.Tensor  # (R,) shadow-ray length multiplier (env = MAX)
+    pdf: torch.Tensor       # (R,) solid-angle pdf × pick probability
+    cast_shadow: torch.Tensor  # (R,) bool
+    from_env: torch.Tensor     # (R,) bool
+
+
+# Minimum solid angle to use the spherical parametrization; below it the
+# caller falls back to uniform area sampling (Constants.inl:12-13).
+SPHERICAL_AREA_THRESHOLD = 5e-5
+
+_PORTED_KINDS = frozenset({LightType.TRI, LightType.ENV})
+
+
+def check_light_kinds(scene) -> None:
+    """Raise for light kinds or environment features not ported yet."""
+    kinds = {k for (k, _v, _d, _p) in scene.light_kinds}
+    missing = kinds - _PORTED_KINDS
+    if missing:
+        names = sorted(k for k, v in vars(LightType).items()
+                       if not k.startswith("_") and v in missing)
+        raise not_ported(f"light kinds {names}", "Queue 1 item 30")
+    if any(p for (_k, _v, _d, p) in scene.light_kinds):
+        raise not_ported("sky portals", "Queue 1 item 30")
+    if scene.env_tab_h > 0:
+        raise not_ported("environment maps", "Queue 1 item 31")
+
+
+def _safe_div_signed(a, b, eps=1e-9):
+    """a/b with |b| clamped away from zero, preserving b's sign."""
+    mag = torch.clamp_min(torch.abs(b), eps)
+    return a / torch.where(b < 0.0, -mag, mag)
+
+
+def _orthogonalize(a, b):
+    """Component of b orthogonal to unit a, normalized."""
+    return safe_normalize(b - dot(a, b) * a)
+
+
+def _angle_between(u, v):
+    return torch.arccos(torch.clamp(dot(u, v, False), -1.0, 1.0))
+
+
+def _slerp(a, b, t):
+    """Spherical lerp between unit vectors, safe at θ→0."""
+    cos_th = torch.clamp(dot(a, b, False), -1.0, 1.0)
+    th = torch.arccos(cos_th)
+    sin_th = torch.sin(th)
+    ok = sin_th > 1e-6
+    inv = safe_div_pos(1.0, torch.where(ok, sin_th, torch.ones_like(sin_th)))
+    w0 = torch.where(ok, torch.sin((1.0 - t) * th) * inv, 1.0 - t)
+    w1 = torch.where(ok, torch.sin(t * th) * inv, t)
+    return w0[..., None] * a + w1[..., None] * b
+
+
+def sample_spherical_triangle(P, p1, p2, p3, r1, r2):
+    """Arvo's stratified spherical-triangle sampling (reference
+    internal/CoreRef.cpp:1356-1427).  Returns ``(pdf, direction, valid)``:
+    pdf = 1/solid-angle, unit direction from P, valid=False below
+    SPHERICAL_AREA_THRESHOLD."""
+    A = safe_normalize(p1 - P)
+    B = safe_normalize(p2 - P)
+    C = safe_normalize(p3 - P)
+
+    BA = _orthogonalize(A, B - A)
+    CA = _orthogonalize(A, C - A)
+    AB = _orthogonalize(B, A - B)
+    CB = _orthogonalize(B, C - B)
+    BC = _orthogonalize(C, B - C)
+    AC = _orthogonalize(C, A - C)
+
+    alpha = _angle_between(BA, CA)
+    beta = _angle_between(AB, CB)
+    gamma = _angle_between(BC, AC)
+    area = alpha + beta + gamma - PI
+    valid = area > SPHERICAL_AREA_THRESHOLD
+    pdf = safe_div_pos(1.0, torch.clamp_min(area, 1e-12))
+
+    b_arc = torch.arccos(torch.clamp(dot(C, A, False), -1.0, 1.0))
+    c_arc = torch.arccos(torch.clamp(dot(A, B, False), -1.0, 1.0))
+
+    area_s = r1 * area
+    p_s, q_s = torch.sin(area_s - alpha), torch.cos(area_s - alpha)
+    s_alpha, c_alpha = torch.sin(alpha), torch.cos(alpha)
+    u_ = q_s - c_alpha
+    v_ = p_s + s_alpha * torch.cos(c_arc)
+    denom = (v_ * p_s + u_ * q_s) * s_alpha
+    ratio = _safe_div_signed((v_ * q_s - u_ * p_s) * c_alpha - v_, denom, 1e-12)
+    s = safe_div_pos(1.0, torch.clamp_min(b_arc, 1e-9)) * torch.arccos(
+        torch.clamp(ratio, -1.0, 1.0)
+    )
+    C_s = _slerp(A, C, s)
+    cs_b = dot(C_s, B, False)
+    denom2 = torch.arccos(torch.clamp(cs_b, -1.0, 1.0))
+    t = safe_div_pos(
+        torch.arccos(torch.clamp(1.0 - r2 * (1.0 - cs_b), -1.0, 1.0)),
+        torch.clamp_min(denom2, 1e-9),
+    )
+    direction = safe_normalize(_slerp(B, C_s, t))
+    return pdf, direction, valid
+
+
+def _lnode_importance(lt, node, P):
+    """Importance of light-tree node rows seen from P — the reference's
+    8-wide-descent formula (CoreRef.cpp:958-1002): flux attenuated by the
+    node's emission cone and 1/d², or plain flux for infinite lights."""
+    lo = lt["lo"][node]
+    hi = lt["hi"][node]
+    axis = lt["axis"][node]
+    flux = lt["flux"][node]
+    omega_n = lt["omega_n"][node]
+    omega_e = lt["omega_e"][node]
+
+    local = lo[..., 0] > -MAX_DIST
+    v = P - 0.5 * (lo + hi)
+    ext = hi - lo
+    extent = 0.5 * torch.sqrt(torch.clamp_min(dot(ext, ext, False), 0.0))
+    dist2 = torch.clamp_min(dot(v, v, False), 1e-12)
+    dist = torch.sqrt(dist2)
+    v_len2 = torch.where(local, torch.maximum(dist2, extent), 1.0)
+    cos_w = dot(axis, v, False) / dist
+    sin_w = torch.sqrt(torch.clamp_min(1.0 - cos_w * cos_w, 0.0))
+    inside = dist2 < extent * extent
+    cos_b = torch.where(
+        inside, -1.0,
+        torch.sqrt(torch.clamp_min(1.0 - (extent * extent) / dist2, 0.0)),
+    )
+    sin_b = torch.sqrt(torch.clamp_min(1.0 - cos_b * cos_b, 0.0))
+    cos_n = torch.cos(omega_n)
+    sin_n = torch.sqrt(torch.clamp_min(1.0 - cos_n * cos_n, 0.0))
+    cos_e = torch.cos(omega_e)
+
+    def _cos_sub(sa, ca, sb, cb):
+        # cos(max(a - b, 0)) — CoreRef.cpp:900-905
+        return torch.where(ca > cb, 1.0, ca * cb + sa * sb)
+
+    def _sin_sub(sa, ca, sb, cb):
+        return torch.where(ca > cb, 0.0, sa * cb - ca * sb)
+
+    cos_x = _cos_sub(sin_w, cos_w, sin_n, cos_n)
+    sin_x = _sin_sub(sin_w, cos_w, sin_n, cos_n)
+    cos_omega = _cos_sub(sin_x, cos_x, sin_b, cos_b)
+    mul = torch.where(cos_omega > cos_e, cos_omega, 0.0)
+    return torch.where(local, flux * mul / v_len2, flux)
+
+
+def _detached_tree(scene):
+    return {k: v.detach() for k, v in scene.light_tree.items()}
+
+
+def pick_light_tree(scene, P, u):
+    """Stochastic top-down descent through the binary light tree.  Returns
+    (light_idx i32, pick_pdf f32, rescaled u); pick_pdf == 0 marks a failed
+    descent (zero-importance subtree)."""
+    lt = _detached_tree(scene)
+    P = P.detach()
+    shape = P.shape[:-1]
+    node = torch.zeros(shape, dtype=torch.int32, device=P.device)
+    pdf = torch.ones(shape, dtype=torch.float32, device=P.device)
+    failed = torch.zeros(shape, dtype=torch.bool, device=P.device)
+    for _ in range(scene.light_tree_depth):
+        li = lt["left"][node]
+        ri = lt["right"][node]
+        internal = li >= 0
+        imp_l = _lnode_importance(lt, torch.clamp_min(li, 0), P)
+        imp_r = _lnode_importance(lt, torch.clamp_min(ri, 0), P)
+        total = imp_l + imp_r
+        failed = failed | (internal & (total <= 0.0))
+        p_l = safe_div_pos(imp_l, total)
+        go_left = u < p_l
+        p_take = torch.where(go_left, p_l, 1.0 - p_l)
+        u_new = torch.where(
+            go_left,
+            safe_div_pos(u, p_l),
+            safe_div_pos(u - p_l, 1.0 - p_l),
+        )
+        u = torch.where(internal, torch.clamp(u_new, 0.0, 0.9999999), u)
+        node = torch.where(internal, torch.where(go_left, li, ri), node)
+        pdf = torch.where(internal, pdf * p_take, pdf)
+    light = ~lt["left"][node]  # leaf rows encode ~light_index
+    pdf = torch.where(failed, 0.0, pdf)
+    return light, pdf, u
+
+
+def light_pick_pdf(scene, P, light_idx):
+    """Probability that NEE light picking selects ``light_idx`` from a
+    shading point P: leaf→root re-walk of the tree when hierarchical NEE is
+    on, else the static CDF pick pdf."""
+    safe_idx = torch.clamp(light_idx, 0, scene.lights["type"].shape[0] - 1)
+    if scene.light_tree_depth <= 0:
+        return scene.lights["pick_pdf"][safe_idx]
+    lt = _detached_tree(scene)
+    P = P.detach()
+    node = lt["leaf_node"][safe_idx]
+    pdf = torch.ones(node.shape, dtype=torch.float32, device=P.device)
+    for _ in range(scene.light_tree_depth):
+        par = lt["parent"][node]
+        side = lt["side"][node]
+        has = par >= 0
+        pn = torch.clamp_min(par, 0)
+        # a parent is internal, so its child codes are node indices
+        li = torch.clamp_min(lt["left"][pn], 0)
+        ri = torch.clamp_min(lt["right"][pn], 0)
+        imp_l = _lnode_importance(lt, li, P)
+        imp_r = _lnode_importance(lt, ri, P)
+        total = imp_l + imp_r
+        mine = torch.where(side == 1, imp_r, imp_l)
+        pdf = torch.where(has, pdf * safe_div_pos(mine, total), pdf)
+        node = torch.where(has, pn, node)
+    return pdf
+
+
+def sample_light_source(scene, P, T, B, N, rand_pick, rand_uv,
+                        no_sphrect: bool = False):
+    """Sample one light for each of R shading points.  Returns a
+    :class:`LightSample`; ``pdf == 0`` marks a failed/absent sample."""
+    check_light_kinds(scene)
+    if scene.mode == "tlas":
+        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
+    lights = scene.lights
+    R = P.shape[0]
+    nl = lights["type"].shape[0]
+    kinds = {k for (k, _v, _d, _p) in scene.light_kinds}
+    has_tri = LightType.TRI in kinds
+    has_env = LightType.ENV in kinds
+
+    if scene.light_tree_depth > 0:
+        # hierarchical pick (reference USE_HIERARCHICAL_NEE path)
+        idx, pick_pdf, _ = pick_light_tree(scene, P, rand_pick)
+        idx = torch.clamp(idx, 0, nl - 1)
+    else:
+        # pick by CDF (flux-proportional limit of the tree)
+        idx = torch.searchsorted(lights["pick_cdf"], rand_pick.contiguous(),
+                                 right=True).to(torch.int32)
+        idx = torch.clamp(idx, 0, nl - 1)
+        pick_pdf = lights["pick_pdf"][idx]
+
+    ltype = lights["type"][idx]
+    lcol = lights["col"][idx]
+    cast_shadow = lights["cast_shadow"][idx]
+
+    r1 = rand_uv[..., 0]
+    r2 = rand_uv[..., 1]
+
+    dev = P.device
+    out_col = lcol
+    out_L = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    out_lp = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    out_area = torch.zeros((R,), dtype=torch.float32, device=dev)
+    out_pdf = torch.zeros((R,), dtype=torch.float32, device=dev)
+    out_distmul = torch.ones((R,), dtype=torch.float32, device=dev)
+    out_fromenv = torch.zeros((R,), dtype=torch.bool, device=dev)
+
+    if has_tri:
+        # ---- triangle — CoreRef.cpp:3507-3577 ----
+        doublesided = lights["doublesided"][idx]
+        tri = torch.clamp_min(lights["tri_index"][idx], 0)
+        trow = fetch_tri_pieces(scene.tri_surf, tri, ("p0", "p1", "p2"))
+        tp0, tp1, tp2 = trow["p0"], trow["p1"], trow["p2"]
+        tfwd = cross(tp1 - tp0, tp2 - tp0)
+        tfwd_len = torch.sqrt(torch.clamp_min(dot(tfwd, tfwd, False), 1e-30))
+        tri_fwd = tfwd / tfwd_len[:, None]
+        tri_area = 0.5 * tfwd_len
+        # spherical-triangle (Arvo) solid-angle sampling with uniform-area
+        # fallback (CoreRef.cpp:3530-3556)
+        st_pdf, st_L, st_ok = sample_spherical_triangle(P, tp0, tp1, tp2, r1, r2)
+        te1 = tp1 - tp0
+        te2 = tp2 - tp0
+        st_pvec = cross(st_L, te2)
+        st_tvec = P - tp0
+        st_qvec = cross(st_tvec, te1)
+        st_det = dot(te1, st_pvec, False)
+        st_inv = _safe_div_signed(1.0, st_det, 1e-12)
+        st_u = dot(st_tvec, st_pvec, False) * st_inv
+        st_v = dot(st_L, st_qvec, False) * st_inv
+        st_lp = (
+            (1.0 - st_u - st_v)[:, None] * tp0
+            + st_u[:, None] * tp1
+            + st_v[:, None] * tp2
+        )
+        sr1 = torch.sqrt(torch.clamp_min(r1, 0.0))
+        tlp_area = (
+            tp0 * (1.0 - sr1)[:, None]
+            + sr1[:, None] * (tp1 * (1.0 - r2)[:, None] + tp2 * r2[:, None])
+        )
+        tlp = torch.where(st_ok[:, None], st_lp, tlp_area)
+        tvec = tlp - P
+        tdist = torch.sqrt(torch.clamp_min(dot(tvec, tvec, False), 1e-30))
+        tL = torch.where(st_ok[:, None], st_L, tvec / tdist[:, None])
+        tcos = -dot(tL, tri_fwd, False)
+        tcos_eff = torch.where(doublesided, torch.abs(tcos), tcos)
+        tri_ok = (ltype == LightType.TRI) & (tcos_eff > 0.0)
+        tri_pdf = torch.where(
+            st_ok,
+            st_pdf,
+            safe_div_pos(tdist * tdist, tri_area * torch.clamp_min(tcos_eff, 1e-9)),
+        )
+        tri_side = torch.where((tcos >= 0.0)[:, None], tri_fwd, -tri_fwd)
+        out_L = torch.where(tri_ok[:, None], tL, out_L)
+        out_lp = torch.where(tri_ok[:, None], offset_ray(tlp, tri_side), out_lp)
+        out_pdf = torch.where(tri_ok, tri_pdf, out_pdf)
+        out_area = torch.where(tri_ok, tri_area, out_area)
+
+    if has_env:
+        # ---- constant env — CoreRef.cpp:3578-3611: uniform hemisphere ----
+        phi_e = 2.0 * PI * r2
+        spe, cpe = torch.sin(phi_e), torch.cos(phi_e)
+        de = torch.sqrt(torch.clamp_min(1.0 - r1 * r1, 0.0))
+        env_ts = torch.stack([de * cpe, de * spe, r1], dim=-1)
+        env_L = world_from_tangent(T, B, N, env_ts)
+        env_pdf_sa = torch.full(r1.shape, 0.5 / PI, dtype=torch.float32,
+                                device=dev)
+        is_env = ltype == LightType.ENV
+        # radiance comes from env_color; the table color only weights picks
+        out_col = torch.where(is_env[:, None], env_color(scene, env_L), out_col)
+        out_L = torch.where(is_env[:, None], env_L, out_L)
+        out_lp = torch.where(is_env[:, None], P + env_L, out_lp)
+        out_pdf = torch.where(is_env, env_pdf_sa, out_pdf)
+        out_area = torch.where(is_env, 1.0, out_area)
+        out_distmul = torch.where(is_env, MAX_DIST, out_distmul)
+        out_fromenv = out_fromenv | is_env
+
+    # fold in pick probability (reference: ls.pdf /= factor)
+    out_pdf = out_pdf * pick_pdf
+
+    return LightSample(
+        col=out_col,
+        L=out_L,
+        lp=out_lp,
+        area=out_area,
+        dist_mul=out_distmul,
+        pdf=out_pdf,
+        cast_shadow=cast_shadow,
+        from_env=out_fromenv,
+    )
+
+
+def env_color(scene, L):
+    """Environment radiance along L: the constant color (reference
+    Evaluate_EnvColor, ShadeRef.cpp:1038-1076, without a map)."""
+    if scene.env_tab_h > 0:
+        raise not_ported("environment maps", "Queue 1 item 31")
+    return scene.env_col.expand(L.shape)
+
+
+def tri_light_hit_pdf(scene, prim, t, I, pick_pdf_of_light, light_id=None,
+                      ro=None):
+    """Solid-angle pdf of having NEE-sampled the emissive triangle that a
+    BSDF ray just hit — for the MIS weight at emissive hits (reference
+    ShadeRef.cpp:1502-1537): spherical-triangle solid angle from the ray
+    origin when above threshold, uniform-area form otherwise."""
+    if scene.mode == "tlas":
+        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
+    trow = fetch_tri_pieces(scene.tri_surf, prim, ("p0", "p1", "p2"))
+    p0, p1, p2 = trow["p0"], trow["p1"], trow["p2"]
+    fwd = cross(p1 - p0, p2 - p0)
+    fwd_len = torch.sqrt(torch.clamp_min(dot(fwd, fwd, False), 1e-30))
+    tri_fwd = fwd / fwd_len[:, None]
+    area = 0.5 * fwd_len
+    cos_theta = torch.abs(dot(I, tri_fwd, False))
+    pdf = safe_div_pos(t * t, area * torch.clamp_min(cos_theta, 1e-9))
+    if ro is not None:
+        zero = torch.zeros_like(t)
+        st_pdf, _, st_ok = sample_spherical_triangle(ro, p0, p1, p2, zero, zero)
+        pdf = torch.where(st_ok, st_pdf, pdf)
+    return pdf * pick_pdf_of_light

@@ -1,0 +1,200 @@
+"""Hit → differentiable surface attributes + material resolution.
+
+The port of ``ray_tpu.render.surface`` for flatten-mode scenes: barycentric
+interpolation of shading normal/UVs from the packed per-triangle row,
+geometric plane normal, backface flip + back-material select and the
+radial tangent frame — all recomputed from the scene tables, so gradients
+flow to vertices and normals through the detached hit record.
+
+``ray_tpu`` reads the packed row with a one-hot matmul (a TPU layout
+device); here it is plain indexing, with the same values.  Mix resolution,
+normal mapping and the per-material tangent rotation stay the pass-throughs
+they are in ``ray_tpu`` when the scene has none; a scene that has them
+raises (ROADMAP Queue 1 items 29 and 32).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ray_tpu_torch._roadmap import not_ported
+from ray_tpu_torch.ops.linalg import cross, dot, safe_normalize
+
+
+class Surface(NamedTuple):
+    """Analogue of the reference's ``surface_t`` (internal/CoreRef.h:108)."""
+
+    P: torch.Tensor        # (R, 3) hit position
+    N: torch.Tensor        # (R, 3) shading normal (flipped to front side)
+    plane_N: torch.Tensor  # (R, 3) geometric normal (flipped)
+    T: torch.Tensor        # (R, 3)
+    B: torch.Tensor        # (R, 3)
+    uv: torch.Tensor       # (R, 2)
+    backfacing: torch.Tensor  # (R,) bool
+    tri_area: torch.Tensor    # (R,) world-space triangle area
+    lod_base: torch.Tensor    # (R,) 0.5·log2(ta/pa) cone-LOD term
+    duv_major_unit: torch.Tensor  # (R, 2) UV direction of the footprint's major axis
+    aniso_elong: torch.Tensor     # (R,) footprint elongation 1/|cosθ| - 1
+    raw_tangent: torch.Tensor     # (R, 3) unorthonormalized radial tangent
+
+
+# named pieces of the packed (T, 41) tri_surf row (scene._pack_tri_surf):
+# p0 p1 p2 | n0 n1 n2 | uv0 uv1 uv2 | mat_f mat_b | solid_f solid_b |
+# light | tanq tanq0 (affine world→object-radial-tangent map)
+TRI_PIECES = {
+    "p0": (0, 3), "p1": (3, 6), "p2": (6, 9),
+    "n0": (9, 12), "n1": (12, 15), "n2": (15, 18),
+    "uv0": (18, 20), "uv1": (20, 22), "uv2": (22, 24),
+    "mat_f": (24, 25), "mat_b": (25, 26),
+    "solid_f": (26, 27), "solid_b": (27, 28),
+    "light": (28, 29),
+    "tanq": (29, 38), "tanq0": (38, 41),
+}
+
+
+def fetch_tri_pieces(table, prim, keys):
+    """Per-hit reads of named pieces of a packed (T, C) row table: one row
+    gather over the span the keys need.  Returns {key: (R, k) or (R,)} —
+    scalar pieces (k == 1) are squeezed.  Misses (prim < 0) read row 0."""
+    i = torch.clamp_min(prim, 0).long()
+    a_min = min(TRI_PIECES[k][0] for k in keys)
+    b_max = max(TRI_PIECES[k][1] for k in keys)
+    rows = table[:, a_min:b_max][i]
+    out = {}
+    for k in keys:
+        a, b = TRI_PIECES[k]
+        v = rows[:, a - a_min:b - a_min]
+        out[k] = v[:, 0] if b - a == 1 else v
+    return out
+
+
+_DEFAULT_KEYS = tuple(k for k in TRI_PIECES if k not in ("tanq", "tanq0"))
+
+
+def fetch_tri_row(scene, prim, keys=None):
+    """Per-hit surface attributes as a dict of named pieces (see
+    ``TRI_PIECES``); default: everything but the tangent map."""
+    return fetch_tri_pieces(
+        scene.tri_surf, prim, _DEFAULT_KEYS if keys is None else keys
+    )
+
+
+def hit_light_id(scene, prim, inst=None, row=None):
+    """Light id of an emissive hit triangle (-1 if not a light)."""
+    if scene.mode == "tlas":
+        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
+    if row is None:
+        row = fetch_tri_row(scene, prim)
+    return row["light"].to(torch.int32)
+
+
+def compute_surface(scene, prim, u, v, backface, ro, rd, t, inst=None,
+                    row=None):
+    """Interpolate differentiable surface attributes for hit triangles.
+    ``row``: optional pre-fetched :func:`fetch_tri_row` result shared with
+    the other per-hit lookups."""
+    if scene.mode == "tlas":
+        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
+    if row is None:
+        row = fetch_tri_row(scene, prim)
+    p0, p1, p2 = row["p0"], row["p1"], row["p2"]
+    n0, n1, n2 = row["n0"], row["n1"], row["n2"]
+    uv0, uv1, uv2 = row["uv0"], row["uv1"], row["uv2"]
+
+    w = (1.0 - u - v)[:, None]
+    uc, vc = u[:, None], v[:, None]
+    # position from barycentrics keeps the gradient path through geometry
+    P = w * p0 + uc * p1 + vc * p2
+    N = safe_normalize(w * n0 + uc * n1 + vc * n2)
+    uv = w * uv0 + uc * uv1 + vc * uv2
+
+    fwd = cross(p1 - p0, p2 - p0)
+    fwd_len = torch.sqrt(torch.clamp_min(dot(fwd, fwd, False), 1e-30))
+    plane_N = fwd / fwd_len[:, None]
+    tri_area = 0.5 * fwd_len
+
+    # texture-space over world parallelogram area: the geometry half of the
+    # ray-cone LOD λ (reference ShadeRef.cpp:1279-1283)
+    e1, e2 = uv1 - uv0, uv2 - uv0
+    ta = torch.abs(e1[:, 0] * e2[:, 1] - e2[:, 0] * e1[:, 1])
+    lod_base = 0.5 * torch.log2(
+        torch.clamp_min(ta, 1e-30) / torch.clamp_min(fwd_len, 1e-30)
+    )
+
+    flip = backface[:, None]
+    N = torch.where(flip, -N, N)
+    plane_N = torch.where(flip, -plane_N, plane_N)
+
+    # radial tangent (ShadeRef.cpp:1355-1366): flatten mode bakes the affine
+    # map Q·P + q0 from the world hit point per triangle
+    tq = fetch_tri_pieces(scene.tri_surf, prim, ("tanq", "tanq0"))
+    Q = tq["tanq"].reshape(-1, 3, 3)
+    tangent = (
+        Q[:, :, 0] * P[:, 0:1] + Q[:, :, 1] * P[:, 1:2] + Q[:, :, 2] * P[:, 2:3]
+    ) + tq["tanq0"]
+    tn = cross(tangent, N)
+    degenerate = dot(tn, tn, False) < 1e-20
+    tangent = torch.where(degenerate[:, None], P, tangent)
+    B = safe_normalize(cross(tangent, N))
+    T = cross(N, B)
+
+    # anisotropic footprint: the view direction projected into the surface
+    # plane, mapped world→UV through the triangle edges; detached
+    with torch.no_grad():
+        cosv = torch.abs(dot(rd, plane_N, False))
+        t_w = rd - dot(rd, plane_N) * plane_N
+        t_w = t_w / torch.sqrt(torch.clamp_min(dot(t_w, t_w, False), 1e-20))[:, None]
+        we1, we2 = p1 - p0, p2 - p0
+        g11 = dot(we1, we1, False)
+        g12 = dot(we1, we2, False)
+        g22 = dot(we2, we2, False)
+        b1 = dot(we1, t_w, False)
+        b2 = dot(we2, t_w, False)
+        det = torch.clamp_min(g11 * g22 - g12 * g12, 1e-20)
+        ca = (g22 * b1 - g12 * b2) / det
+        cb = (g11 * b2 - g12 * b1) / det
+        duv_major_unit = ca[:, None] * e1 + cb[:, None] * e2
+        aniso_elong = 1.0 / torch.clamp_min(cosv, 0.05) - 1.0
+
+    return Surface(P=P, N=N, plane_N=plane_N, T=T, B=B, uv=uv,
+                   backfacing=backface, tri_area=tri_area, lod_base=lod_base,
+                   duv_major_unit=duv_major_unit, aniso_elong=aniso_elong,
+                   raw_tangent=tangent)
+
+
+def apply_tangent_rotation(scene, mat_id, surf: Surface):
+    """Per-material tangent rotation: a static no-op when no material
+    rotates."""
+    if scene.has_aniso_rotation:
+        raise not_ported("anisotropic tangent rotation", "Queue 1 item 32")
+    return surf
+
+
+def pick_hit_material(scene, prim, backface, row=None):
+    """Front/back material id per hit (reference tri_mat_data_t select,
+    ShadeRef.cpp:1256-1266). Returns -1 where no material applies."""
+    if row is None:
+        row = fetch_tri_row(scene, prim)
+    front = row["mat_f"].to(torch.int32)
+    back = row["mat_b"].to(torch.int32)
+    return torch.where(backface, back, front)
+
+
+def resolve_mix(scene, mat_id, uv, mix_rand, I, N, ext_ior, backfacing,
+                tex_rand, lam=None, fetch_kw=None, use_fresnel=True):
+    """Stochastic Mix-node resolution: returns (leaf_mat_id, mix_rand,
+    mix_weight) — a static pass-through when the scene has no Mix node."""
+    if scene.has_mix:
+        raise not_ported("Mix nodes", "Queue 1 item 29")
+    return mat_id, mix_rand, torch.ones_like(mix_rand)
+
+
+def apply_normal_map(scene, mat_id, surf: Surface, I, tex_rand, lam=None,
+                     fetch_kw=None):
+    """Tangent-space normal mapping: a static no-op when no material has a
+    normal map."""
+    if scene.has_normal_maps:
+        raise not_ported("normal maps", "Queue 1 item 32")
+    return surf

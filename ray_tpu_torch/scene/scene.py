@@ -1,0 +1,571 @@
+"""Scene container + finalize ("scene compile"), flatten mode.
+
+The port of ``ray_tpu.scene.scene``: the same imperative builder verbs and
+the same flatten-mode finalize, so a scene compiles to tables identical to
+``ray_tpu``'s bit for bit.  The result is a :class:`SceneFlat` — a frozen
+dataclass of torch tensors on one device (the render device), with the same
+field names and static fields as ``ray_tpu``'s pytree.
+
+Not ported yet, and raising ``NotImplementedError`` with the ROADMAP entry
+that will port it: textures and env maps, the two-level TLAS finalize, the
+physical sky, the native/SBVH/HLBVH builders and the 8-wide BVH layout that
+``ray_tpu`` adds past 256 triangles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._roadmap import not_ported
+from ray_tpu_torch.scene import lights as lights_mod
+from ray_tpu_torch.scene.bvh import (
+    build_bvh2,
+    bvh_depth,
+    pack_bvh_soa,
+    pack_tri_soa,
+    tri_bounds,
+)
+from ray_tpu_torch.scene.camera import Camera
+from ray_tpu_torch.scene.lights import LightDesc, LightType, pack_lights
+from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode, pack_materials
+from ray_tpu_torch.scene.visibility import RAY_ALL
+
+# ray_tpu adds an 8-wide BVH layout ("wrows") above this many triangles
+WIDE_BVH_MIN_TRIS = 256
+
+
+def resolve_device(device=None) -> torch.device:
+    """The render device: CUDA unless the caller names another.  With no
+    CUDA device and no explicit ``device`` this raises instead of falling
+    back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ray_tpu_torch renders on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return torch.device("cuda")
+
+
+def _to_torch(x, device):
+    """numpy array / dict of arrays / None → tensors on ``device``."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _to_torch(v, device) for k, v in x.items()}
+    a = np.array(x, copy=True, order="C")  # keeps 0-dim arrays 0-dim
+    return torch.from_numpy(a).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneFlat:
+    """Frozen, device-resident scene: every array field is a torch tensor
+    (or a dict of tensors) on one device.  Field names, layouts and static
+    fields are ``ray_tpu.scene.scene.SceneFlat``'s."""
+
+    # geometry (world space)
+    vertices: Any        # (V, 3) f32
+    normals: Any         # (V, 3) f32 shading normals
+    uvs: Any             # (V, 2) f32
+    tri_vidx: Any        # (T, 3) i32, in BVH leaf order
+    tri_mat: Any         # (T, 2) i32 front/back material ids (-1 = none)
+    tri_light: Any       # (T,) i32 light id for emissive tris (-1 = none)
+    bvh_soa: Any         # dict of (N,) node columns + packed (N, 14) rows
+    tri_soa: Any         # dict of (T,) columns + packed (T, 9), leaf order
+    root_lo: Any         # (3,) f32
+    root_hi: Any         # (3,) f32
+    materials: Any       # dict of SoA columns (differentiable leaves)
+    lights: Any          # dict of SoA columns
+    textures: Any        # dict: flat texel buffer + records
+    env_col: Any         # (3,) f32 multiplier/color
+    env_map: Any         # () i32 texture id (-1 = constant color)
+    env_rotation: Any    # () f32 y-rotation, radians
+    env_marginal_cdf: Any  # (H,) f32
+    env_cond_cdf: Any      # (H*W,) f32 row-major
+    env_pdf: Any           # (H*W,) f32 solid-angle pdf
+    light_tree: Any        # dict of node columns + per-light links
+    # static metadata
+    max_leaf: int
+    num_lights: int
+    env_light_index: int
+    stack_size: int
+    light_kinds: tuple     # per light (type, visible, doublesided, sky_portal)
+    env_tab_w: int
+    env_tab_h: int
+    light_tree_depth: int = 0
+    mode: str = "flatten"
+    has_visibility: bool = False
+    tri_vis: Any = None          # (T,) i32 visibility per leaf tri
+    inst: Any = None             # tlas only
+    tri_light_local: Any = None  # tlas only
+    tri_solid: Any = None        # (T, 2) bool front/back side blocks shadows
+    has_transparency: bool = False
+    tri_surf: Any = None         # (T, 41) packed per-triangle surface row
+    has_textures: bool = True
+    has_mix: bool = True
+    has_normal_maps: bool = True
+    has_aniso_rotation: bool = False
+    mat_types: tuple = (0, 1, 2, 3, 4, 5, 6)
+
+    @property
+    def num_tris(self) -> int:
+        return int(self.tri_vidx.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.vertices.device
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, static: dict, device=None) -> "SceneFlat":
+        """Build the port's scene from a finalized ``ray_tpu`` scene given
+        as numpy: ``arrays`` maps every array field to an array, a dict of
+        arrays or None; ``static`` maps every static field to its value.
+        Float tables (materials, ``env_col``) come across unchanged."""
+        device = resolve_device(device)
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = (set(arrays) | set(static)) - names
+        if unknown:
+            raise ValueError(f"unknown SceneFlat fields: {sorted(unknown)}")
+        kw = {k: _to_torch(v, device) for k, v in arrays.items()}
+        kw.update({k: static[k] for k in static})
+        return cls(**kw)
+
+
+# radial-tangent rotation: maps a local position to (-z, 0, x)
+# (the reference's "rotate around Y by 90 degrees in 2d", ShadeRef.cpp:1357)
+_R90 = np.array([[0.0, 0.0, -1.0],
+                 [0.0, 0.0, 0.0],
+                 [1.0, 0.0, 0.0]], np.float64)
+
+
+def _pack_tri_surf(vertices, normals, uvs, tri_vidx, tri_mats, tri_solid,
+                   tri_light, tangent_q=None, tangent_q0=None):
+    """Per-triangle surface attributes as one (T, 41) f32 row.  Layout:
+    p0 p1 p2 (9) | n0 n1 n2 (9) | uv0 uv1 uv2 (6) | mat_f mat_b (2) |
+    solid_f solid_b (2) | light (1) | tanq (9) | tanq0 (3).  Int columns
+    ride as exact f32 (< 2^24).  ``tangent_q``/``tangent_q0``: the affine
+    map from the world hit position to the object-space radial tangent."""
+    p = vertices[tri_vidx]            # (T, 3, 3)
+    n = normals[tri_vidx]
+    t = uvs[tri_vidx]                 # (T, 3, 2)
+    T = tri_vidx.shape[0]
+    if tangent_q is None:
+        tangent_q = np.broadcast_to(_R90, (T, 3, 3))
+    if tangent_q0 is None:
+        tangent_q0 = np.zeros((T, 3), np.float64)
+    return np.concatenate([
+        p.reshape(T, 9).astype(np.float32),
+        n.reshape(T, 9).astype(np.float32),
+        t.reshape(T, 6).astype(np.float32),
+        tri_mats.astype(np.float32),
+        tri_solid.astype(np.float32),
+        tri_light.astype(np.float32)[:, None],
+        np.ascontiguousarray(tangent_q.reshape(T, 9)).astype(np.float32),
+        np.ascontiguousarray(tangent_q0.reshape(T, 3)).astype(np.float32),
+    ], axis=1)
+
+
+def empty_texture_table() -> dict:
+    """The texture table of a scene without textures — what
+    ``ray_tpu.scene.textures.TexturePacker().pack()`` returns."""
+    return {
+        "texels_t": np.ascontiguousarray(np.zeros((1, 4), np.float32).T),
+        "tex_offset": np.zeros(1, np.int32),
+        "tex_w": np.ones(1, np.int32),
+        "tex_h": np.ones(1, np.int32),
+        "tex_fmt": np.zeros(1, np.int32),
+        "tex_boff": np.zeros(1, np.int32),
+        "tex_bw": np.zeros(1, np.int32),
+        "tex_mip0": np.zeros(1, np.int32),
+        "tex_mips": np.ones(1, np.int32),
+    }
+
+
+@dataclasses.dataclass
+class _Mesh:
+    vertices: np.ndarray
+    normals: np.ndarray
+    uvs: np.ndarray
+    indices: np.ndarray
+    tri_mat: np.ndarray  # (T,2) front/back material ids
+
+
+class Scene:
+    """Mutable scene builder (the verbs of ``ray_tpu.scene.scene.Scene``)."""
+
+    def __init__(self):
+        self._materials: list[MaterialDesc] = []
+        self._meshes: list[_Mesh] = []
+        self._instances: list[tuple[int, Optional[np.ndarray], int]] = []
+        self._lights: list[LightDesc] = []
+        self.env_col = np.array([0.0, 0.0, 0.0], np.float32)
+        self.env_map = -1
+        self.env_rotation = 0.0
+        self.camera: Optional[Camera] = None
+
+    # -- resources ---------------------------------------------------------
+    def add_texture(self, image, srgb: bool = False,
+                    generate_mips: bool = True, compress: bool = False) -> int:
+        raise not_ported("textures", "Queue 1 item 16")
+
+    def add_material(self, desc: MaterialDesc) -> int:
+        from ray_tpu_torch.scene.materials import NO_TEXTURE
+
+        if desc.type == ShadingNode.PRINCIPLED and (
+                desc.alpha != 1.0 or desc.alpha_texture != NO_TEXTURE):
+            # ray_tpu expands principled alpha into Mix(Transparent, root)
+            raise not_ported("principled alpha (Mix + Transparent nodes)",
+                             "Queue 1 item 29")
+        self._materials.append(desc)
+        return len(self._materials) - 1
+
+    def add_mesh(
+        self,
+        vertices,
+        indices,
+        normals=None,
+        uvs=None,
+        material: int = 0,
+        back_material: Optional[int] = None,
+        tri_materials=None,
+    ) -> int:
+        """Add an indexed triangle mesh.  ``tri_materials``: optional (T, 2)
+        per-triangle front/back material ids."""
+        v = np.asarray(vertices, np.float32).reshape(-1, 3)
+        idx = np.asarray(indices, np.int32).reshape(-1, 3)
+        if normals is None:
+            normals = compute_vertex_normals(v, idx)
+        n = np.asarray(normals, np.float32).reshape(-1, 3)
+        if uvs is None:
+            uvs = np.zeros((v.shape[0], 2), np.float32)
+        uv = np.asarray(uvs, np.float32).reshape(-1, 2)
+        if tri_materials is not None:
+            tm = np.asarray(tri_materials, np.int32).reshape(-1, 2)
+        else:
+            bm = material if back_material is None else back_material
+            tm = np.tile(
+                np.array([[material, bm]], np.int32), (idx.shape[0], 1)
+            )
+        if tm.shape[0] != idx.shape[0]:
+            raise ValueError("tri_materials needs one row per triangle")
+        self._meshes.append(_Mesh(v, n, uv, idx, tm))
+        return len(self._meshes) - 1
+
+    def add_instance(self, mesh: int, xform=None, visibility: int = None) -> int:
+        """Add a mesh instance: 4×4 transform + per-ray-type visibility
+        bitmask (scene.visibility; default visible to every ray type)."""
+        xf = None if xform is None else np.asarray(xform, np.float32).reshape(4, 4)
+        vis = RAY_ALL if visibility is None else int(visibility)
+        self._instances.append((mesh, xf, vis))
+        return len(self._instances) - 1
+
+    def add_light(self, desc: LightDesc) -> int:
+        self._lights.append(desc)
+        return len(self._lights) - 1
+
+    def set_environment(self, color=(0, 0, 0), map_id: int = -1,
+                        rotation: float = 0.0):
+        if int(map_id) >= 0:
+            raise not_ported("environment maps", "Queue 1 item 31")
+        self.env_col = np.asarray(color, np.float32)
+        self.env_map = int(map_id)
+        self.env_rotation = float(rotation)
+
+    def set_camera(self, cam: Camera):
+        self.camera = cam
+
+    # -- finalize ----------------------------------------------------------
+    def finalize(self, device=None, max_leaf: int | None = None,
+                 light_tree_min_lights: int = 2,
+                 instancing: str = "auto") -> SceneFlat:
+        """Compile to a :class:`SceneFlat` on ``device`` (default: CUDA;
+        raises ``RuntimeError`` when there is none and no device is given).
+
+        ``instancing``: 'flatten' pre-transforms every instance to world
+        space and builds one BVH; 'auto' picks it unless a mesh is instanced
+        more than once, which needs the two-level TLAS compile.
+        ``max_leaf`` defaults to 8, as in ``ray_tpu``'s flatten mode."""
+        device = resolve_device(device)
+        if not self._instances:
+            for m in range(len(self._meshes)):
+                self._instances.append((m, None, RAY_ALL))
+        has_vis = any(v != RAY_ALL for _, _, v in self._instances)
+
+        if instancing == "auto":
+            ids = [i[0] for i in self._instances]
+            instancing = "tlas" if len(ids) != len(set(ids)) else "flatten"
+        if instancing == "tlas":
+            raise not_ported("the two-level TLAS finalize", "Queue 1 item 17")
+        if instancing != "flatten":
+            raise ValueError(f"unknown instancing mode {instancing!r}")
+        return self._finalize_flatten(
+            max_leaf if max_leaf is not None else 8,
+            light_tree_min_lights, has_vis, device,
+        )
+
+    def _material_solidity(self) -> np.ndarray:
+        """Per-material shadow solidity: True iff the Mix DAG below the
+        material contains no TRANSPARENT leaf."""
+        mats = self._materials if self._materials else [MaterialDesc()]
+        solid = np.ones(len(mats), np.bool_)
+        for i, d in enumerate(mats):
+            stack = [i]
+            seen = set()
+            while stack:
+                j = stack.pop()
+                if j < 0 or j >= len(mats) or j in seen:
+                    continue
+                seen.add(j)
+                m = mats[j]
+                if m.type == ShadingNode.TRANSPARENT:
+                    solid[i] = False
+                    break
+                if m.type == ShadingNode.MIX:
+                    stack.extend(m.mix_materials)
+        return solid
+
+    def _tri_solidity(self, tri_mats: np.ndarray) -> np.ndarray:
+        """(T, 2) per-side shadow-blocker flags from leaf-order materials
+        (missing material = solid)."""
+        solid = self._material_solidity()
+        out = np.ones(tri_mats.shape, np.bool_)
+        valid = (tri_mats >= 0) & (tri_mats < solid.shape[0])
+        out[valid] = solid[tri_mats[valid]]
+        return out
+
+    def _emissive_light_of(self, mat_id: int):
+        """TRI-light registration rule: (radiance color, two_sided) for
+        emissive importance-sampled materials, else None."""
+        mats = self._materials if self._materials else [MaterialDesc()]
+        if mat_id < 0 or mat_id >= len(mats):
+            return None
+        d = mats[mat_id]
+        emissive = d.type == ShadingNode.EMISSIVE or (
+            d.type == ShadingNode.PRINCIPLED
+            and max(d.emission_color) * d.emission_strength > 0.0
+        )
+        if not (emissive and d.importance_sample):
+            return None
+        if d.type == ShadingNode.EMISSIVE:
+            col = np.asarray(d.base_color) * d.strength
+        else:
+            col = np.asarray(d.emission_color) * d.emission_strength
+        return col, d.two_sided
+
+    def _finalize_flatten(self, max_leaf, light_tree_min_lights, has_vis,
+                          device):
+        verts, norms, uvs, tris, tri_mat, tri_vis = [], [], [], [], [], []
+        tan_q, tan_q0 = [], []
+        voffset = 0
+        for mesh_id, xf, vis in self._instances:
+            m = self._meshes[mesh_id]
+            v, n = m.vertices, m.normals
+            nt = m.indices.shape[0]
+            if xf is not None:
+                r = xf[:3, :3]
+                t = xf[:3, 3]
+                v = v @ r.T + t
+                rinv = np.linalg.inv(np.asarray(r, np.float64))
+                n_mat = rinv.T
+                n = n @ n_mat.T
+                n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+                q = n_mat @ _R90 @ rinv
+                q0 = -(q @ np.asarray(t, np.float64))
+            else:
+                q = _R90
+                q0 = np.zeros(3, np.float64)
+            tan_q.append(np.broadcast_to(q, (nt, 3, 3)))
+            tan_q0.append(np.broadcast_to(q0, (nt, 3)))
+            verts.append(v.astype(np.float32))
+            norms.append(n.astype(np.float32))
+            uvs.append(m.uvs)
+            tris.append(m.indices + voffset)
+            tri_mat.append(m.tri_mat)
+            tri_vis.append(np.full(m.indices.shape[0], vis, np.int32))
+            voffset += v.shape[0]
+        tangent_q = (np.concatenate(tan_q) if tan_q
+                     else np.broadcast_to(_R90, (1, 3, 3)))
+        tangent_q0 = (np.concatenate(tan_q0) if tan_q0
+                      else np.zeros((1, 3), np.float64))
+
+        vertices = np.concatenate(verts) if verts else np.zeros((3, 3), np.float32)
+        normals = np.concatenate(norms) if norms else np.zeros((3, 3), np.float32)
+        uv = np.concatenate(uvs) if uvs else np.zeros((3, 2), np.float32)
+        tri_vidx = (
+            np.concatenate(tris) if tris else np.array([[0, 1, 2]], np.int32)
+        )
+        tri_mats = (
+            np.concatenate(tri_mat) if tri_mat else np.full((1, 2), -1, np.int32)
+        )
+        tri_viss = (
+            np.concatenate(tri_vis) if tri_vis
+            else np.full(1, 0x7fffffff, np.int32)
+        )
+        if tri_vidx.shape[0] > WIDE_BVH_MIN_TRIS:
+            raise not_ported(
+                f"the 8-wide BVH layout ({tri_vidx.shape[0]} triangles)",
+                "Queue 1 item 15")
+
+        # BVH over world-space triangles; permute tri arrays to leaf order so
+        # the traversal kernel indexes them directly (no extra indirection).
+        lo, hi = tri_bounds(vertices, tri_vidx)
+        bvh = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True)
+        perm = bvh.prim_indices
+        tri_vidx = tri_vidx[perm]
+        tri_mats = tri_mats[perm]
+        tri_viss = tri_viss[perm]
+        tangent_q = tangent_q[perm]
+        tangent_q0 = tangent_q0[perm]
+
+        # emissive triangles with importance_sample → TRI lights
+        light_descs = list(self._lights)
+        tri_areas = {}
+        tri_light = np.full(tri_vidx.shape[0], -1, np.int32)
+        for t in range(tri_vidx.shape[0]):
+            em = self._emissive_light_of(int(tri_mats[t, 0]))
+            if em is None:
+                continue
+            col, two_sided = em
+            p = vertices[tri_vidx[t]]
+            area = 0.5 * np.linalg.norm(np.cross(p[1] - p[0], p[2] - p[0]))
+            li = len(light_descs)
+            light_descs.append(
+                LightDesc(
+                    type=LightType.TRI,
+                    color=tuple(col),
+                    tri_index=int(t),
+                    doublesided=two_sided,
+                    tri_verts=np.asarray(p, np.float32),
+                )
+            )
+            tri_areas[li] = float(area)
+            tri_light[t] = li
+
+        common = self._pack_common(
+            light_descs, tri_areas, vertices, tri_vidx, light_tree_min_lights
+        )
+        tri_solid = self._tri_solidity(tri_mats)
+        arrays = {
+            "vertices": vertices,
+            "normals": normals,
+            "uvs": uv,
+            "tri_vidx": tri_vidx,
+            "tri_mat": tri_mats,
+            "tri_light": tri_light,
+            "tri_vis": tri_viss,
+            "tri_solid": tri_solid,
+            "tri_surf": _pack_tri_surf(
+                vertices, normals, uv, tri_vidx, tri_mats, tri_solid,
+                tri_light, tangent_q=tangent_q, tangent_q0=tangent_q0,
+            ),
+            "bvh_soa": pack_bvh_soa(bvh),
+            "tri_soa": pack_tri_soa(vertices, tri_vidx),
+            "root_lo": bvh.root_lo,
+            "root_hi": bvh.root_hi,
+            **common["arrays"],
+        }
+        static = {
+            "max_leaf": max_leaf,
+            "stack_size": bvh_depth(bvh) + 4,
+            "mode": "flatten",
+            "has_visibility": has_vis,
+            "has_transparency": not bool(self._material_solidity().all()),
+            **common["static"],
+        }
+        return SceneFlat.from_numpy(arrays, static, device)
+
+    def _pack_common(self, light_descs, tri_areas, vertices, tri_vidx,
+                     light_tree_min_lights):
+        """Mode-independent tail of finalize: env light + material/light/
+        texture tables + light tree + (constant-env) importance tables."""
+        env_light_index = -1
+        if float(np.max(self.env_col)) > 0.0 or self.env_map >= 0:
+            env_light_index = len(light_descs)
+            light_descs.append(
+                LightDesc(type=LightType.ENV, color=tuple(self.env_col))
+            )
+
+        materials = pack_materials(self._materials)
+        lights = pack_lights(light_descs, tri_areas)
+
+        light_tree_depth = 0
+        if len(light_descs) >= light_tree_min_lights:
+            from ray_tpu_torch.scene.light_tree import (
+                build_light_tree,
+                light_bounds_and_cones,
+            )
+
+            bounds = light_bounds_and_cones(
+                light_descs, vertices, tri_vidx, tri_areas, env_mean_lum=1.0,
+            )
+            light_tree, light_tree_depth = build_light_tree(bounds)
+        else:
+            light_tree = {
+                "lo": np.zeros((1, 3), np.float32),
+                "hi": np.zeros((1, 3), np.float32),
+                "axis": np.zeros((1, 3), np.float32),
+                "flux": np.zeros(1, np.float32),
+                "omega_n": np.zeros(1, np.float32),
+                "omega_e": np.zeros(1, np.float32),
+                "left": np.full(1, -1, np.int32),
+                "right": np.full(1, -1, np.int32),
+                "parent": np.full(1, -1, np.int32),
+                "side": np.zeros(1, np.int32),
+                "leaf_node": np.zeros(max(len(light_descs), 1), np.int32),
+            }
+
+        return {
+            "arrays": {
+                "materials": materials,
+                "lights": lights,
+                "textures": empty_texture_table(),
+                "env_col": self.env_col,
+                "env_map": np.int32(self.env_map),
+                "env_rotation": np.float32(self.env_rotation),
+                "env_marginal_cdf": np.ones(1, np.float32),
+                "env_cond_cdf": np.ones(1, np.float32),
+                "env_pdf": np.full(1, 0.25 / np.pi, np.float32),
+                "light_tree": light_tree,
+            },
+            "static": {
+                "num_lights": len(light_descs),
+                "env_light_index": env_light_index,
+                "has_textures": False,
+                "has_mix": any(
+                    d.type == ShadingNode.MIX for d in self._materials
+                ),
+                "has_normal_maps": any(
+                    d.normal_map >= 0 for d in self._materials
+                ),
+                "has_aniso_rotation": any(
+                    d.anisotropic_rotation != 0.0 for d in self._materials
+                ),
+                "mat_types": tuple(
+                    sorted({int(d.type) for d in self._materials})
+                ) or (ShadingNode.DIFFUSE,),
+                "light_kinds": tuple(
+                    (int(d.type), lights_mod.effective_visible(d),
+                     bool(d.doublesided), bool(d.sky_portal))
+                    for d in light_descs
+                ),
+                "env_tab_w": 0,
+                "env_tab_h": 0,
+                "light_tree_depth": light_tree_depth,
+            },
+        }
+
+
+def compute_vertex_normals(vertices: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Area-weighted smooth vertex normals."""
+    p = vertices[indices]
+    fn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    out = np.zeros_like(vertices)
+    for k in range(3):
+        np.add.at(out, indices[:, k], fn)
+    norm = np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-12)
+    return (out / norm).astype(np.float32)

@@ -1,0 +1,93 @@
+"""The port's CUDA kernels on the card (skipped on machines without CUDA).
+
+Run on a CUDA machine with
+``python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`` (the
+suite's conftest needs JAX, which the port does not); ``chip_smoke.py``
+runs the same checks at the flagship frame's full size.  Each kernel is
+held bit-exact against its plain PyTorch version, and the flagship path
+is shown to launch it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels build there)")
+
+
+def _case(n_tris, n_rays, seed):
+    r = np.random.RandomState(seed)
+    tris = ((r.rand(n_tris, 1, 3) - 0.5) * 10.0
+            + (r.rand(n_tris, 3, 3) - 0.5) * max(0.8, 12.0 / np.sqrt(n_tris)))
+    ro = (r.rand(n_rays, 3) - 0.5) * 12.0
+    rd = (r.rand(n_rays, 3) - 0.5) * 6.0 - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    dev = torch.device("cuda")
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return (f(tris.reshape(n_tris, 9)), f(ro), f(rd),
+            torch.zeros(n_rays, device=dev),
+            f(np.where(r.rand(n_rays) < 0.8, 1e30, r.rand(n_rays) * 8.0)),
+            torch.tensor(r.rand(n_rays) < 0.9, device=dev))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_tris", [1, 8, 24, 33, 40])
+def test_trace_brute_kernel_bit_exact(n_tris, any_hit):
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops.traverse import trace_brute, trace_brute_plain
+
+    case = _case(n_tris, 300_001, n_tris)
+    before = cuda_build.launch_counts.copy()
+    k = trace_brute(*case, any_hit=any_hit)
+    p = trace_brute_plain(*case, any_hit=any_hit)
+    torch.cuda.synchronize()
+    name = "trace_brute_anyhit" if any_hit else "trace_brute_closest"
+    assert cuda_build.launch_counts[name] == before[name] + 1
+    for f in k._fields:
+        a, b = getattr(k, f), getattr(p, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+def test_trace_brute_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops.traverse import trace_brute
+
+    tris, ro, rd, tmin, tmax, act = _case(8, 64, 0)
+    with pytest.raises(ValueError):
+        trace_brute(tris, ro[:, :2].contiguous(), rd, tmin, tmax, act)
+    with pytest.raises(ValueError):
+        trace_brute(tris, ro.t().contiguous().t(), rd, tmin, tmax, act)
+    with pytest.raises(TypeError):
+        trace_brute(tris, ro.double(), rd, tmin, tmax, act)
+    with pytest.raises(ValueError):
+        trace_brute(tris, ro.cpu(), rd, tmin, tmax, act)
+    with pytest.raises(ValueError):
+        trace_brute(_case(41, 64, 0)[0], ro, rd, tmin, tmax, act)
+
+
+def test_flagship_tile_launches_the_kernel():
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    sc, cam = cornell_scene()
+    scene = sc.finalize()
+    assert scene.device.type == "cuda"
+    cuda_build.reset_launch_counts()
+    out = render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                      height=1080, tile_w=256, tile_h=128,
+                      settings=PassSettings(max_total_depth=5,
+                                            min_total_depth=2),
+                      use_filter_table=False)
+    assert bool(torch.isfinite(out["color"]).all())
+    assert cuda_build.launch_counts["trace_brute_closest"] == 6
+    assert cuda_build.launch_counts["trace_brute_anyhit"] == 6

@@ -1,0 +1,95 @@
+"""ray_tpu_torch stands alone: no JAX, no ray_tpu, CUDA by default.
+
+(a) A fresh interpreter imports ray_tpu_torch and renders a tiny CPU tile;
+    afterwards neither ``jax`` nor any ``ray_tpu`` module is loaded.
+(b) No file under ``ray_tpu_torch/`` imports ``jax`` or ``ray_tpu``.
+(c) On a machine without CUDA, ``finalize()`` with no device raises
+    ``RuntimeError`` instead of falling back to the CPU.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "ray_tpu_torch"
+
+_CHILD = r"""
+import sys
+import ray_tpu_torch
+from ray_tpu_torch.render.integrator import PassSettings, render_tile
+from ray_tpu_torch.utils.test_scenes import cornell_scene
+sc, cam = cornell_scene()
+out = render_tile(sc.finalize(device="cpu"), cam, None, 0, 0, 1, 0,
+                  width=16, height=12, tile_w=16, tile_h=12,
+                  settings=PassSettings(max_total_depth=2),
+                  use_filter_table=False)
+assert out["color"].shape == (192, 3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_and_render_load_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=str(ROOT),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_ray_tpu_imports(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "ray_tpu"), (path, name)
+
+
+def test_chip_smoke_imports_no_jax():
+    for name in _imports(ROOT / "chip_smoke.py"):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "ray_tpu"), name
+
+
+def test_finalize_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: finalize() would use it")
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    sc, _ = cornell_scene()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sc.finalize()
+
+
+def test_kernel_wrapper_never_falls_back():
+    """On a non-CPU, non-CUDA device the wrapper raises rather than running
+    the plain version."""
+    from ray_tpu_torch.ops.traverse import trace_brute
+
+    m = torch.device("meta")
+    tris = torch.empty((4, 9), device=m)
+    ro = torch.empty((8, 3), device=m)
+    with pytest.raises(ValueError):
+        trace_brute(tris, ro, ro, torch.empty(8, device=m),
+                    torch.empty(8, device=m),
+                    torch.empty(8, dtype=torch.bool, device=m))
+    # inputs split across devices are refused, never moved
+    with pytest.raises(ValueError):
+        trace_brute(torch.zeros(4, 9), torch.zeros(8, 3), ro, torch.zeros(8),
+                    torch.zeros(8), torch.ones(8, dtype=torch.bool))

@@ -1,0 +1,111 @@
+"""ray_tpu_torch's scene compile against ray_tpu's: bit for bit.
+
+The port's ``Scene.finalize(device="cpu")`` of the Cornell scenes must give
+every table and static field of ``ray_tpu``'s flatten-mode ``SceneFlat``,
+and ``SceneFlat.from_numpy`` must carry a finalized ``ray_tpu`` scene
+across unchanged.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.scene.scene import SceneFlat as JSceneFlat
+from ray_tpu.utils.test_scenes import cornell_scene as j_cornell
+from ray_tpu_torch.scene.scene import SceneFlat
+from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
+
+_STATIC = [f.name for f in dataclasses.fields(JSceneFlat)
+           if f.metadata.get("static")]
+_ARRAYS = [f.name for f in dataclasses.fields(JSceneFlat)
+           if not f.metadata.get("static")]
+
+
+def _np_tree(x):
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _np_tree(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _assert_same(a, b, where):
+    """Same structure, dtypes, shapes and bytes."""
+    if a is None or b is None:
+        assert a is None and b is None, where
+        return
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (where, set(a) ^ set(b))
+        for k in a:
+            _assert_same(a[k], b[k], f"{where}.{k}")
+        return
+    assert a.dtype == b.dtype, (where, a.dtype, b.dtype)
+    assert a.shape == b.shape, (where, a.shape, b.shape)
+    assert a.tobytes() == b.tobytes(), where
+
+
+def _assert_scene_equal(port, ref):
+    for name in _ARRAYS:
+        _assert_same(_np_tree(getattr(port, name)),
+                     _np_tree(jax.tree_util.tree_map(np.asarray, getattr(ref, name))),
+                     name)
+    for name in _STATIC:
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("light_kind", ["emissive_quad", "env", "rect", "sphere"])
+def test_finalize_matches_ray_tpu(light_kind):
+    jsc, _ = j_cornell(light_kind)
+    tsc, _ = t_cornell(light_kind)
+    ref = jsc.finalize()
+    port = tsc.finalize(device="cpu")
+    assert port.device == torch.device("cpu")
+    _assert_scene_equal(port, ref)
+
+
+def test_flagship_scene_shape():
+    """The numbers the flagship's routing rests on: ≤ 40 triangles sends
+    every trace to the brute-force kernel; DIFFUSE + EMISSIVE only."""
+    sc, _ = t_cornell()
+    s = sc.finalize(device="cpu")
+    assert s.num_tris == 24 and s.bvh_soa["code0"].shape[0] == 4
+    assert (s.max_leaf, s.stack_size, s.light_tree_depth) == (8, 7, 1)
+    assert s.mat_types == (0, 3) and s.env_light_index == -1
+    assert [k[0] for k in s.light_kinds] == [5, 5]
+    assert not (s.has_mix or s.has_textures or s.has_normal_maps
+                or s.has_transparency or s.has_visibility)
+
+
+def test_from_numpy_round_trip():
+    jsc, _ = j_cornell()
+    ref = jsc.finalize()
+    arrays = {n: jax.tree_util.tree_map(np.asarray, getattr(ref, n))
+              for n in _ARRAYS}
+    static = {n: getattr(ref, n) for n in _STATIC}
+    port = SceneFlat.from_numpy(arrays, static, device="cpu")
+    _assert_scene_equal(port, ref)
+    # the differentiated tables come across as float32 tensors, unchanged
+    assert port.materials["base_color"].dtype == torch.float32
+    assert port.env_col.dtype == torch.float32
+
+
+def test_from_numpy_rejects_unknown_fields():
+    with pytest.raises(ValueError):
+        SceneFlat.from_numpy({"not_a_field": np.zeros(1)}, {}, device="cpu")
+
+
+def test_unported_finalize_paths_raise():
+    sc, _ = t_cornell()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sc.add_texture(np.zeros((4, 4, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sc.set_environment((1, 1, 1), map_id=0)
+    sc.add_instance(0)
+    sc.add_instance(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sc.finalize(device="cpu", instancing="tlas")
