@@ -1,39 +1,53 @@
 #!/usr/bin/env python3
-"""Run the port's flagship forward frame on one CUDA card and check it.
+"""Run the port's frames on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Drives ``ray_tpu_torch`` (never JAX, never ``ray_tpu``) through the entry
-points a user calls — ``cornell_scene()`` → ``Scene.finalize()`` →
-``render_tile`` at 1920x1080, 1 spp, depth 5 — and:
+points a user calls — a Cornell scene → ``Scene.finalize()`` →
+``render_tile`` at 1920x1080, 1 spp, depth 5, and for fwd+bwd the bench
+loss through autograd — on two scenes:
 
-1. prints the card's name and power limit (``nvidia-smi``); exits non-zero
-   when CUDA is absent;
-2. builds the CUDA kernel from ``ray_tpu_torch/csrc`` and prints the build
-   seconds;
+* the flagship ``cornell_scene("emissive_quad")`` (24 triangles: every
+  trace goes to ``trace_brute``);
+* ``cornell_sphere``: the flagship plus a rough diffuse UV sphere (376
+  triangles, 59 nodes: every trace goes to ``trace_bvh``).
+
+Phases:
+
+1. the card's name and power limit (``nvidia-smi``); exits non-zero when
+   CUDA is absent;
+2. builds both CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version: on the
-   traversal test generator's scenes (8, 24, 40 triangles, 2M rays) and on
-   the inputs of every launch of one flagship frame;
-4. holds a 64x48 tile rendered on the card against the same tile rendered
-   by the port's plain CPU path;
-5. renders ``FRAMES`` flagship frames after a warm-up frame, with the
-   launch counts set to 0 just before and read just after: every pixel
-   finite, mean positive, 6 closest-hit + 6 any-hit launches a frame;
-   prints forward Mray/s, frame ms (window / frames) with the spread of
-   the frames within the window, and peak memory beside the card's name
-   and power limit;
-6. profiles one more frame with ``torch.profiler``: device kernel time,
-   its share of the frame, the RNG's cost, and an op table written to
-   ``chiprun_out/chip_smoke_profile.txt``;
-7. times each kernel (CUDA events) at the flagship frame's launch shapes
-   beside its plain version and its bound, and prints one ``kernels`` JSON
-   line, the card line, and last the ``{"ok": true, ...}`` line.
+   traversal tests' generator scenes at 2M rays (brute 8/24/40 triangles,
+   BVH 100/300/500), in both modes, and on the inputs of all 12 launches
+   of one frame of each scene;
+4. holds a 64x48 tile of each scene rendered on the card against the same
+   tile on the port's plain CPU path;
+5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
+   frame, the launch counts set to 0 just before each and read just after
+   (6 closest-hit + 6 any-hit launches a frame of its kernel, none of the
+   other): Mray/s, frame ms and spread, peak memory;
+6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each scene, the bench loss
+   differentiated w.r.t. the float material columns and ``env_col``
+   (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms split into
+   forward and backward, peak memory, launch counts, gradients finite and
+   non-zero for ``base_color`` and ``env_col``; then a 64x48 fwd+bwd tile
+   of ``cornell_sphere`` on the card against the CPU path's gradients;
+7. profiles one forward and one fwd+bwd flagship frame with
+   ``torch.profiler``: device time, its share of the unprofiled frame, the
+   RNG's cost; op tables in ``chiprun_out/``;
+8. times each kernel (CUDA events) at its frame's launch shapes beside its
+   plain version and its bound, and prints one ``kernels`` JSON line, the
+   card line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -43,15 +57,22 @@ import time
 
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 10
-PROFILE_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
-TPU_KERNEL = "ray_tpu/ops/traverse_pallas.py:57"
-KERNEL_SOURCE = "ray_tpu_torch/csrc/trace_brute.cu"
+BWD_FRAMES = 5
+OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+KERNELS = {
+    "trace_brute": dict(source="ray_tpu_torch/csrc/trace_brute.cu",
+                        replaces="ray_tpu/ops/traverse_pallas.py:57"),
+    "trace_bvh": dict(source="ray_tpu_torch/csrc/trace_bvh.cu",
+                      replaces="ray_tpu/ops/traverse_pallas.py:204"),
+}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# one ray-triangle test: 46 float multiply/add/subtract/divide (the edges
-# are per triangle; compares are not counted)
+# one ray-triangle test: 46 float multiply/add/subtract/divide (compares
+# are not counted); one child box: 6 subtract, 6 multiply, 1 slack
+# multiply, two boxes a node step
 OPS_PER_TEST = 46
+OPS_PER_NODE_STEP = 2 * 13
 # every lane reads t_max, active (5 B) and writes t, u, v, prim, backface
 # (17 B); an active lane also reads ro, rd, t_min (28 B)
 BYTES_PER_LANE = 22
@@ -89,11 +110,38 @@ def max_abs_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def generator_case(n_tris, n_rays, seed, device):
+def cornell_sphere():
+    """The flagship Cornell box plus a rough diffuse UV sphere (376
+    triangles), from the public API."""
+    from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
+    from ray_tpu_torch.utils.geometry import make_uv_sphere
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    sc, cam = cornell_scene("emissive_quad")
+    m = sc.add_material(MaterialDesc(type=ShadingNode.DIFFUSE,
+                                     base_color=(0.2, 0.3, 0.8), roughness=0.5))
+    v, idx, n, uv = make_uv_sphere(center=(0.4, -0.64, -0.3), radius=0.35,
+                                   rings=12, segments=16)
+    sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)
+    return sc, cam
+
+
+def flagship():
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    return cornell_scene("emissive_quad")
+
+
+def generator_case(kernel, n_tris, n_rays, seed, device):
     """The traversal tests' random scene and rays (tests/test_traverse_pallas.py
-    ``_scene`` / ``_rays``), as packed (T, 9) triangles."""
+    ``_scene`` / ``_rays``): the arguments of ``trace_brute`` (packed
+    (T, 9) triangles) or of ``trace_bvh`` (a BVH2 with max_leaf 4 or 8 and
+    the scene's stack size, depth + 4)."""
     import numpy as np
     import torch
+
+    from ray_tpu_torch.scene.bvh import (
+        build_bvh2, bvh_depth, pack_bvh_soa, tri_bounds)
 
     r = np.random.RandomState(seed)
     base = (r.rand(n_tris, 1, 3) - 0.5) * 10.0
@@ -105,22 +153,32 @@ def generator_case(n_tris, n_rays, seed, device):
     rd = target - ro
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    return (t(tris.reshape(n_tris, 9)), t(ro), t(rd.astype(np.float32)),
+    rays = (t(ro), t(rd.astype(np.float32)),
             torch.zeros(n_rays, device=device),
             torch.full((n_rays,), 1e30, device=device),
             torch.ones(n_rays, dtype=torch.bool, device=device))
+    if kernel == "trace_brute":
+        return (t(tris.reshape(n_tris, 9)),) + rays
+    v = tris.reshape(-1, 3)
+    idx = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+    lo, hi = tri_bounds(v, idx)
+    max_leaf = 4 if n_tris <= 100 else 8
+    bvh = build_bvh2(lo, hi, max_leaf=max_leaf)
+    return ((t(pack_bvh_soa(bvh)["packed"]),
+             t(v[idx[bvh.prim_indices]].reshape(n_tris, 9)))
+            + rays + (max_leaf, bvh_depth(bvh) + 4))
 
 
-def check_parity(case, label, errs):
-    """Kernel vs plain on one input set, closest-hit and any-hit."""
+def check_parity(kernel, args, modes, label, errs):
+    """Kernel vs plain on one input set, in the given modes."""
     from ray_tpu_torch.ops import traverse
 
-    tris, ro, rd, t_min, t_max, active = case[:6]
-    modes = (False, True) if len(case) == 6 else (case[6],)
+    fn = getattr(traverse, kernel)
+    plain = getattr(traverse, f"{kernel}_plain")
     for any_hit in modes:
-        k = traverse.trace_brute(tris, ro, rd, t_min, t_max, active, any_hit)
-        p = traverse.trace_brute_plain(tris, ro, rd, t_min, t_max, active, any_hit)
-        name = "trace_brute_anyhit" if any_hit else "trace_brute_closest"
+        k = fn(*args, any_hit=any_hit)
+        p = plain(*args, any_hit=any_hit)
+        name = f"{kernel}_{'anyhit' if any_hit else 'closest'}"
         for f in k._fields:
             a, b = getattr(k, f), getattr(p, f)
             errs[name] = max(errs.get(name, 0.0), max_abs_err(a, b))
@@ -129,31 +187,42 @@ def check_parity(case, label, errs):
                      f"max |diff| {max_abs_err(a, b)}")
         hits = int((k.prim >= 0).sum())
         print(f"  parity {label} {name}: bit-exact ({hits} hits of "
-              f"{ro.shape[0]} rays)")
+              f"{k.prim.shape[0]} rays)")
+
+
+def render(scene, cam, settings, iteration, x0=0, y0=0, tw=None, th=None):
+    """One sample of a (th, tw) tile of the frame (default: the whole frame)."""
+    from ray_tpu_torch.render.integrator import render_tile
+
+    return render_tile(scene, cam, None, x0, y0, iteration, 0, width=WIDTH,
+                       height=HEIGHT, tile_w=tw or WIDTH, tile_h=th or HEIGHT,
+                       settings=settings, use_filter_table=False)
 
 
 def capture_frame(scene, cam, settings, iteration):
-    """Render one frame, keeping a copy of every trace_brute input."""
+    """Render one frame, keeping a copy of every trace kernel's inputs as
+    (kernel, args, any_hit)."""
     from ray_tpu_torch.ops import traverse
-    from ray_tpu_torch.render.integrator import render_tile
 
     calls = []
-    real = traverse.trace_brute
+    real = {k: getattr(traverse, k) for k in KERNELS}
 
-    def recording(tris, ro, rd, t_min, t_max, active, any_hit=False):
-        calls.append((tris, ro.clone(), rd.clone(), t_min.clone(),
-                      t_max.clone(), active.clone(), any_hit))
-        return real(tris, ro, rd, t_min, t_max, active, any_hit)
+    def recorder(kernel):
+        def recording(*args, any_hit=False):
+            copied = tuple(a.clone() if i >= (1 if kernel == "trace_brute"
+                                              else 2) and hasattr(a, "clone")
+                           else a for i, a in enumerate(args))
+            calls.append((kernel, copied, any_hit))
+            return real[kernel](*args, any_hit=any_hit)
+        return recording
 
-    traverse.trace_brute = recording
+    for k in KERNELS:
+        setattr(traverse, k, recorder(k))
     try:
-        out = render_tile(
-            scene, cam, None, 0, 0, iteration, 0, width=WIDTH, height=HEIGHT,
-            tile_w=WIDTH, tile_h=HEIGHT, settings=settings,
-            use_filter_table=False,
-        )
+        out = render(scene, cam, settings, iteration)
     finally:
-        traverse.trace_brute = real
+        for k, fn in real.items():
+            setattr(traverse, k, fn)
     return out, calls
 
 
@@ -173,104 +242,94 @@ def time_launches(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_timings(calls):
-    """Per launch of the captured frame: kernel ms, plain ms, bound ms."""
+def split_args(kernel, args):
+    """(tables, (ro, rd, t_min, t_max, active), extra ints) of a captured
+    launch."""
+    n = 1 if kernel == "trace_brute" else 2
+    return args[:n], args[n:n + 5], tuple(int(a) for a in args[n + 5:])
+
+
+def launch_bound(kernel, args, any_hit):
+    """Bytes and operations one launch needs at these inputs: each input
+    read once, each output written once; the tests and node steps the
+    plain version's walk makes."""
     import torch
 
     from ray_tpu_torch.ops import traverse
 
-    fn = traverse._brute_fn()
-    rows = []
-    for tris, ro, rd, t_min, t_max, active, any_hit in calls:
-        R, T = ro.shape[0], tris.shape[0]
-        outs = [torch.empty(R, dtype=d, device=ro.device) for d in
-                (torch.float32, torch.int32, torch.float32, torch.float32,
-                 torch.bool)]
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (tris.data_ptr(), T, ro.data_ptr(), rd.data_ptr(),
-                t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(), R,
-                *[o.data_ptr() for o in outs], int(any_hit), stream)
-
-        def launch():
-            if fn(*args) != 0:
-                fail("trace_brute launch failed while timing")
-
-        ms = time_launches(launch, 50)
-        plain_ms = time_launches(
-            lambda: traverse.trace_brute_plain(
-                tris, ro, rd, t_min, t_max, active, any_hit), 3)
-        plain = traverse.trace_brute_plain(tris, ro, rd, t_min, t_max, active,
-                                           any_hit)
-        n_active = int(active.sum())
+    tables, (ro, _, _, _, active), _ = split_args(kernel, args)
+    plain_fn = getattr(traverse, f"{kernel}_plain")
+    n_active = int(active.sum())
+    node_steps = 0
+    if kernel == "trace_brute":
+        T = tables[0].shape[0]
         if any_hit:
             # tests run until the first hit: prim + 1 for hits, T for misses
+            plain = plain_fn(*args, any_hit=True)
             hit = plain.prim >= 0
             tests = int(torch.where(hit, plain.prim + 1, T)[active].sum())
         else:
             tests = n_active * T
-        nbytes = BYTES_PER_LANE * R + BYTES_PER_ACTIVE_LANE * n_active + 36 * T
-        ops = OPS_PER_TEST * tests
-        rows.append({
-            "any_hit": bool(any_hit), "rays": R, "active": n_active,
-            "tests": tests, "ms": ms, "plain_ms": plain_ms,
+    else:
+        work = {}
+        plain_fn(*args, any_hit=any_hit, work=work)
+        tests, node_steps = work["tri_tests"], work["node_steps"]
+    table_bytes = sum(4 * t.numel() for t in tables)
+    nbytes = (BYTES_PER_LANE * ro.shape[0] + BYTES_PER_ACTIVE_LANE * n_active
+              + table_bytes)
+    ops = OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
+    return {"kernel": kernel, "any_hit": bool(any_hit), "rays": ro.shape[0],
+            "active": n_active, "tests": tests, "node_steps": node_steps,
             "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-            "ops_ms": ops / PEAK_F32_FLOPS * 1e3,
-        })
+            "ops_ms": ops / PEAK_F32_FLOPS * 1e3}
+
+
+def kernel_timings(calls):
+    """Per captured launch: kernel ms (the raw launch, uncounted), plain
+    ms and the launch's bound."""
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    fns = {"trace_brute": traverse._brute_fn(), "trace_bvh": traverse._bvh_fn()}
+    rows = []
+    for kernel, args, any_hit in calls:
+        tables, rays, extra = split_args(kernel, args)
+        ro, rd, t_min, t_max, active = rays
+        R = ro.shape[0]
+        outs = [torch.empty(R, dtype=d, device=ro.device) for d in
+                (torch.float32, torch.int32, torch.float32, torch.float32,
+                 torch.bool)]
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = []
+        for tab in tables:
+            ptrs += [tab.data_ptr(), tab.shape[0]]
+        launch_args = (*ptrs, ro.data_ptr(), rd.data_ptr(), t_min.data_ptr(),
+                       t_max.data_ptr(), active.data_ptr(), R,
+                       *[o.data_ptr() for o in outs], *extra, int(any_hit),
+                       stream)
+        fn = fns[kernel]
+
+        def launch():
+            if fn(*launch_args) != 0:
+                fail(f"{kernel} launch failed while timing")
+
+        plain_fn = getattr(traverse, f"{kernel}_plain")
+        row = launch_bound(kernel, args, any_hit)
+        row["ms"] = time_launches(launch, 50)
+        row["plain_ms"] = time_launches(
+            lambda: plain_fn(*args, any_hit=any_hit), 3)
+        rows.append(row)
     return rows
 
 
-def main() -> int:
+def forward_path(label, scene, cam, settings, kernel):
+    """``FRAMES`` timed forward frames; the launch counts are set to 0 just
+    before and read just after.  Returns the counts."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    try:
-        from ray_tpu_torch.ops import cuda_build
-        from ray_tpu_torch.render.integrator import PassSettings, render_tile
-        from ray_tpu_torch.utils.test_scenes import cornell_scene
-    except ImportError as e:
-        fail(f"cannot import ray_tpu_torch ({e}): run from the repository root")
+    from ray_tpu_torch.ops import cuda_build
 
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} device(s)")
-
-    # ---- build -------------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_build.load("trace_brute")
-    print(f"build: trace_brute in {time.perf_counter() - t0:.3f} s")
-
-    device = torch.device("cuda")
-    settings = PassSettings(max_total_depth=5, min_total_depth=2)
-
-    # ---- kernel parity on the generator scenes ------------------------
-    errs = {}
-    for n_tris in (8, 24, 40):
-        case = generator_case(n_tris, 2_000_000, 1000 + n_tris, device)
-        check_parity(case, f"generator {n_tris} tris", errs)
-        del case
-
-    # ---- flagship scene; warm-up frame captures the kernel inputs -----
-    sc, cam = cornell_scene()
-    scene = sc.finalize()
-    if scene.device.type != "cuda":
-        fail(f"finalize() put the scene on {scene.device}, not CUDA")
-    print(f"scene: {scene.num_tris} tris, {scene.bvh_soa['code0'].shape[0]} "
-          f"nodes, {scene.num_lights} lights, light tree depth "
-          f"{scene.light_tree_depth}")
-    _, calls = capture_frame(scene, cam, settings, iteration=1)
-    torch.cuda.synchronize()
-    if len(calls) != 12:
-        fail(f"a flagship frame made {len(calls)} trace calls, expected 12")
-    for i, c in enumerate(calls):
-        check_parity(c, f"flagship launch {i}", errs)
-
-    # ---- small tile: card vs the port's plain CPU path ----------------
-    check_tile_against_cpu(cornell_scene, settings)
-
-    # ---- the main path ------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
@@ -279,92 +338,134 @@ def main() -> int:
     t_all = time.perf_counter()
     for f in range(FRAMES):
         t_f = time.perf_counter()
-        out = render_tile(
-            scene, cam, None, 0, 0, 2 + f, 0, width=WIDTH, height=HEIGHT,
-            tile_w=WIDTH, tile_h=HEIGHT, settings=settings,
-            use_filter_table=False,
-        )
+        out = render(scene, cam, settings, 2 + f)
         rays += int(out["rays_traced"])  # synchronises
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t_f)
         color = out["color"]
         if tuple(color.shape) != (WIDTH * HEIGHT, 3):
-            fail(f"color has shape {tuple(color.shape)}")
+            fail(f"{label}: color has shape {tuple(color.shape)}")
         if not bool(torch.isfinite(color).all()):
-            fail("non-finite pixels in the flagship frame")
+            fail(f"non-finite pixels in the {label} frame")
         if not float(color.mean()) > 0.0:
-            fail("the flagship frame is black")
+            fail(f"the {label} frame is black")
     wall = time.perf_counter() - t_all
     counts = dict(cuda_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    for name in ("trace_brute_closest", "trace_brute_anyhit"):
-        if counts.get(name, 0) != 6 * FRAMES:
-            fail(f"{name} launched {counts.get(name, 0)} times in "
-                 f"{FRAMES} frames, expected {6 * FRAMES}")
-    mrays = rays / wall / 1e6
+    check_counts(label, counts, kernel, FRAMES)
     frame_ms = wall / FRAMES * 1e3
-    spread = (max(frame_s) - min(frame_s)) / statistics.fmean(frame_s)
-    print(f"flagship fwd 1920x1080 1spp depth5: {mrays:.3f} Mray/s over "
-          f"{FRAMES} frames ({rays / FRAMES:.0f} rays/frame), frame "
-          f"{frame_ms:.1f} ms (window / frames); frames min "
-          f"{min(frame_s) * 1e3:.1f} max {max(frame_s) * 1e3:.1f} ms, "
-          f"spread (max - min) / mean {spread:.3f}; "
-          f"peak memory {peak / 2**30:.3f} GiB, mean radiance "
-          f"{float(color.mean()):.6f} [{card}]")
-    print(f"frame ms: {', '.join(f'{s * 1e3:.1f}' for s in frame_s)}")
-    print(f"launch counts over {FRAMES} frames: {counts}")
-
-    profile_frame(scene, cam, settings, frame_ms)
-
-    # ---- kernel timing at the frame's launch shapes --------------------
-    rows = kernel_timings(calls)
-    for r in rows:
-        print(f"  launch {'anyhit ' if r['any_hit'] else 'closest'} active "
-              f"{r['active']:>8}/{r['rays']} tests {r['tests']:>10}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-              f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms "
-              f"(bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
-    kernels = []
-    for name, any_hit in (("trace_brute_closest", False),
-                          ("trace_brute_anyhit", True)):
-        rs = [r for r in rows if r["any_hit"] == any_hit]
-        # mean over the frame's launches of each launch's own bound
-        bound = statistics.fmean(max(r["bytes_ms"], r["ops_ms"]) for r in rs)
-        b_ms = statistics.fmean(r["bytes_ms"] for r in rs)
-        o_ms = statistics.fmean(r["ops_ms"] for r in rs)
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_KERNEL, "launches": counts[name],
-            "max_abs_err": errs[name],
-            "ms": statistics.fmean(r["ms"] for r in rs),
-            "plain_ms": statistics.fmean(r["plain_ms"] for r in rs),
-            "bound_ms": bound,
-            "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": None,
-        })
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+    print(f"{label} fwd 1920x1080 1spp depth5: {rays / wall / 1e6:.3f} Mray/s "
+          f"over {FRAMES} frames ({rays / FRAMES:.0f} rays/frame), frame "
+          f"{frame_ms:.1f} ms (window / frames); {spread(frame_s)}; peak "
+          f"memory {peak / 2**30:.3f} GiB, mean radiance "
+          f"{float(color.mean()):.6f} [{CARD}]")
+    print(f"  frame ms: {', '.join(f'{s * 1e3:.1f}' for s in frame_s)}")
+    print(f"  launch counts over {FRAMES} frames: {counts}")
+    return counts, frame_ms
 
 
-def check_tile_against_cpu(cornell_scene, settings):
-    """A 64x48 tile of the flagship on the card against the same tile on
-    the port's plain CPU path.  The card's transcendentals differ from the
-    CPU's by ulps, which rarely flips a Russian-roulette decision — hence
-    the per-pixel fraction bounds."""
+def spread(frame_s):
+    return (f"frames min {min(frame_s) * 1e3:.1f} max {max(frame_s) * 1e3:.1f} "
+            f"ms, spread (max - min) / mean "
+            f"{(max(frame_s) - min(frame_s)) / statistics.fmean(frame_s):.3f}")
+
+
+def check_counts(label, counts, kernel, frames):
+    """6 closest-hit + 6 any-hit launches a frame of ``kernel``, none of the
+    other kernel."""
+    for name in KERNELS:
+        for mode in ("closest", "anyhit"):
+            want = 6 * frames if name == kernel else 0
+            got = counts.get(f"{name}_{mode}", 0)
+            if got != want:
+                fail(f"{label}: {name}_{mode} launched {got} times in "
+                     f"{frames} frames, expected {want}")
+
+
+def fwd_bwd(scene, cam, settings, iteration, x0=0, y0=0, tw=None, th=None):
+    """The bench loss (bench.py: sum(color^2) / (H W 3)) and its gradients
+    w.r.t. every float material column and env_col, set as leaf tensors.
+    Returns (loss, rays, grads, forward s, backward s)."""
+    import torch
+
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in scene.materials.items() if v.is_floating_point()}
+    env = scene.env_col.detach().clone().requires_grad_(True)
+    merged = dict(scene.materials)
+    merged.update(params)
+    sc = dataclasses.replace(scene, materials=merged, env_col=env)
+    t0 = time.perf_counter()
+    out = render(sc, cam, settings, iteration, x0, y0, tw, th)
+    loss = (out["color"] ** 2).sum() / (HEIGHT * WIDTH * 3)
+    rays = int(out["rays_traced"])
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = {k: p.grad for k, p in params.items()}
+    grads["env_col"] = env.grad
+    return float(loss.detach()), rays, grads, t1 - t0, t2 - t1
+
+
+def fwd_bwd_path(label, scene, cam, settings, kernel):
+    """``BWD_FRAMES`` timed fwd+bwd frames after a warm-up frame."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+
+    fwd_bwd(scene, cam, settings, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    rays = 0
+    frame_s, fwd_s, bwd_s = [], [], []
+    t_all = time.perf_counter()
+    for f in range(BWD_FRAMES):
+        loss, n, grads, tf, tb = fwd_bwd(scene, cam, settings, 2 + f)
+        rays += n
+        fwd_s.append(tf)
+        bwd_s.append(tb)
+        frame_s.append(tf + tb)
+        for k in ("base_color", "env_col"):
+            g = grads[k]
+            if g is None or not bool(torch.isfinite(g).all()):
+                fail(f"{label} fwd+bwd: gradient of {k} missing or not finite")
+            if not float(g.abs().max()) > 0.0:
+                fail(f"{label} fwd+bwd: gradient of {k} is zero")
+        for k, g in grads.items():
+            if g is not None and not bool(torch.isfinite(g).all()):
+                fail(f"{label} fwd+bwd: gradient of {k} not finite")
+    wall = time.perf_counter() - t_all
+    counts = dict(cuda_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(f"{label} fwd+bwd", counts, kernel, BWD_FRAMES)
+    frame_ms = wall / BWD_FRAMES * 1e3
+    print(f"{label} fwd+bwd 1920x1080 1spp depth5 (grid 1x1): "
+          f"{rays / wall / 1e6:.3f} Mray/s over {BWD_FRAMES} frames, frame "
+          f"{frame_ms:.1f} ms (forward {statistics.fmean(fwd_s) * 1e3:.1f} + "
+          f"backward {statistics.fmean(bwd_s) * 1e3:.1f}); {spread(frame_s)}; "
+          f"peak memory {peak / 2**30:.3f} GiB; loss {loss:.6e}; "
+          f"|grad base_color| max {float(grads['base_color'].abs().max()):.3e}, "
+          f"|grad env_col| max {float(grads['env_col'].abs().max()):.3e} "
+          f"[{CARD}]")
+    print(f"  launch counts over {BWD_FRAMES} frames: {counts}")
+    return frame_ms
+
+
+def check_tile_against_cpu(make_scene, label, x0, y0, settings):
+    """A 64x48 tile on the card against the same tile on the port's plain
+    CPU path.  The card's transcendentals differ from the CPU's by ulps,
+    which rarely flips a Russian-roulette decision — hence the per-pixel
+    fraction bounds."""
     import numpy as np
-
-    from ray_tpu_torch.render.integrator import render_tile
 
     outs = []
     for dev in ("cuda", "cpu"):
-        sc, cam = cornell_scene()
-        scene = sc.finalize(device=dev)
-        o = render_tile(scene, cam, None, 928, 516, 1, 0, width=WIDTH,
-                        height=HEIGHT, tile_w=64, tile_h=48,
-                        settings=settings, use_filter_table=False)
+        sc, cam = make_scene()
+        o = render(sc.finalize(device=dev), cam, settings, 1, x0, y0, 64, 48)
         outs.append({k: v.cpu().numpy() for k, v in o.items()})
     g, c = outs
     close = np.isclose(g["color"], c["color"], rtol=1e-3, atol=1e-4).all(-1)
@@ -374,52 +475,206 @@ def check_tile_against_cpu(cornell_scene, settings):
     mean_rel = abs(g["color"].mean() - c["color"].mean()) / c["color"].mean()
     rays_rel = abs(int(g["rays_traced"]) - int(c["rays_traced"])) / int(
         c["rays_traced"])
-    print(f"tile 64x48 card vs cpu: color close {close.mean():.4f}, aux "
-          f"close {aux.mean():.4f}, mean rel diff {mean_rel:.2e}, rays "
+    print(f"tile 64x48 {label} card vs cpu: color close {close.mean():.4f}, "
+          f"aux close {aux.mean():.4f}, mean rel diff {mean_rel:.2e}, rays "
           f"{int(g['rays_traced'])} vs {int(c['rays_traced'])}")
     if not (close.mean() >= 0.99 and aux.mean() >= 0.999 and mean_rel < 1e-3
             and rays_rel < 5e-3 and np.isfinite(g["color"]).all()):
-        fail("the card's 64x48 tile disagrees with the CPU path")
+        fail(f"the card's 64x48 {label} tile disagrees with the CPU path")
 
 
-def profile_frame(scene, cam, settings, frame_ms):
-    """One flagship frame under torch.profiler: the device's kernel time and
-    its share of an unprofiled frame (``frame_ms``), the op table, and the
-    cost of one RNG draw over the frame's lanes."""
+def check_grad_tile_against_cpu(make_scene, label, x0, y0, settings):
+    """Gradients of the bench loss over a 64x48 tile on the card against
+    the port's CPU path: each float material column and env_col within
+    1e-2 of the column's largest CPU entry (a flipped Russian-roulette
+    decision, as in the image tile, moves one pixel's share)."""
+    grads = []
+    for dev in ("cuda", "cpu"):
+        sc, cam = make_scene()
+        _, _, g, _, _ = fwd_bwd(sc.finalize(device=dev), cam, settings, 1,
+                                x0, y0, 64, 48)
+        grads.append(g)
+    worst = 0.0
+    for k, gc in grads[1].items():
+        gg = grads[0][k]
+        if gc is None or gg is None:
+            if (gc is None) != (gg is None):
+                fail(f"{label} gradient tile: {k} has a gradient on one "
+                     f"device only")
+            continue
+        scale = float(gc.abs().max())
+        err = float((gg.cpu() - gc).abs().max())
+        rel = err / scale if scale > 0 else err
+        worst = max(worst, rel)
+        if rel > 1e-2:
+            fail(f"{label} gradient tile: {k} card vs cpu max |diff| {err:.3e} "
+                 f"against max |g| {scale:.3e}")
+    print(f"grad tile 64x48 {label} card vs cpu: worst column max |diff| / "
+          f"max |g| {worst:.2e} (limit 1e-2); base_color grad "
+          f"{grads[0]['base_color'][-1].tolist()}")
+
+
+def profile_frames(scene, cam, settings, frame_ms, bwd_frame_ms):
+    """One forward and one fwd+bwd flagship frame under torch.profiler: the
+    device's kernel time and its share of an unprofiled frame, the op
+    tables, and the cost of one RNG draw over the frame's lanes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.ops import rng
-    from ray_tpu_torch.render.integrator import render_tile
 
-    PROFILE_DIR.mkdir(exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = render_tile(
-            scene, cam, None, 0, 0, 99, 0, width=WIDTH, height=HEIGHT,
-            tile_w=WIDTH, tile_h=HEIGHT, settings=settings,
-            use_filter_table=False,
-        )
-        int(out["rays_traced"])
+    OUT_DIR.mkdir(exist_ok=True)
+    for label, ref_ms, run in (
+            ("forward", frame_ms,
+             lambda: int(render(scene, cam, settings, 99)["rays_traced"])),
+            ("fwd+bwd", bwd_frame_ms,
+             lambda: fwd_bwd(scene, cam, settings, 99))):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kern_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    brute_ms = sum(e.time_range.elapsed_us() for e in kernels
-                   if "trace_brute" in e.name) / 1e3
-    path = PROFILE_DIR / "chip_smoke_profile.txt"
-    with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=40))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        trace_ms = sum(e.time_range.elapsed_us() for e in kernels
+                       if "trace_" in e.name) / 1e3
+        name = label.replace("+", "_")
+        path = OUT_DIR / f"chip_smoke_profile_{name}.txt"
+        with open(path, "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                              row_limit=40))
+        print(f"profile {label} flagship frame: {len(kernels)} kernels, "
+              f"{kern_ms:.1f} ms device time ({kern_ms / ref_ms:.3f} of the "
+              f"{ref_ms:.1f} ms unprofiled frame); trace kernels "
+              f"{trace_ms:.2f} ms; table in {path}")
     seed = torch.arange(WIDTH * HEIGHT, device="cuda", dtype=torch.int64)
     rng_ms = time_launches(lambda: rng.scrambled_2d_rand(7, seed, 0), 10)
     n_rng = 2 + 4 * (settings.max_total_depth + 1)
-    print(f"profile: {len(kernels)} kernels, {kern_ms:.1f} ms device time a "
-          f"frame ({kern_ms / frame_ms:.3f} of the {frame_ms:.1f} ms "
-          f"unprofiled frame); trace_brute {brute_ms:.2f} ms; one "
-          f"scrambled_2d_rand over {WIDTH * HEIGHT} lanes {rng_ms:.3f} ms x "
-          f"{n_rng} draws a frame = {rng_ms * n_rng:.1f} ms; table in {path}")
+    print(f"rng: one scrambled_2d_rand over {WIDTH * HEIGHT} lanes "
+          f"{rng_ms:.3f} ms x {n_rng} draws a frame = {rng_ms * n_rng:.1f} ms")
 
+
+def main() -> int:
+    global CARD
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    try:
+        from ray_tpu_torch.ops import cuda_build
+        from ray_tpu_torch.render.integrator import PassSettings
+    except ImportError as e:
+        fail(f"cannot import ray_tpu_torch ({e}): run from the repository root")
+
+    CARD = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {CARD}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s)")
+
+    # ---- build: one nvcc per kernel, all at once ----------------------
+    t0 = time.perf_counter()
+    cuda_build.build(list(KERNELS))
+    for k in KERNELS:
+        cuda_build.load(k)
+    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.3f} s")
+
+    device = torch.device("cuda")
+    settings = PassSettings(max_total_depth=5, min_total_depth=2)
+
+    # ---- kernel parity on the generator scenes ------------------------
+    errs = {}
+    for kernel, sizes in (("trace_brute", (8, 24, 40)),
+                          ("trace_bvh", (100, 300, 500))):
+        for n_tris in sizes:
+            case = generator_case(kernel, n_tris, 2_000_000, 1000 + n_tris,
+                                  device)
+            check_parity(kernel, case, (False, True),
+                         f"generator {n_tris} tris", errs)
+            del case
+
+    # ---- both scenes; a warm-up frame captures every kernel input ------
+    scenes = {}
+    for label, make, kernel in (("flagship", flagship, "trace_brute"),
+                                ("cornell_sphere", cornell_sphere, "trace_bvh")):
+        sc, cam = make()
+        scene = sc.finalize()
+        if scene.device.type != "cuda":
+            fail(f"finalize() put the scene on {scene.device}, not CUDA")
+        print(f"scene {label}: {scene.num_tris} tris, "
+              f"{scene.bvh_soa['code0'].shape[0]} nodes, stack "
+              f"{scene.stack_size}, {scene.num_lights} lights, light tree "
+              f"depth {scene.light_tree_depth}")
+        _, calls = capture_frame(scene, cam, settings, iteration=1)
+        torch.cuda.synchronize()
+        if len(calls) != 12 or any(c[0] != kernel for c in calls):
+            fail(f"a {label} frame made {[c[0] for c in calls]}, expected 12 "
+                 f"{kernel} calls")
+        for i, (k, args, any_hit) in enumerate(calls):
+            check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
+        scenes[label] = (scene, cam, kernel, calls)
+
+    # ---- small tiles: card vs the port's plain CPU path ---------------
+    check_tile_against_cpu(flagship, "flagship", 928, 516, settings)
+    check_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840, settings)
+
+    # ---- the forward main paths ---------------------------------------
+    launches, frame_ms = {}, {}
+    for label, (scene, cam, kernel, _) in scenes.items():
+        counts, frame_ms[label] = forward_path(label, scene, cam, settings,
+                                               kernel)
+        for mode in ("closest", "anyhit"):
+            launches[f"{kernel}_{mode}"] = counts[f"{kernel}_{mode}"]
+
+    # ---- fwd+bwd --------------------------------------------------------
+    bwd_ms = {}
+    for label, (scene, cam, kernel, _) in scenes.items():
+        bwd_ms[label] = fwd_bwd_path(label, scene, cam, settings, kernel)
+    check_grad_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840,
+                                settings)
+
+    scene, cam = scenes["flagship"][:2]
+    profile_frames(scene, cam, settings, frame_ms["flagship"],
+                   bwd_ms["flagship"])
+
+    # ---- kernel timing at each frame's launch shapes -------------------
+    rows = kernel_timings(scenes["flagship"][3] + scenes["cornell_sphere"][3])
+    for r in rows:
+        print(f"  {r['kernel']} {'anyhit ' if r['any_hit'] else 'closest'} "
+              f"active {r['active']:>8}/{r['rays']} node steps "
+              f"{r['node_steps']:>10} tests {r['tests']:>10}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms "
+              f"(bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
+    kernels = []
+    for kernel, info in KERNELS.items():
+        for mode, any_hit in (("closest", False), ("anyhit", True)):
+            name = f"{kernel}_{mode}"
+            rs = [r for r in rows
+                  if r["kernel"] == kernel and r["any_hit"] == any_hit]
+            # mean over the frame's launches of each launch's own bound
+            b_ms = statistics.fmean(r["bytes_ms"] for r in rs)
+            o_ms = statistics.fmean(r["ops_ms"] for r in rs)
+            kernels.append({
+                "name": name, "route": "cuda", "source": info["source"],
+                "replaces": info["replaces"], "launches": launches[name],
+                "max_abs_err": errs[name],
+                "ms": statistics.fmean(r["ms"] for r in rs),
+                "plain_ms": statistics.fmean(r["plain_ms"] for r in rs),
+                "bound_ms": statistics.fmean(
+                    max(r["bytes_ms"], r["ops_ms"]) for r in rs),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "library_ms": None,
+            })
+    print(json.dumps({"kernels": kernels}))
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+CARD = ""
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
 Every kernel is one ``ray_tpu_torch/csrc/<name>.cu`` file with a plain C
-entry point.  At its first :func:`load` it is compiled with ``nvcc`` for
+entry point.  At its first :func:`load` (or in :func:`build`, which starts
+one ``nvcc`` per source at once) it is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/ray_tpu_torch/lib<name>-<hash>.so`` at the
 repository root and loaded with ``ctypes``; the file name carries a hash of
 the source and the flags, so an edited source is rebuilt.  Nothing is
@@ -54,21 +55,34 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+def _target(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{r.stdout}{r.stderr}")
-    os.replace(tmp, target)
-    return target
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names) -> None:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet: one
+    ``nvcc`` per source, all started together."""
+    jobs = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, target, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, target, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}{err}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -76,6 +90,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
     return lib

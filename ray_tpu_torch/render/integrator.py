@@ -8,11 +8,18 @@ bounce body under ``lax.scan``; here it is a Python loop over
 ``max_total_depth + 1`` bounces of whole-wavefront tensor ops, with
 active-lane masks.
 
-Hits are detached; everything downstream (surface interpolation, BSDF and
-light math) is computed from the scene tables with out-of-place ops and
-clamps inside each expression, so the graph can carry gradients w.r.t.
-the material table and ``env_col`` (the backward pass is the next slice:
-ROADMAP Queue 1 item 10).  Stochastic decisions use detached comparisons.
+Backward: PyTorch autograd through the whole tile, with stored residuals
+(``ray_tpu``'s ``remat=False``).  Set float columns of ``scene.materials``
+and ``env_col`` to leaf tensors with ``requires_grad=True``
+(``dataclasses.replace``, as ``bench.py`` does) and ``out["color"]``
+carries their gradient: every render-time read of them goes through the
+scene passed in.  Hits are detached, as ``ray_tpu``'s traces are
+(``stop_gradient``); surface interpolation, BSDF and light math are
+recomputed from the scene tables with out-of-place ops, and the only other
+detached values are the ones ``ray_tpu`` detaches (light-tree picking
+position and tables, the ray-cone footprint).  Stochastic decisions use
+detached comparisons.  ``remat=True`` (path replay) is not ported: ROADMAP
+Queue 1 item 10.
 
 Render options and scene features this slice does not carry raise
 ``NotImplementedError`` naming their ROADMAP entry.

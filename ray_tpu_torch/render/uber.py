@@ -92,11 +92,14 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
     i = torch.clamp_min(mat_id, 0).long()
 
     mtype = m["type"][i]
-    base_color = m["base_color"][i]
-    roughness = m["roughness"][i]
-    strength = m["strength"][i]
-    emis_strength = m["emission_strength"][i]
-    emission_color = m["emission_color"][i]
+    # index_select, not m[...][i]: its backward is one index_add_ per column,
+    # where indexing's backward (a sorted index_put_) runs each material's
+    # millions of duplicate rows serially on CUDA
+    base_color = m["base_color"].index_select(0, i)
+    roughness = m["roughness"].index_select(0, i)
+    strength = m["strength"].index_select(0, i)
+    emis_strength = m["emission_strength"].index_select(0, i)
+    emission_color = m["emission_color"].index_select(0, i)
     flags = m["flags"][i]
     if min_roughness > 0.0:  # spatial-cache update pass (ShadeRef.cpp:1450)
         roughness = torch.clamp_min(roughness, min_roughness)

@@ -6,10 +6,11 @@ the same flatten-mode finalize, so a scene compiles to tables identical to
 dataclass of torch tensors on one device (the render device), with the same
 field names and static fields as ``ray_tpu``'s pytree.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP entry
-that will port it: textures and env maps, the two-level TLAS finalize, the
-physical sky, the native/SBVH/HLBVH builders and the 8-wide BVH layout that
-``ray_tpu`` adds past 256 triangles.
+Past 256 triangles finalize adds ``ray_tpu``'s 8-wide row table
+(``bvh_soa["wrows"]``, :mod:`ray_tpu_torch.scene.wbvh`).  Not ported yet,
+and raising ``NotImplementedError`` with the ROADMAP entry that will port
+it: textures and env maps, the two-level TLAS finalize, the physical sky
+and the native/SBVH/HLBVH builders.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ray_tpu_torch.scene.camera import Camera
 from ray_tpu_torch.scene.lights import LightDesc, LightType, pack_lights
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode, pack_materials
 from ray_tpu_torch.scene.visibility import RAY_ALL
+from ray_tpu_torch.scene.wbvh import build_wbvh
 
 # ray_tpu adds an 8-wide BVH layout ("wrows") above this many triangles
 WIDE_BVH_MIN_TRIS = 256
@@ -134,6 +136,15 @@ class SceneFlat:
         kw = {k: _to_torch(v, device) for k, v in arrays.items()}
         kw.update({k: static[k] for k in static})
         return cls(**kw)
+
+
+def _bvh_soa_with_wide(bvh, tri_soa, tri_vis=None):
+    """BVH2 columns, plus the 8-wide row table past ``WIDE_BVH_MIN_TRIS``
+    triangles (``ray_tpu.scene.scene._bvh_soa_with_wide``)."""
+    out = pack_bvh_soa(bvh)
+    if tri_soa["packed"].shape[0] > WIDE_BVH_MIN_TRIS:
+        out["wrows"] = build_wbvh(bvh, tri_soa["packed"], tri_vis)["wrows"]
+    return out
 
 
 # radial-tangent rotation: maps a local position to (-z, 0, x)
@@ -406,11 +417,6 @@ class Scene:
             np.concatenate(tri_vis) if tri_vis
             else np.full(1, 0x7fffffff, np.int32)
         )
-        if tri_vidx.shape[0] > WIDE_BVH_MIN_TRIS:
-            raise not_ported(
-                f"the 8-wide BVH layout ({tri_vidx.shape[0]} triangles)",
-                "Queue 1 item 15")
-
         # BVH over world-space triangles; permute tri arrays to leaf order so
         # the traversal kernel indexes them directly (no extra indirection).
         lo, hi = tri_bounds(vertices, tri_vidx)
@@ -450,6 +456,7 @@ class Scene:
             light_descs, tri_areas, vertices, tri_vidx, light_tree_min_lights
         )
         tri_solid = self._tri_solidity(tri_mats)
+        tri_soa = pack_tri_soa(vertices, tri_vidx)
         arrays = {
             "vertices": vertices,
             "normals": normals,
@@ -463,8 +470,9 @@ class Scene:
                 vertices, normals, uv, tri_vidx, tri_mats, tri_solid,
                 tri_light, tangent_q=tangent_q, tangent_q0=tangent_q0,
             ),
-            "bvh_soa": pack_bvh_soa(bvh),
-            "tri_soa": pack_tri_soa(vertices, tri_vidx),
+            "bvh_soa": _bvh_soa_with_wide(
+                bvh, tri_soa, tri_viss if has_vis else None),
+            "tri_soa": tri_soa,
             "root_lo": bvh.root_lo,
             "root_hi": bvh.root_hi,
             **common["arrays"],

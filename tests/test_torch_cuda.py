@@ -4,8 +4,9 @@ Run on a CUDA machine with
 ``python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`` (the
 suite's conftest needs JAX, which the port does not); ``chip_smoke.py``
 runs the same checks at the flagship frame's full size.  Each kernel is
-held bit-exact against its plain PyTorch version, and the flagship path
-is shown to launch it.
+held bit-exact against its plain PyTorch version, and each scene's path
+is shown to launch its kernel: the flagship ``trace_brute``, the
+``cornell_sphere`` scene (376 triangles) ``trace_bvh``.
 """
 
 import numpy as np
@@ -91,3 +92,99 @@ def test_flagship_tile_launches_the_kernel():
     assert bool(torch.isfinite(out["color"]).all())
     assert cuda_build.launch_counts["trace_brute_closest"] == 6
     assert cuda_build.launch_counts["trace_brute_anyhit"] == 6
+
+
+def _bvh_case(n_tris, n_rays, seed, max_leaf):
+    from ray_tpu_torch.scene.bvh import (
+        build_bvh2, bvh_depth, pack_bvh_soa, tri_bounds)
+
+    tris, ro, rd, tmin, tmax, act = _case(n_tris, n_rays, seed)
+    v = tris.cpu().numpy().reshape(-1, 3)
+    idx = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+    bvh = build_bvh2(*tri_bounds(v, idx), max_leaf=max_leaf)
+    dev = tris.device
+    nodes = torch.from_numpy(pack_bvh_soa(bvh)["packed"]).to(dev)
+    leaf_tris = torch.from_numpy(
+        np.ascontiguousarray(v[idx[bvh.prim_indices]].reshape(n_tris, 9))).to(dev)
+    r = np.random.RandomState(seed + 3)
+    tmin = torch.tensor(np.where(r.rand(n_rays) < 0.3, r.rand(n_rays) * 4.0,
+                                 0.0), dtype=torch.float32, device=dev)
+    return (nodes, leaf_tris, ro, rd, tmin, tmax, act, max_leaf,
+            bvh_depth(bvh) + 4)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_tris,max_leaf,stack", [
+    (41, 4, None), (100, 4, None), (300, 8, None), (512, 8, None),
+    (512, 4, 2),   # a stack shallower than the tree: overflow semantics
+])
+def test_trace_bvh_kernel_bit_exact(n_tris, max_leaf, stack, any_hit):
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops.traverse import trace_bvh, trace_bvh_plain
+
+    case = _bvh_case(n_tris, 300_001, n_tris, max_leaf)
+    if stack is not None:
+        case = case[:-1] + (stack,)
+    before = cuda_build.launch_counts.copy()
+    k = trace_bvh(*case, any_hit=any_hit)
+    p = trace_bvh_plain(*case, any_hit=any_hit)
+    torch.cuda.synchronize()
+    name = "trace_bvh_anyhit" if any_hit else "trace_bvh_closest"
+    assert cuda_build.launch_counts[name] == before[name] + 1
+    assert 0 < int((p.prim >= 0).sum()) < 300_001
+    for f in k._fields:
+        a, b = getattr(k, f), getattr(p, f)
+        assert a.device == b.device and a.dtype == b.dtype, f
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+def test_trace_bvh_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops.traverse import trace_bvh
+
+    nodes, tris, ro, rd, tmin, tmax, act, ml, ss = _bvh_case(100, 64, 0, 4)
+    rays = (ro, rd, tmin, tmax, act)
+    with pytest.raises(ValueError):
+        trace_bvh(nodes[:, :13].contiguous(), tris, *rays, ml, ss)
+    with pytest.raises(ValueError):
+        trace_bvh(nodes, tris, ro[:, :2].contiguous(), *rays[1:], ml, ss)
+    with pytest.raises(TypeError):
+        trace_bvh(nodes.double(), tris, *rays, ml, ss)
+    with pytest.raises(ValueError):
+        trace_bvh(nodes.cpu(), tris, *rays, ml, ss)
+    with pytest.raises(ValueError):
+        trace_bvh(nodes, _case(513, 64, 0)[0], *rays, ml, ss)
+    for bad_leaf, bad_stack in ((0, ss), (16, ss), (ml, 0), (ml, 65)):
+        with pytest.raises(ValueError):
+            trace_bvh(nodes, tris, *rays, bad_leaf, bad_stack)
+
+
+def test_cornell_sphere_tile_launches_the_bvh_kernel():
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
+    from ray_tpu_torch.utils.geometry import make_uv_sphere
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    sc, cam = cornell_scene()
+    m = sc.add_material(MaterialDesc(type=ShadingNode.DIFFUSE,
+                                     base_color=(0.2, 0.3, 0.8), roughness=0.5))
+    v, idx, n, uv = make_uv_sphere(center=(0.4, -0.64, -0.3), radius=0.35,
+                                   rings=12, segments=16)
+    sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)
+    scene = sc.finalize()
+    assert scene.num_tris == 376 and "wrows" in scene.bvh_soa
+    cuda_build.reset_launch_counts()
+    out = render_tile(scene, cam, None, 640, 760, 1, 0, width=1920,
+                      height=1080, tile_w=256, tile_h=128,
+                      settings=PassSettings(max_total_depth=5,
+                                            min_total_depth=2),
+                      use_filter_table=False)
+    assert bool(torch.isfinite(out["color"]).all())
+    assert cuda_build.launch_counts["trace_bvh_closest"] == 6
+    assert cuda_build.launch_counts["trace_bvh_anyhit"] == 6
+    assert cuda_build.launch_counts["trace_brute_closest"] == 0

@@ -93,3 +93,20 @@ def test_kernel_wrapper_never_falls_back():
     with pytest.raises(ValueError):
         trace_brute(torch.zeros(4, 9), torch.zeros(8, 3), ro, torch.zeros(8),
                     torch.zeros(8), torch.ones(8, dtype=torch.bool))
+
+
+def test_bvh_wrapper_never_falls_back():
+    """The BVH wrapper, likewise: a non-CPU, non-CUDA device or inputs
+    split across devices raise rather than running ``trace_bvh_plain``."""
+    from ray_tpu_torch.ops.traverse import trace_bvh
+
+    m = torch.device("meta")
+    nodes = torch.empty((3, 14), device=m)
+    tris = torch.empty((50, 9), device=m)
+    ro = torch.empty((8, 3), device=m)
+    rays = (ro, ro, torch.empty(8, device=m), torch.empty(8, device=m),
+            torch.empty(8, dtype=torch.bool, device=m))
+    with pytest.raises(ValueError):
+        trace_bvh(nodes, tris, *rays, 4, 8)
+    with pytest.raises(ValueError):
+        trace_bvh(torch.zeros(3, 14), torch.zeros(50, 9), *rays, 4, 8)

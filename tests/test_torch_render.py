@@ -11,6 +11,9 @@ send one pixel down another path; the bounds below are per-pixel fractions
 for that reason: ``base_color`` and ``depth_normal`` within rtol 1e-5 on
 ≥ 99.9% of pixels, ``color`` within rtol 1e-3 / atol 1e-4 on ≥ 99%, the
 tile mean within 1e-3 relative and ``rays_traced`` within 0.5%.
+
+The ``cornell_sphere`` tile (248 triangles: ray_tpu walks its BVH2 on the
+CPU, the port ``trace_bvh_plain``) is held to the same bounds.
 """
 
 import jax.numpy as jnp
@@ -22,18 +25,22 @@ from ray_tpu.render.integrator import render_tile as j_render
 from ray_tpu.utils.test_scenes import cornell_scene as j_cornell
 from ray_tpu_torch.render.integrator import PassSettings, render_tile
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
+from test_torch_scene import cornell_sphere
 
 W, H = 1920, 1080
 
 
 def _render_both(light_kind, x0, y0, tw, th, iteration, seed, **settings):
-    jsc, jcam = j_cornell(light_kind)
+    if light_kind == "sphere_rings8":
+        (jsc, jcam), (tsc, tcam) = (cornell_sphere(port, rings=8)
+                                    for port in (False, True))
+    else:
+        (jsc, jcam), (tsc, tcam) = j_cornell(light_kind), t_cornell(light_kind)
     ref = j_render(
         jsc.finalize(), jcam, None, jnp.int32(x0), jnp.int32(y0),
         jnp.uint32(iteration), jnp.uint32(seed), width=W, height=H,
         tile_w=tw, tile_h=th, settings=JPass(**settings),
         use_filter_table=False)
-    tsc, tcam = t_cornell(light_kind)
     out = render_tile(
         tsc.finalize(device="cpu"), tcam, None, x0, y0, iteration, seed,
         width=W, height=H, tile_w=tw, tile_h=th,
@@ -61,6 +68,17 @@ def test_flagship_tile_matches_ray_tpu():
     out, ref = _render_both("emissive_quad", 928, 516, 64, 48, 1, 0,
                             max_total_depth=5, min_total_depth=2)
     assert ref["color"].mean() > 0.0
+    _check(out, ref)
+
+
+def test_cornell_sphere_tile_matches_ray_tpu():
+    """A 64x48 tile across the sphere's edge, the wall behind it and the
+    floor: BVH2 traces, the rough (Oren-Nayar) sphere material."""
+    out, ref = _render_both("sphere_rings8", 900, 840, 64, 48, 1, 0,
+                            max_total_depth=5, min_total_depth=2)
+    assert ref["color"].mean() > 0.0
+    on_sphere = np.isclose(ref["base_color"][:, 2], 0.8).mean()
+    assert 0.2 < on_sphere < 0.8, on_sphere
     _check(out, ref)
 
 

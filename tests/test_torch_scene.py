@@ -13,15 +13,36 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu.scene.materials import MaterialDesc as JMaterialDesc
+from ray_tpu.scene.materials import ShadingNode as JShadingNode
 from ray_tpu.scene.scene import SceneFlat as JSceneFlat
+from ray_tpu.utils.geometry import make_uv_sphere as j_sphere
 from ray_tpu.utils.test_scenes import cornell_scene as j_cornell
+from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.scene.scene import SceneFlat
+from ray_tpu_torch.utils.geometry import make_uv_sphere as t_sphere
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
 
 _STATIC = [f.name for f in dataclasses.fields(JSceneFlat)
            if f.metadata.get("static")]
 _ARRAYS = [f.name for f in dataclasses.fields(JSceneFlat)
            if not f.metadata.get("static")]
+
+
+def cornell_sphere(port: bool, rings: int = 12):
+    """The ``cornell_sphere`` configuration from the public API of either
+    package: the flagship Cornell box plus a rough diffuse UV sphere
+    (rings=12: 376 triangles, 8-wide rows built; rings=8: 248, none)."""
+    cornell, sphere = (t_cornell, t_sphere) if port else (j_cornell, j_sphere)
+    desc, node = ((MaterialDesc, ShadingNode) if port
+                  else (JMaterialDesc, JShadingNode))
+    sc, cam = cornell("emissive_quad")
+    m = sc.add_material(desc(type=node.DIFFUSE, base_color=(0.2, 0.3, 0.8),
+                             roughness=0.5))
+    v, idx, n, uv = sphere(center=(0.4, -0.64, -0.3), radius=0.35,
+                           rings=rings, segments=16)
+    sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)
+    return sc, cam
 
 
 def _np_tree(x):
@@ -66,6 +87,23 @@ def test_finalize_matches_ray_tpu(light_kind):
     port = tsc.finalize(device="cpu")
     assert port.device == torch.device("cpu")
     _assert_scene_equal(port, ref)
+
+
+@pytest.mark.parametrize("rings", [12, 8])
+def test_cornell_sphere_finalize_matches_ray_tpu(rings):
+    """Past 256 triangles both packages add the 8-wide row table
+    (``bvh_soa["wrows"]``); every table, that one included, is equal."""
+    ref = cornell_sphere(False, rings)[0].finalize()
+    port = cornell_sphere(True, rings)[0].finalize(device="cpu")
+    _assert_scene_equal(port, ref)
+    n_nodes = port.bvh_soa["code0"].shape[0]
+    if rings == 12:
+        assert (port.num_tris, n_nodes, port.stack_size) == (376, 59, 11)
+        assert port.bvh_soa["wrows"].shape[1] == 88  # 11 x max_leaf 8
+    else:
+        assert (port.num_tris, n_nodes) == (248, 38)
+        assert "wrows" not in port.bvh_soa
+    assert port.mat_types == (0, 3) and port.max_leaf == 8
 
 
 def test_flagship_scene_shape():

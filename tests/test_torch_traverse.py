@@ -1,10 +1,11 @@
-"""ray_tpu_torch's brute-force trace against ray_tpu's traversal on the CPU.
+"""ray_tpu_torch's traces against ray_tpu's traversal on the CPU.
 
 On the CPU, ``ray_tpu.ops.traverse.trace_closest_soa`` runs its XLA BVH walk
-(``_traverse``), not the Pallas brute kernel; the port's CPU path runs the
-plain PyTorch transcription of that kernel (``trace_brute_plain``).  Both
-pick the same triangle for every ray, so ``prim``, ``backface`` and the
-occlusion verdict must be identical.
+(``_traverse``), not a Pallas kernel; the port's CPU path runs the plain
+PyTorch version of the kernel its router picks: ``trace_brute_plain`` up to
+40 triangles, ``trace_bvh_plain`` (a tensor port of ``_traverse``) up to
+512 node or triangle rows.  Both sides pick the same triangle for every
+ray, so ``prim``, ``backface`` and the occlusion verdict must be identical.
 
 The hit floats are NOT compared bit for bit: XLA's CPU code generation does
 not evaluate the Möller–Trumbore expressions as IEEE-sequential float32
@@ -33,9 +34,9 @@ from ray_tpu.scene.bvh import build_bvh2, tri_bounds
 from ray_tpu_torch.ops import traverse as tt
 
 
-def _scene(n_tris, seed):
+def _scene(n_tris, seed, max_leaf=4):
     """tests/test_traverse_pallas.py's generator: reference SoA tables and
-    the port's (same leaf order)."""
+    the port's (same leaf order).  No ``wrows``: ray_tpu walks the BVH2."""
     r = np.random.RandomState(seed)
     base = (r.rand(n_tris, 1, 3) - 0.5) * 10.0
     size = max(0.8, 12.0 / np.sqrt(n_tris))
@@ -43,7 +44,7 @@ def _scene(n_tris, seed):
     v = tris.reshape(-1, 3).astype(np.float32)
     t = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
     lo, hi = tri_bounds(v, t)
-    b = build_bvh2(lo, hi, max_leaf=4)
+    b = build_bvh2(lo, hi, max_leaf=max_leaf)
     bvh, tsoa = _soa_from_arrays(
         jnp.asarray(b.child_lo), jnp.asarray(b.child_hi),
         jnp.asarray(b.child), jnp.asarray(b.prim_indices),
@@ -65,20 +66,20 @@ def _rays(n, seed):
     return ro, rd.astype(np.float32), np.zeros(n, np.float32), t_max, active
 
 
-def _both(n_tris, seed, n_rays=20000):
-    (jb, jt, ml), (tb, tt_) = _scene(n_tris, seed)
+def _both(n_tris, seed, n_rays=20000, max_leaf=4, t_window=False):
+    (jb, jt, ml), (tb, tt_) = _scene(n_tris, seed, max_leaf)
     ro, rd, tmin, tmax, act = _rays(n_rays, seed + 7)
+    if t_window:
+        # a t_min window on a third of the lanes (t_max varies in _rays)
+        r = np.random.RandomState(seed + 8)
+        tmin = np.where(r.rand(n_rays) < 0.3, r.rand(n_rays) * 4.0,
+                        0.0).astype(np.float32)
     j = [jnp.asarray(a) for a in (ro, rd, tmin, tmax, act)]
     t = [torch.from_numpy(a) for a in (ro, rd, tmin, tmax, act)]
     return (jb, jt, ml, j), (tb, tt_, t)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("n_tris", [8, 24, 40])
-def test_closest_hit_matches_ray_tpu(n_tris, seed):
-    (jb, jt, ml, j), (tb, tt_, t) = _both(n_tris, seed)
-    ref = j_closest(jb, jt, *j, max_leaf=ml)
-    hit = tt.trace_closest_soa(tb, tt_, *t, max_leaf=ml)
+def _check_closest(hit, ref):
     prim = hit.prim.numpy()
     # discrete outputs: exact
     np.testing.assert_array_equal(prim, np.asarray(ref.prim))
@@ -95,6 +96,15 @@ def test_closest_hit_matches_ray_tpu(n_tris, seed):
     np.testing.assert_allclose(hit.v.numpy()[hits], np.asarray(ref.v)[hits],
                                rtol=0, atol=1e-4)
     assert hit.prim.dtype == torch.int32 and hit.backface.dtype == torch.bool
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("n_tris", [8, 24, 40])
+def test_closest_hit_matches_ray_tpu(n_tris, seed):
+    (jb, jt, ml, j), (tb, tt_, t) = _both(n_tris, seed)
+    ref = j_closest(jb, jt, *j, max_leaf=ml)
+    hit = tt.trace_closest_soa(tb, tt_, *t, max_leaf=ml)
+    _check_closest(hit, ref)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -164,10 +174,71 @@ def test_any_hit_takes_first_passing_triangle():
             assert bool((lower.prim < 0).all())
 
 
+@pytest.mark.parametrize("max_leaf", [4, 8])
+@pytest.mark.parametrize("n_tris", [100, 300, 500])
+def test_bvh_closest_hit_matches_ray_tpu(n_tris, max_leaf):
+    """Past 40 triangles the port walks the BVH2 (``trace_bvh_plain``), as
+    ray_tpu's ``_traverse`` does; inactive lanes and a t_min/t_max window
+    included.  Same bounds as the brute-force case."""
+    (jb, jt, ml, j), (tb, tt_, t) = _both(n_tris, 10 + n_tris, n_rays=10000,
+                                          max_leaf=max_leaf, t_window=True)
+    assert tt._trace_mode(tb["code0"].shape[0], n_tris) == "bvh"
+    ref = j_closest(jb, jt, *j, max_leaf=ml)
+    hit = tt.trace_closest_soa(tb, tt_, *t, max_leaf=ml)
+    _check_closest(hit, ref)
+
+
+@pytest.mark.parametrize("max_leaf", [4, 8])
+@pytest.mark.parametrize("n_tris", [100, 300, 500])
+def test_bvh_occlusion_matches_ray_tpu(n_tris, max_leaf):
+    (jb, jt, ml, j), (tb, tt_, t) = _both(n_tris, 20 + n_tris, n_rays=10000,
+                                          max_leaf=max_leaf, t_window=True)
+    ref = np.asarray(j_occlusion(jb, jt, *j, max_leaf=ml))
+    occ = tt.trace_occlusion_soa(tb, tt_, *t, max_leaf=ml).numpy()
+    np.testing.assert_array_equal(occ, ref)
+    assert 0.02 < occ.mean() < 0.98
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_stack_overflow_matches_ray_tpu(any_hit):
+    """A stack shallower than the tree: a push at ``sp >= S`` is dropped but
+    counted, and its pop yields EMPTY — the far subtree is skipped exactly
+    as ray_tpu skips it."""
+    from ray_tpu.ops.traverse import _traverse
+
+    (jb, jt, ml, j), (tb, tt_, t) = _both(300, 5, n_rays=10000)
+    ref = _traverse(jb, jt, *j, ml, 2, any_hit)
+    hit = tt.trace_bvh_plain(tb["packed"], tt_["packed"], *t, ml, 2, any_hit)
+    full = tt.trace_bvh_plain(tb["packed"], tt_["packed"], *t, ml, 64,
+                              any_hit)
+    np.testing.assert_array_equal(hit.prim.numpy(), np.asarray(ref.prim))
+    # the shallow stack loses hits the full one finds
+    assert int((hit.prim < 0).sum()) > int((full.prim < 0).sum())
+
+
+def test_bvh_work_counts():
+    """``work`` counts node steps and triangle tests (the kernel bound's
+    inputs); any-hit stops early, so it never does more."""
+    _, (tb, tt_) = _scene(300, 2, max_leaf=8)
+    ro, rd, tmin, tmax, act = (torch.from_numpy(a) for a in _rays(4000, 3))
+    counts = []
+    for any_hit in (False, True):
+        work = {}
+        tt.trace_bvh_plain(tb["packed"], tt_["packed"], ro, rd, tmin, tmax,
+                           act, 8, 64, any_hit, work=work)
+        counts.append(work)
+    closest, anyhit = counts
+    assert closest["node_steps"] >= int(act.sum())
+    assert 0 < anyhit["tri_tests"] <= closest["tri_tests"]
+    assert 0 < anyhit["node_steps"] <= closest["node_steps"]
+
+
 def test_bigger_scenes_raise():
-    _, (tb, tt_) = _scene(41, 0)
+    """Past 512 node or triangle rows ray_tpu takes its 8-wide walk, which
+    is not ported: the router raises and names the ROADMAP item."""
+    _, (tb, tt_) = _scene(513, 0)
     ro, rd, tmin, tmax, act = (torch.from_numpy(a) for a in _rays(10, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
         tt.trace_closest_soa(tb, tt_, ro, rd, tmin, tmax, act)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
         tt.trace_occlusion_soa(tb, tt_, ro, rd, tmin, tmax, act)
