@@ -4,43 +4,53 @@
     python3 chip_smoke.py
 
 Drives ``ray_tpu_torch`` (never JAX, never ``ray_tpu``) through the entry
-points a user calls — a Cornell scene → ``Scene.finalize()`` →
-``render_tile`` at 1920x1080, 1 spp, depth 5, and for fwd+bwd the bench
-loss through autograd — on two scenes:
+points a user calls — a scene → ``Scene.finalize()`` → ``render_tile`` at
+1920x1080, 1 spp, depth 5, and for fwd+bwd the bench loss through autograd
+— on three scenes:
 
 * the flagship ``cornell_scene("emissive_quad")`` (24 triangles: every
   trace goes to ``trace_brute``);
 * ``cornell_sphere``: the flagship plus a rough diffuse UV sphere (376
-  triangles, 59 nodes: every trace goes to ``trace_bvh``).
+  triangles, 59 nodes: every trace goes to ``trace_bvh``);
+* ``colonnade_scene``, bench.py's big scene: 324,642 instanced triangles
+  over 8,388 unique in 81 instances, a texture, PRINCIPLED materials, 12
+  sphere lights: every trace goes to ``trace_tlas``.  Forward only, at
+  bench.py's big-scene settings without remat (compaction after bounce 2),
+  rendered as a 2x2 grid of 960x540 tiles as bench.py does.
 
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``); exits non-zero when
    CUDA is absent;
-2. builds both CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and prints the build seconds;
+2. builds the three CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc``
+   per source, all at once) and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version: on the
    traversal tests' generator scenes at 2M rays (brute 8/24/40 triangles,
-   BVH 100/300/500), in both modes, and on the inputs of all 12 launches
-   of one frame of each scene;
+   BVH 100/300/500, TLAS 6 and 64 instances of one mesh and a 12,600-row
+   table of five meshes, one run with a ray mask), in both modes, and on
+   the inputs of all 12 launches of one frame of the flagship and
+   ``cornell_sphere`` and of one 960x540 colonnade tile;
 4. holds a 64x48 tile of each scene rendered on the card against the same
-   tile on the port's plain CPU path;
+   tile on the port's plain CPU path (the colonnade's covers columns,
+   terrain and floor);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
-   (6 closest-hit + 6 any-hit launches a frame of its kernel, none of the
-   other): Mray/s, frame ms and spread, peak memory;
+   (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
+   others; the colonnade frame is 4 tiles): Mray/s, frame ms and spread,
+   peak memory; and one more colonnade line at grid 1x1;
 6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each scene, the bench loss
    differentiated w.r.t. the float material columns and ``env_col``
    (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms split into
    forward and backward, peak memory, launch counts, gradients finite and
    non-zero for ``base_color`` and ``env_col``; then a 64x48 fwd+bwd tile
    of ``cornell_sphere`` on the card against the CPU path's gradients;
-7. profiles one forward and one fwd+bwd flagship frame with
-   ``torch.profiler``: device time, its share of the unprofiled frame, the
-   RNG's cost; op tables in ``chiprun_out/``;
-8. times each kernel (CUDA events) at its frame's launch shapes beside its
-   plain version and its bound, and prints one ``kernels`` JSON line, the
-   card line, and last the ``{"ok": true, ...}`` line.
+7. profiles one forward and one fwd+bwd flagship frame and one forward
+   colonnade frame with ``torch.profiler``: device time, its share of the
+   unprofiled frame, the RNG's cost; op tables in ``chiprun_out/``;
+8. times each kernel (CUDA events) at its frame's (the colonnade: its
+   tile's) launch shapes beside its plain version and its bound, and
+   prints one ``kernels`` JSON line, the card line, and last the
+   ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
 """
@@ -58,13 +68,19 @@ import time
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 10
 BWD_FRAMES = 5
+FRAMES_1X1 = 3
+GRID = (2, 2)  # bench.py renders the big scene as 2x2 tiles
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
 KERNELS = {
     "trace_brute": dict(source="ray_tpu_torch/csrc/trace_brute.cu",
                         replaces="ray_tpu/ops/traverse_pallas.py:57"),
     "trace_bvh": dict(source="ray_tpu_torch/csrc/trace_bvh.cu",
                       replaces="ray_tpu/ops/traverse_pallas.py:204"),
+    "trace_tlas": dict(source="ray_tpu_torch/csrc/trace_tlas.cu",
+                       replaces="ray_tpu/ops/traverse_pallas.py:501"),
 }
+# the colonnade's instance layout (colonnade_scene): columns, terrain, floor
+COLONNADE_COLUMNS, COLONNADE_TERRAIN = 64, 16
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -73,10 +89,16 @@ PEAK_F32_FLOPS = 67e12
 # multiply, two boxes a node step
 OPS_PER_TEST = 46
 OPS_PER_NODE_STEP = 2 * 13
+# a wide node step tests 8 child boxes; an instance entry transforms the
+# origin (18 ops) and the direction (15) and takes 3 reciprocals
+OPS_PER_WIDE_NODE_STEP = 8 * 13
+OPS_PER_INST_ENTRY = 36
 # every lane reads t_max, active (5 B) and writes t, u, v, prim, backface
-# (17 B); an active lane also reads ro, rd, t_min (28 B)
+# (17 B); an active lane also reads ro, rd, t_min (28 B).  trace_tlas also
+# writes the instance row (4 B) and reads a ray mask when given (4 B)
 BYTES_PER_LANE = 22
 BYTES_PER_ACTIVE_LANE = 28
+TLAS_EXTRA_BYTES_PER_LANE = 4
 
 
 def fail(msg: str) -> None:
@@ -132,11 +154,29 @@ def flagship():
     return cornell_scene("emissive_quad")
 
 
+def colonnade():
+    from ray_tpu_torch.utils.test_scenes import colonnade_scene
+
+    return colonnade_scene()
+
+
+# generator two-level scenes: (meshes, instances of each)
+TLAS_CASES = {
+    "6 instances": (((12, 16),), 6),
+    "64 instances": (((12, 16),), 64),
+    # five meshes of 5,800-6,300 triangles, 8 instances each: 12,600 rows,
+    # past ray_tpu's T_MAX_TLAS_ROWS (8,192)
+    "5 meshes": (((40, 80), (44, 72), (36, 90), (50, 60), (30, 100)), 8),
+}
+
+
 def generator_case(kernel, n_tris, n_rays, seed, device):
     """The traversal tests' random scene and rays (tests/test_traverse_pallas.py
     ``_scene`` / ``_rays``): the arguments of ``trace_brute`` (packed
     (T, 9) triangles) or of ``trace_bvh`` (a BVH2 with max_leaf 4 or 8 and
-    the scene's stack size, depth + 4)."""
+    the scene's stack size, depth + 4); for ``trace_tlas`` ``n_tris`` is a
+    ``TLAS_CASES`` entry and the rays are tests/test_traverse_tlas_pallas.py's
+    (origins in a cube around the instances, every 17th lane inactive)."""
     import numpy as np
     import torch
 
@@ -144,6 +184,21 @@ def generator_case(kernel, n_tris, n_rays, seed, device):
         build_bvh2, bvh_depth, pack_bvh_soa, tri_bounds)
 
     r = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    if kernel == "trace_tlas":
+        from ray_tpu_torch.utils.test_scenes import instanced_scene
+
+        meshes, n_inst = n_tris
+        scene = instanced_scene(meshes, n_inst, seed).finalize(device=device)
+        ro = r.uniform(-4.0, 4.0, (n_rays, 3)).astype(np.float32)
+        rd = r.normal(size=(n_rays, 3)).astype(np.float32)
+        rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+        active = np.ones(n_rays, bool)
+        active[::17] = False
+        return (scene.bvh_soa["wrows_tlas"], int(scene.bvh_soa["winst_base"]),
+                t(ro), t(rd), torch.zeros(n_rays, device=device),
+                torch.full((n_rays,), 1e30, device=device), t(active), None,
+                scene.max_leaf, scene.stack_size)
     base = (r.rand(n_tris, 1, 3) - 0.5) * 10.0
     size = max(0.8, 12.0 / np.sqrt(n_tris))
     tris = (base + (r.rand(n_tris, 3, 3) - 0.5) * size).astype(np.float32)
@@ -152,7 +207,6 @@ def generator_case(kernel, n_tris, n_rays, seed, device):
     target = (r.rand(n_rays, 3).astype(np.float32) - 0.5) * 6.0
     rd = target - ro
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     rays = (t(ro), t(rd.astype(np.float32)),
             torch.zeros(n_rays, device=device),
             torch.full((n_rays,), 1e30, device=device),
@@ -199,9 +253,36 @@ def render(scene, cam, settings, iteration, x0=0, y0=0, tw=None, th=None):
                        settings=settings, use_filter_table=False)
 
 
-def capture_frame(scene, cam, settings, iteration):
-    """Render one frame, keeping a copy of every trace kernel's inputs as
-    (kernel, args, any_hit)."""
+def render_frame(scene, cam, settings, iteration, grid):
+    """One sample of the whole frame as a (nx, ny) grid of tiles, as
+    bench.py renders it.  Returns (rays traced, mean radiance); fails on a
+    tile of the wrong shape, with non-finite pixels, or a black frame."""
+    import torch
+
+    nx, ny = grid
+    tw, th = WIDTH // nx, HEIGHT // ny
+    rays, total = 0, 0.0
+    for ty in range(ny):
+        for tx in range(nx):
+            out = render(scene, cam, settings, iteration, tx * tw, ty * th,
+                         tw, th)
+            color = out["color"]
+            if tuple(color.shape) != (tw * th, 3):
+                fail(f"a tile's color has shape {tuple(color.shape)}")
+            if not bool(torch.isfinite(color).all()):
+                fail("non-finite pixels in a frame")
+            rays += int(out["rays_traced"])  # synchronises
+            total += float(color.sum())
+    mean = total / (WIDTH * HEIGHT * 3)
+    if not mean > 0.0:
+        fail("the frame is black")
+    return rays, mean
+
+
+def capture_frame(scene, cam, settings, iteration, x0=0, y0=0, tw=None,
+                  th=None):
+    """Render one frame (or one tile of it), keeping a copy of every trace
+    kernel's inputs as (kernel, args, any_hit)."""
     from ray_tpu_torch.ops import traverse
 
     calls = []
@@ -219,7 +300,7 @@ def capture_frame(scene, cam, settings, iteration):
     for k in KERNELS:
         setattr(traverse, k, recorder(k))
     try:
-        out = render(scene, cam, settings, iteration)
+        out = render(scene, cam, settings, iteration, x0, y0, tw, th)
     finally:
         for k, fn in real.items():
             setattr(traverse, k, fn)
@@ -243,24 +324,29 @@ def time_launches(fn, reps):
 
 
 def split_args(kernel, args):
-    """(tables, (ro, rd, t_min, t_max, active), extra ints) of a captured
-    launch."""
+    """(tables, (ro, rd, t_min, t_max, active), extra) of a captured
+    launch: the extra arguments after the rays (for trace_tlas the ray mask
+    and the ints)."""
     n = 1 if kernel == "trace_brute" else 2
+    if kernel == "trace_tlas":
+        return args[:1], args[2:7], args[7:]
     return args[:n], args[n:n + 5], tuple(int(a) for a in args[n + 5:])
 
 
 def launch_bound(kernel, args, any_hit):
     """Bytes and operations one launch needs at these inputs: each input
-    read once, each output written once; the tests and node steps the
-    plain version's walk makes."""
+    read once, each output written once; the tests, node steps and instance
+    entries the plain version's walk makes."""
     import torch
 
     from ray_tpu_torch.ops import traverse
 
-    tables, (ro, _, _, _, active), _ = split_args(kernel, args)
+    tables, (ro, _, _, _, active), extra = split_args(kernel, args)
     plain_fn = getattr(traverse, f"{kernel}_plain")
     n_active = int(active.sum())
-    node_steps = 0
+    R = ro.shape[0]
+    node_steps = inst_entries = 0
+    lane_bytes = BYTES_PER_LANE
     if kernel == "trace_brute":
         T = tables[0].shape[0]
         if any_hit:
@@ -270,62 +356,90 @@ def launch_bound(kernel, args, any_hit):
             tests = int(torch.where(hit, plain.prim + 1, T)[active].sum())
         else:
             tests = n_active * T
+        ops = OPS_PER_TEST * tests
     else:
         work = {}
         plain_fn(*args, any_hit=any_hit, work=work)
         tests, node_steps = work["tri_tests"], work["node_steps"]
+        if kernel == "trace_tlas":
+            inst_entries = work["inst_entries"]
+            ops = (OPS_PER_TEST * tests + OPS_PER_WIDE_NODE_STEP * node_steps
+                   + OPS_PER_INST_ENTRY * inst_entries)
+            lane_bytes += TLAS_EXTRA_BYTES_PER_LANE * (
+                1 if extra[0] is None else 2)
+        else:
+            ops = OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
     table_bytes = sum(4 * t.numel() for t in tables)
-    nbytes = (BYTES_PER_LANE * ro.shape[0] + BYTES_PER_ACTIVE_LANE * n_active
-              + table_bytes)
-    ops = OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
-    return {"kernel": kernel, "any_hit": bool(any_hit), "rays": ro.shape[0],
+    nbytes = lane_bytes * R + BYTES_PER_ACTIVE_LANE * n_active + table_bytes
+    return {"kernel": kernel, "any_hit": bool(any_hit), "rays": R,
             "active": n_active, "tests": tests, "node_steps": node_steps,
+            "inst_entries": inst_entries,
             "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "ops_ms": ops / PEAK_F32_FLOPS * 1e3}
+
+
+def raw_launch(kernel, args, any_hit):
+    """A closure that launches the kernel's C entry point on captured
+    inputs into fresh outputs, uncounted (timing only)."""
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    tables, rays, extra = split_args(kernel, args)
+    ro, rd, t_min, t_max, active = rays
+    R = ro.shape[0]
+    dtypes = [torch.float32, torch.int32, torch.float32, torch.float32,
+              torch.bool]
+    if kernel == "trace_tlas":
+        dtypes.append(torch.int32)
+    outs = [torch.empty(R, dtype=d, device=ro.device) for d in dtypes]
+    out_ptrs = [o.data_ptr() for o in outs]
+    stream = torch.cuda.current_stream().cuda_stream
+    ray_ptrs = [ro.data_ptr(), rd.data_ptr(), t_min.data_ptr(),
+                t_max.data_ptr(), active.data_ptr()]
+    if kernel == "trace_tlas":
+        (rows,), (mask, max_leaf, stack_size) = tables, extra
+        fn = traverse._tlas_fn()
+        launch_args = (rows.data_ptr(), rows.shape[0], rows.shape[1],
+                       *ray_ptrs, None if mask is None else mask.data_ptr(),
+                       R, *out_ptrs, int(max_leaf), int(stack_size),
+                       int(any_hit), stream)
+    else:
+        fn = (traverse._brute_fn() if kernel == "trace_brute"
+              else traverse._bvh_fn())
+        ptrs = []
+        for tab in tables:
+            ptrs += [tab.data_ptr(), tab.shape[0]]
+        launch_args = (*ptrs, *ray_ptrs, R, *out_ptrs, *extra, int(any_hit),
+                       stream)
+
+    def launch():
+        if fn(*launch_args) != 0:
+            fail(f"{kernel} launch failed while timing")
+    return launch
 
 
 def kernel_timings(calls):
     """Per captured launch: kernel ms (the raw launch, uncounted), plain
     ms and the launch's bound."""
-    import torch
-
     from ray_tpu_torch.ops import traverse
 
-    fns = {"trace_brute": traverse._brute_fn(), "trace_bvh": traverse._bvh_fn()}
     rows = []
     for kernel, args, any_hit in calls:
-        tables, rays, extra = split_args(kernel, args)
-        ro, rd, t_min, t_max, active = rays
-        R = ro.shape[0]
-        outs = [torch.empty(R, dtype=d, device=ro.device) for d in
-                (torch.float32, torch.int32, torch.float32, torch.float32,
-                 torch.bool)]
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = []
-        for tab in tables:
-            ptrs += [tab.data_ptr(), tab.shape[0]]
-        launch_args = (*ptrs, ro.data_ptr(), rd.data_ptr(), t_min.data_ptr(),
-                       t_max.data_ptr(), active.data_ptr(), R,
-                       *[o.data_ptr() for o in outs], *extra, int(any_hit),
-                       stream)
-        fn = fns[kernel]
-
-        def launch():
-            if fn(*launch_args) != 0:
-                fail(f"{kernel} launch failed while timing")
-
         plain_fn = getattr(traverse, f"{kernel}_plain")
         row = launch_bound(kernel, args, any_hit)
-        row["ms"] = time_launches(launch, 50)
+        row["ms"] = time_launches(raw_launch(kernel, args, any_hit), 50)
         row["plain_ms"] = time_launches(
             lambda: plain_fn(*args, any_hit=any_hit), 3)
         rows.append(row)
     return rows
 
 
-def forward_path(label, scene, cam, settings, kernel):
-    """``FRAMES`` timed forward frames; the launch counts are set to 0 just
-    before and read just after.  Returns the counts."""
+def forward_path(label, scene, cam, settings, kernel, grid=(1, 1),
+                 frames=FRAMES):
+    """``frames`` timed forward frames, each a ``grid`` of tiles; the launch
+    counts are set to 0 just before and read just after.  Returns the
+    counts and the frame ms."""
     import torch
 
     from ray_tpu_torch.ops import cuda_build
@@ -336,31 +450,25 @@ def forward_path(label, scene, cam, settings, kernel):
     rays = 0
     frame_s = []
     t_all = time.perf_counter()
-    for f in range(FRAMES):
+    for f in range(frames):
         t_f = time.perf_counter()
-        out = render(scene, cam, settings, 2 + f)
-        rays += int(out["rays_traced"])  # synchronises
+        n, mean = render_frame(scene, cam, settings, 2 + f, grid)
+        rays += n
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t_f)
-        color = out["color"]
-        if tuple(color.shape) != (WIDTH * HEIGHT, 3):
-            fail(f"{label}: color has shape {tuple(color.shape)}")
-        if not bool(torch.isfinite(color).all()):
-            fail(f"non-finite pixels in the {label} frame")
-        if not float(color.mean()) > 0.0:
-            fail(f"the {label} frame is black")
     wall = time.perf_counter() - t_all
     counts = dict(cuda_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    check_counts(label, counts, kernel, FRAMES)
-    frame_ms = wall / FRAMES * 1e3
-    print(f"{label} fwd 1920x1080 1spp depth5: {rays / wall / 1e6:.3f} Mray/s "
-          f"over {FRAMES} frames ({rays / FRAMES:.0f} rays/frame), frame "
-          f"{frame_ms:.1f} ms (window / frames); {spread(frame_s)}; peak "
-          f"memory {peak / 2**30:.3f} GiB, mean radiance "
-          f"{float(color.mean()):.6f} [{CARD}]")
+    tiles = grid[0] * grid[1]
+    check_counts(label, counts, kernel, frames, 6 * tiles)
+    frame_ms = wall / frames * 1e3
+    print(f"{label} fwd 1920x1080 1spp depth5 (grid {grid[0]}x{grid[1]}): "
+          f"{rays / wall / 1e6:.3f} Mray/s over {frames} frames "
+          f"({rays / frames:.0f} rays/frame), frame {frame_ms:.1f} ms "
+          f"(window / frames); {spread(frame_s)}; peak memory "
+          f"{peak / 2**30:.3f} GiB, mean radiance {mean:.6f} [{CARD}]")
     print(f"  frame ms: {', '.join(f'{s * 1e3:.1f}' for s in frame_s)}")
-    print(f"  launch counts over {FRAMES} frames: {counts}")
+    print(f"  launch counts over {frames} frames: {counts}")
     return counts, frame_ms
 
 
@@ -370,12 +478,12 @@ def spread(frame_s):
             f"{(max(frame_s) - min(frame_s)) / statistics.fmean(frame_s):.3f}")
 
 
-def check_counts(label, counts, kernel, frames):
-    """6 closest-hit + 6 any-hit launches a frame of ``kernel``, none of the
-    other kernel."""
+def check_counts(label, counts, kernel, frames, per_frame=6):
+    """``per_frame`` closest-hit + ``per_frame`` any-hit launches a frame of
+    ``kernel`` (6 a tile: one of each a bounce), none of the others."""
     for name in KERNELS:
         for mode in ("closest", "anyhit"):
-            want = 6 * frames if name == kernel else 0
+            want = per_frame * frames if name == kernel else 0
             got = counts.get(f"{name}_{mode}", 0)
             if got != want:
                 fail(f"{label}: {name}_{mode} launched {got} times in "
@@ -514,22 +622,40 @@ def check_grad_tile_against_cpu(make_scene, label, x0, y0, settings):
           f"{grads[0]['base_color'][-1].tolist()}")
 
 
-def profile_frames(scene, cam, settings, frame_ms, bwd_frame_ms):
-    """One forward and one fwd+bwd flagship frame under torch.profiler: the
-    device's kernel time and its share of an unprofiled frame, the op
-    tables, and the cost of one RNG draw over the frame's lanes."""
+def colonnade_coverage(scene, cam, x0, y0, tw, th):
+    """Primary hits of a tile of the colonnade by instance kind: (columns,
+    terrain, floor)."""
+    import torch
+
+    from ray_tpu_torch.ops.traverse import trace_closest_tlas
+    from ray_tpu_torch.render.raygen import generate_primary_rays
+
+    rays = generate_primary_rays(cam, None, x0, y0, 1, 0, width=WIDTH,
+                                 height=HEIGHT, tile_w=tw, tile_h=th,
+                                 use_filter_table=False, device=scene.device)
+    R = tw * th
+    hit = trace_closest_tlas(
+        scene.bvh_soa, scene.tri_soa, scene.inst, rays.ro, rays.rd,
+        torch.zeros(R, device=scene.device), rays.t_max,
+        torch.ones(R, dtype=torch.bool, device=scene.device),
+        max_leaf=scene.max_leaf, stack_size=scene.stack_size)
+    inst = hit.inst[hit.prim >= 0]
+    terrain_end = COLONNADE_COLUMNS + COLONNADE_TERRAIN
+    return (int((inst < COLONNADE_COLUMNS).sum()),
+            int(((inst >= COLONNADE_COLUMNS) & (inst < terrain_end)).sum()),
+            int((inst >= terrain_end).sum()))
+
+
+def profile_frames(cases):
+    """Each (label, unprofiled frame ms, run) under torch.profiler: the
+    device's kernel time and its share of the unprofiled frame, and the op
+    table in ``chiprun_out/``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ray_tpu_torch.ops import rng
-
     OUT_DIR.mkdir(exist_ok=True)
-    for label, ref_ms, run in (
-            ("forward", frame_ms,
-             lambda: int(render(scene, cam, settings, 99)["rays_traced"])),
-            ("fwd+bwd", bwd_frame_ms,
-             lambda: fwd_bwd(scene, cam, settings, 99))):
+    for label, ref_ms, run in cases:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -539,15 +665,23 @@ def profile_frames(scene, cam, settings, frame_ms, bwd_frame_ms):
         kern_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
         trace_ms = sum(e.time_range.elapsed_us() for e in kernels
                        if "trace_" in e.name) / 1e3
-        name = label.replace("+", "_")
+        name = label.replace("+", "_").replace(" ", "_")
         path = OUT_DIR / f"chip_smoke_profile_{name}.txt"
         with open(path, "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=40))
-        print(f"profile {label} flagship frame: {len(kernels)} kernels, "
+        print(f"profile {label} frame: {len(kernels)} kernels, "
               f"{kern_ms:.1f} ms device time ({kern_ms / ref_ms:.3f} of the "
               f"{ref_ms:.1f} ms unprofiled frame); trace kernels "
-              f"{trace_ms:.2f} ms; table in {path}")
+              f"{trace_ms:.2f} ms; table in {path} [{CARD}]")
+
+
+def rng_cost(settings):
+    """The cost of one RNG draw over a frame's lanes."""
+    import torch
+
+    from ray_tpu_torch.ops import rng
+
     seed = torch.arange(WIDTH * HEIGHT, device="cuda", dtype=torch.int64)
     rng_ms = time_launches(lambda: rng.scrambled_2d_rand(7, seed, 0), 10)
     n_rng = 2 + 4 * (settings.max_total_depth + 1)
@@ -559,6 +693,7 @@ def main() -> int:
     global CARD
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     try:
@@ -582,6 +717,9 @@ def main() -> int:
 
     device = torch.device("cuda")
     settings = PassSettings(max_total_depth=5, min_total_depth=2)
+    # bench.py's big-scene settings, without remat (a forward pass)
+    settings_big = dataclasses.replace(settings, compact_after=2,
+                                       compact_factor=4)
 
     # ---- kernel parity on the generator scenes ------------------------
     errs = {}
@@ -593,58 +731,113 @@ def main() -> int:
             check_parity(kernel, case, (False, True),
                          f"generator {n_tris} tris", errs)
             del case
+    for label, spec in TLAS_CASES.items():
+        case = generator_case("trace_tlas", spec, 2_000_000, 7, device)
+        print(f"  generator {label}: wrows_tlas {tuple(case[0].shape)}, stack "
+              f"{case[-1]}")
+        check_parity("trace_tlas", case, (False, True), f"generator {label}",
+                     errs)
+        if label == "64 instances":
+            # a ray mask: half the rays see no instance (bit 5 is no ray type)
+            R = case[2].shape[0]
+            mask = torch.where(torch.arange(R, device=device) % 2 == 0,
+                               0x7fffffff, 1 << 5).to(torch.int32)
+            check_parity("trace_tlas", case[:7] + (mask,) + case[8:],
+                         (False,), f"generator {label} with a ray mask", errs)
+        del case
 
-    # ---- both scenes; a warm-up frame captures every kernel input ------
+    # ---- the scenes; a warm-up frame (a colonnade tile) captures every
+    # kernel input ------------------------------------------------------
     scenes = {}
-    for label, make, kernel in (("flagship", flagship, "trace_brute"),
-                                ("cornell_sphere", cornell_sphere, "trace_bvh")):
+    for label, make, kernel, st, grid in (
+            ("flagship", flagship, "trace_brute", settings, (1, 1)),
+            ("cornell_sphere", cornell_sphere, "trace_bvh", settings, (1, 1)),
+            ("colonnade", colonnade, "trace_tlas", settings_big, GRID)):
         sc, cam = make()
+        t_fin = time.perf_counter()
         scene = sc.finalize()
+        t_fin = time.perf_counter() - t_fin
         if scene.device.type != "cuda":
             fail(f"finalize() put the scene on {scene.device}, not CUDA")
-        print(f"scene {label}: {scene.num_tris} tris, "
-              f"{scene.bvh_soa['code0'].shape[0]} nodes, stack "
-              f"{scene.stack_size}, {scene.num_lights} lights, light tree "
-              f"depth {scene.light_tree_depth}")
-        _, calls = capture_frame(scene, cam, settings, iteration=1)
+        rows = scene.bvh_soa.get("wrows_tlas")
+        print(f"scene {label}: mode {scene.mode}, {scene.num_tris} unique "
+              f"tris, {scene.bvh_soa['code0'].shape[0]} BVH2 nodes"
+              + (f", wrows_tlas {tuple(rows.shape)}, "
+                 f"{scene.inst['vis'].shape[0]} instances" if rows is not None
+                 else "")
+              + f", stack {scene.stack_size}, {scene.num_lights} lights, "
+              f"light tree depth {scene.light_tree_depth}; finalize "
+              f"{t_fin:.3f} s")
+        # the top-right tile: on the colonnade (sky in its upper half)
+        # under a quarter of the lanes live on past bounce 2, so the last 8
+        # launches run compacted
+        tw, th = WIDTH // grid[0], HEIGHT // grid[1]
+        x0, y0 = WIDTH - tw, 0
+        _, calls = capture_frame(scene, cam, st, 1, x0, y0, tw, th)
         torch.cuda.synchronize()
         if len(calls) != 12 or any(c[0] != kernel for c in calls):
-            fail(f"a {label} frame made {[c[0] for c in calls]}, expected 12 "
+            fail(f"a {label} tile made {[c[0] for c in calls]}, expected 12 "
                  f"{kernel} calls")
+        n_compact = sum(c[1][2].shape[0] < tw * th for c in calls)
+        print(f"  {label} tile at ({x0}, {y0}): {n_compact} of 12 launches "
+              f"compacted")
+        if st.compact_after and not n_compact:
+            fail(f"no {label} launch ran compacted")
         for i, (k, args, any_hit) in enumerate(calls):
             check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
-        scenes[label] = (scene, cam, kernel, calls)
+        scenes[label] = (scene, cam, kernel, calls, st, grid)
 
     # ---- small tiles: card vs the port's plain CPU path ---------------
     check_tile_against_cpu(flagship, "flagship", 928, 516, settings)
     check_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840, settings)
+    n_col, n_ter, n_floor = colonnade_coverage(*scenes["colonnade"][:2],
+                                               912, 500, 64, 48)
+    print(f"colonnade tile 64x48 at (912, 500): primary hits on columns "
+          f"{n_col}, terrain {n_ter}, floor {n_floor}")
+    if not (n_col > 0 and n_ter + n_floor > 0):
+        fail("the colonnade tile does not cover columns and terrain or floor")
+    check_tile_against_cpu(colonnade, "colonnade", 912, 500, settings_big)
 
     # ---- the forward main paths ---------------------------------------
     launches, frame_ms = {}, {}
-    for label, (scene, cam, kernel, _) in scenes.items():
-        counts, frame_ms[label] = forward_path(label, scene, cam, settings,
-                                               kernel)
+    for label, (scene, cam, kernel, _, st, grid) in scenes.items():
+        counts, frame_ms[label] = forward_path(label, scene, cam, st, kernel,
+                                               grid)
         for mode in ("closest", "anyhit"):
             launches[f"{kernel}_{mode}"] = counts[f"{kernel}_{mode}"]
+    scene, cam = scenes["colonnade"][:2]
+    # each tile issues the whole op sequence: the 2x2 frame pays host
+    # dispatch four times; the 1x1 frame shows what that costs
+    forward_path("colonnade", scene, cam, settings_big, "trace_tlas", (1, 1),
+                 FRAMES_1X1)
 
     # ---- fwd+bwd --------------------------------------------------------
     bwd_ms = {}
-    for label, (scene, cam, kernel, _) in scenes.items():
-        bwd_ms[label] = fwd_bwd_path(label, scene, cam, settings, kernel)
+    for label in ("flagship", "cornell_sphere"):
+        scene, cam, kernel, _, st, _ = scenes[label]
+        bwd_ms[label] = fwd_bwd_path(label, scene, cam, st, kernel)
     check_grad_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840,
                                 settings)
 
-    scene, cam = scenes["flagship"][:2]
-    profile_frames(scene, cam, settings, frame_ms["flagship"],
-                   bwd_ms["flagship"])
+    flag, colo = scenes["flagship"], scenes["colonnade"]
+    profile_frames((
+        ("forward flagship", frame_ms["flagship"],
+         lambda: render_frame(flag[0], flag[1], settings, 99, (1, 1))),
+        ("fwd+bwd flagship", bwd_ms["flagship"],
+         lambda: fwd_bwd(flag[0], flag[1], settings, 99)),
+        ("forward colonnade", frame_ms["colonnade"],
+         lambda: render_frame(colo[0], colo[1], settings_big, 99, GRID)),
+    ))
+    rng_cost(settings)
 
-    # ---- kernel timing at each frame's launch shapes -------------------
-    rows = kernel_timings(scenes["flagship"][3] + scenes["cornell_sphere"][3])
+    # ---- kernel timing at each frame's (tile's) launch shapes ----------
+    rows = kernel_timings([c for label in scenes for c in scenes[label][3]])
     for r in rows:
         print(f"  {r['kernel']} {'anyhit ' if r['any_hit'] else 'closest'} "
               f"active {r['active']:>8}/{r['rays']} node steps "
-              f"{r['node_steps']:>10} tests {r['tests']:>10}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['node_steps']:>10} inst entries {r['inst_entries']:>8} "
+              f"tests {r['tests']:>10}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound "
               f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms "
               f"(bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
     kernels = []
@@ -667,6 +860,8 @@ def main() -> int:
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "library_ms": None,
             })
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

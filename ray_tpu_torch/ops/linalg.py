@@ -50,6 +50,14 @@ def safe_div_pos(a, b):
     return a / torch.clamp_min(b, FLT_EPS)
 
 
+def sqr(x):
+    return x * x
+
+
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
 def lum(c):
     """Rec.709 luminance."""
     return 0.212671 * c[..., 0] + 0.715160 * c[..., 1] + 0.072169 * c[..., 2]
@@ -63,6 +71,29 @@ def power_heuristic(a, b):
 
 def world_from_tangent(T, B, N, v):
     return v[..., 0:1] * T + v[..., 1:2] * B + v[..., 2:3] * N
+
+
+def tangent_from_world(T, B, N, v):
+    return torch.stack(
+        [dot(v, T, False), dot(v, B, False), dot(v, N, False)], dim=-1
+    )
+
+
+def orthonormal_basis(n):
+    """Branchless tangent frame from a unit normal (Duff et al., JCGT
+    2017)."""
+    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack(
+        [1.0 + sign * n[..., 0] * n[..., 0] * a, sign * b, -sign * n[..., 0]],
+        dim=-1,
+    )
+    bt = torch.stack(
+        [b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]],
+        dim=-1,
+    )
+    return t, bt
 
 
 def offset_ray(p, n):

@@ -10,12 +10,18 @@ on a TPU (:func:`_trace_mode`):
 * larger scenes raise ``NotImplementedError`` (the 8-wide walk is ROADMAP
   Queue 1 item 19).
 
+and of ``trace_closest_tlas`` / ``trace_occlusion_tlas`` for two-level
+scenes: every one that carries the unified 8-wide table ``wrows_tlas``
+goes to :func:`trace_tlas` (``trace_tlas_pallas``); one without it (≤ 256
+unique triangles, which ``ray_tpu`` walks with the binary ``_traverse_tlas``)
+raises (ROADMAP Queue 1 item 19).
+
 Each wrapper launches its hand-written kernel
-(``ray_tpu_torch/csrc/trace_{brute,bvh}.cu``) on a CUDA tensor, or raises;
-on a CPU tensor it runs its plain PyTorch version
-(:func:`trace_brute_plain`, :func:`trace_bvh_plain`) — the same arithmetic
-in the same expression order, the executable spec each kernel is held to
-bit for bit on the card.
+(``ray_tpu_torch/csrc/trace_{brute,bvh,tlas}.cu``) on a CUDA tensor, or
+raises; on a CPU tensor it runs its plain PyTorch version
+(:func:`trace_brute_plain`, :func:`trace_bvh_plain`,
+:func:`trace_tlas_plain`) — the same arithmetic in the same expression
+order, the executable spec each kernel is held to bit for bit on the card.
 
 Traversal is a discrete decision procedure: hits come back detached
 (``prim`` int32, ``backface`` bool) and shading re-derives differentiable
@@ -36,6 +42,7 @@ from ray_tpu_torch.scene.bvh import (
     LEAF_COUNT_MASK,
     MAX_STACK_SIZE,
 )
+from ray_tpu_torch.scene.wbvh import INST_ROW_BIT, NODE_COLS
 
 
 class Hit(NamedTuple):
@@ -48,6 +55,17 @@ class Hit(NamedTuple):
     backface: torch.Tensor   # bool
 
 
+class HitInst(NamedTuple):
+    """Two-level hit record: :class:`Hit` plus the instance index."""
+
+    t: torch.Tensor
+    prim: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    backface: torch.Tensor
+    inst: torch.Tensor       # i32 instance index (-1 = miss)
+
+
 # ray_tpu's brute-force threshold (ops/traverse.py _PALLAS_BRUTE_MAX); the
 # kernel's shared-memory triangle buffer holds this many
 BRUTE_MAX_TRIS = 40
@@ -56,6 +74,10 @@ BRUTE_MAX_TRIS = 40
 BVH_MAX_ROWS = 512
 # stack-empty sentinel (never a valid child code)
 EMPTY = -0x80000000
+# two-level walk: popping it brings back the world-space ray
+RESTORE = -0x7ffffffe
+# every ray type (instance visibility masks are tested against it)
+FULL_RAY_MASK = 0x7fffffff
 # slab-test slack: f32 1 + 2 ulp (ray_tpu ops/traverse.py _aabb_c)
 SLAB_SLACK = 1.00000024
 
@@ -281,6 +303,185 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
     return Hit(t=t_best, prim=prim, u=u_b, v=v_b, backface=bf)
 
 
+def tlas_width(max_leaf: int) -> int:
+    """Row width of ``wrows_tlas`` (``build_wtlas``) for ``max_leaf``."""
+    return max(NODE_COLS, 11 * max_leaf, 14)
+
+
+def trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max, active,
+                     ray_mask, max_leaf, stack_size, any_hit=False,
+                     work=None) -> HitInst:
+    """Two-level 8-wide walk in plain PyTorch: the tensor port of
+    ``ray_tpu``'s ``_traverse_wide_tlas`` (ops/traverse.py:370-539), which
+    is bit-identical to its Pallas kernel ``_tlas_kernel``.
+
+    ``rows``: the (N, W) f32 unified table ``wrows_tlas`` (TLAS nodes,
+    instance rows, then each mesh's nodes and leaf rows; codes, visibility
+    masks, root codes and prims ride as int bits).  Every ray holds a
+    cursor ``cur`` and an (S, R) stack.  A step reads the row ``cur`` names
+    and interprets it as a wide node (descend into the nearest hit child by
+    strict ``<`` — ``jnp.argmin`` — and push the other hit children as one
+    resume code), an instance row (when its visibility mask meets
+    ``ray_mask``: push RESTORE, move the ray into object space unnormalised
+    and descend into the mesh root) or a triangle leaf row (the leaf's
+    nearest hit by strict ``<`` replaces the ray's hit when nearer); RESTORE
+    brings back the world ray.  The following pop is folded into the same
+    step.  Node boxes are tested against the running ``t``, triangles
+    against it (closest hit) or ``t_max`` (any hit, which ends the walk at
+    the first leaf that hits).  A push at ``sp >= S`` is dropped but still
+    counts, and its pop yields EMPTY; the lane then pops on until it finds
+    an entry or its stack is empty (``_traverse_wide_tlas`` goes on popping
+    only while another lane of the batch still walks — ROADMAP Queue 3).
+
+    ``ray_mask``: (R,) i32 or None (every ray type).  Returns a
+    :class:`HitInst` whose ``inst`` is the instance index (the instance row
+    less ``winst_base``; -1 on a miss).  ``work``: optional dict; node
+    steps, instance entries and triangle tests are added to its
+    ``"node_steps"`` / ``"inst_entries"`` / ``"tri_tests"``."""
+    R = ro.shape[0]
+    device = ro.device
+    S = int(stack_size)
+    L = int(max_leaf)
+    rows = rows.contiguous()
+    rows_i = rows.view(torch.int32)
+    wox, woy, woz = ro[:, 0], ro[:, 1], ro[:, 2]
+    wdx, wdy, wdz = rd[:, 0], rd[:, 1], rd[:, 2]
+    wix, wiy, wiz = _safe_inv(wdx), _safe_inv(wdy), _safe_inv(wdz)
+    if ray_mask is None:
+        ray_mask = torch.full((R,), FULL_RAY_MASK, dtype=torch.int32,
+                              device=device)
+    lanes = torch.arange(R, device=device)
+    i8 = torch.arange(8, dtype=torch.int32, device=device)
+    bit8 = torch.ones_like(i8) << i8
+    empty = torch.full((R,), EMPTY, dtype=torch.int32, device=device)
+    inf = torch.tensor(float("inf"), device=device)
+
+    stack = torch.full((S, R), EMPTY, dtype=torch.int32, device=device)
+    sp = torch.zeros((R,), dtype=torch.int32, device=device)
+    cur = torch.where(active, 0xFF, EMPTY).to(torch.int32)
+    cur_inst = torch.zeros((R,), dtype=torch.int32, device=device)
+    ox, oy, oz, dx, dy, dz, ix, iy, iz = (wox, woy, woz, wdx, wdy, wdz,
+                                          wix, wiy, wiz)
+    t_best = t_max.clone()
+    prim = torch.full((R,), -1, dtype=torch.int32, device=device)
+    u_b = torch.zeros_like(t_max)
+    v_b = torch.zeros_like(t_max)
+    bf = torch.zeros((R,), dtype=torch.bool, device=device)
+    inst = torch.full((R,), -1, dtype=torch.int32, device=device)
+    if work is not None:
+        for k in ("node_steps", "inst_entries", "tri_tests"):
+            work.setdefault(k, 0)
+
+    while bool(((cur != EMPTY) | (sp > 0)).any()):
+        is_node = cur >= 0
+        neg = (cur < 0) & (cur != EMPTY) & (cur != RESTORE)
+        is_restore = cur == RESTORE
+        v = torch.where(neg, -cur - 1, 0)
+        is_inst = neg & ((v & INST_ROW_BIT) != 0)
+        is_tri = neg & (~is_inst)
+        node = torch.where(is_node, cur >> 8, 0)
+        mask = torch.where(is_node, cur & 0xFF, 0)
+        ridx = torch.where(is_node, node, v & (INST_ROW_BIT - 1)).long()
+        row = rows[ridx]                     # (R, W)
+        row_i = rows_i[ridx]
+
+        # ---- wide-node reading (current-space ray) ----
+        codes8 = row_i[:, 48:56]
+        in_mask = ((mask[:, None] >> i8) & 1) != 0
+        h8, t8 = _aabb_c(
+            ox[:, None], oy[:, None], oz[:, None],
+            ix[:, None], iy[:, None], iz[:, None],
+            row[:, 0:8], row[:, 8:16], row[:, 16:24],
+            row[:, 24:32], row[:, 32:40], row[:, 40:48],
+            t_min[:, None], t_best[:, None],
+        )
+        ok8 = h8 & in_mask & (codes8 != EMPTY) & is_node[:, None]
+        t8m = torch.where(ok8, t8, inf)
+        best_i = torch.argmin(t8m, dim=1)   # the first minimum
+        hit_any = ok8.any(dim=1)
+        best_code = codes8.gather(1, best_i[:, None])[:, 0]
+        not_best = i8[None, :] != best_i[:, None]
+        rem = torch.where(ok8 & not_best, bit8, 0).sum(dim=1).to(torch.int32)
+        resume = (node << 8) | rem
+        push_node = is_node & hit_any & (rem != 0)
+        from_node = torch.where(is_node & hit_any, best_code, empty)
+
+        # ---- instance-row reading: visibility, then enter the mesh ----
+        ivis = row_i[:, 12]
+        iroot = row_i[:, 13]
+        enter = is_inst & ((ivis & ray_mask) != 0)
+        eox = row[:, 0] * wox + row[:, 1] * woy + row[:, 2] * woz + row[:, 9]
+        eoy = row[:, 3] * wox + row[:, 4] * woy + row[:, 5] * woz + row[:, 10]
+        eoz = row[:, 6] * wox + row[:, 7] * woy + row[:, 8] * woz + row[:, 11]
+        edx = row[:, 0] * wdx + row[:, 1] * wdy + row[:, 2] * wdz
+        edy = row[:, 3] * wdx + row[:, 4] * wdy + row[:, 5] * wdz
+        edz = row[:, 6] * wdx + row[:, 7] * wdy + row[:, 8] * wdz
+        ii = v & (INST_ROW_BIT - 1)
+
+        # ---- push: node resume or RESTORE marker ----
+        push = push_node | enter
+        push_val = torch.where(enter, RESTORE, resume).to(torch.int32)
+        w = push & (sp < S)
+        stack[sp[w].long(), lanes[w]] = push_val[w]
+        sp = sp + push.to(torch.int32)
+
+        # ---- current-space ray (enter → object, restore → world) ----
+        def pick(e_val, w_val, cur_val):
+            return torch.where(enter, e_val,
+                               torch.where(is_restore, w_val, cur_val))
+
+        ox, oy, oz = pick(eox, wox, ox), pick(eoy, woy, oy), pick(eoz, woz, oz)
+        dx, dy, dz = pick(edx, wdx, dx), pick(edy, wdy, dy), pick(edz, wdz, dz)
+        ix = pick(_safe_inv(edx), wix, ix)
+        iy = pick(_safe_inv(edy), wiy, iy)
+        iz = pick(_safe_inv(edz), wiz, iz)
+        cur_inst = torch.where(enter, ii, cur_inst)
+
+        # ---- triangle-leaf reading (object-space ray, world-metric t) ----
+        th, tt, tu, tv, tb = _tri_c(
+            ox[:, None], oy[:, None], oz[:, None],
+            dx[:, None], dy[:, None], dz[:, None],
+            row[:, 0:9 * L].reshape(R, 9, L), t_min[:, None],
+            (t_max if any_hit else t_best)[:, None],
+        )
+        prim4 = row_i[:, 9 * L:10 * L]
+        valid4 = is_tri[:, None] & (prim4 >= 0)
+        hit4 = th & valid4
+        tt4 = torch.where(hit4, tt, inf)
+        k_best = torch.argmin(tt4, dim=1)[:, None]
+        any4 = hit4.any(dim=1)
+        lt = tt4.gather(1, k_best)[:, 0]
+        take = any4 & (lt < t_best)
+        t_best = torch.where(take, lt, t_best)
+        prim = torch.where(take, prim4.gather(1, k_best)[:, 0], prim)
+        u_b = torch.where(take, tu.gather(1, k_best)[:, 0], u_b)
+        v_b = torch.where(take, tv.gather(1, k_best)[:, 0], v_b)
+        bf = torch.where(take, tb.gather(1, k_best)[:, 0], bf)
+        inst = torch.where(take, cur_inst, inst)
+        if work is not None:
+            work["node_steps"] += int(is_node.sum())
+            work["inst_entries"] += int(enter.sum())
+            work["tri_tests"] += int(valid4.sum())
+
+        next_cur = torch.where(is_node, from_node,
+                               torch.where(enter, iroot, empty))
+        if any_hit:
+            done = prim >= 0
+            sp = torch.where(done, 0, sp)
+            next_cur = torch.where(done, empty, next_cur)
+
+        # pop where exhausted; a slot at or past S was never written
+        need_pop = (next_cur == EMPTY) & (sp > 0)
+        top = sp - 1
+        popped = torch.where(top < S, stack[top.clamp(0, S - 1).long(), lanes],
+                             empty)
+        cur = torch.where(need_pop, popped, next_cur)
+        sp = torch.where(need_pop, sp - 1, sp)
+
+    inst = torch.where(prim >= 0, inst - int(winst_base), -1).to(torch.int32)
+    return HitInst(t=t_best, prim=prim, u=u_b, v=v_b, backface=bf, inst=inst)
+
+
 def _check(name, x, dtype, shape, device):
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
@@ -418,6 +619,104 @@ def _bvh_fn():
                        p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
+               max_leaf, stack_size, any_hit=False) -> HitInst:
+    """Two-level trace over the unified table ``wrows_tlas``: (N, W) f32
+    rows with W = ``tlas_width(max_leaf)`` (any N below 2^23: the table is
+    read from global memory, not staged), the scene's ``winst_base``, the
+    rays as for :func:`trace_brute`, an optional (R,) i32 ``ray_mask``, the
+    scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  CPU tensors run
+    :func:`trace_tlas_plain`; CUDA tensors launch the kernel on the current
+    stream.  ``inst`` comes back rebased by ``winst_base`` (-1 on a miss)."""
+    tables = (("rows", rows, tlas_width(max_leaf)),)
+    if ray_mask is not None and ray_mask.device != ro.device:
+        raise ValueError(f"ray_mask is on {ray_mask.device}, ro on {ro.device}")
+    device, R, n_rows = _cuda_inputs("trace_tlas", tables, ro, rd, t_min,
+                                     t_max, active)
+    if device.type == "cpu":
+        return trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max,
+                                active, ray_mask, max_leaf, stack_size,
+                                any_hit)
+    (N,) = n_rows
+    if ray_mask is not None:
+        _check("ray_mask", ray_mask, torch.int32, (R,), device)
+    if not 1 <= N < (1 << 23):
+        raise ValueError(f"trace_tlas takes 1 to 2^23 - 1 rows, got {N}")
+    if not 1 <= max_leaf <= LEAF_COUNT_MASK:
+        raise ValueError(f"max_leaf {max_leaf} outside [1, {LEAF_COUNT_MASK}]")
+    if not 1 <= stack_size <= MAX_STACK_SIZE:
+        raise ValueError(f"stack_size {stack_size} outside "
+                         f"[1, {MAX_STACK_SIZE}]")
+    out = [torch.empty((R,), dtype=d, device=device)
+           for d in (torch.float32, torch.int32, torch.float32, torch.float32,
+                     torch.bool, torch.int32)]
+    if R == 0:
+        return HitInst(*out)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _tlas_fn()(
+            rows.data_ptr(), N, rows.shape[1], ro.data_ptr(), rd.data_ptr(),
+            t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(),
+            None if ray_mask is None else ray_mask.data_ptr(), R,
+            *(o.data_ptr() for o in out), int(max_leaf), int(stack_size),
+            int(any_hit), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"trace_tlas kernel launch failed: CUDA error {err}")
+    cuda_build.launch_counts[
+        "trace_tlas_anyhit" if any_hit else "trace_tlas_closest"] += 1
+    t, prim, u, v, bf, inst_row = out
+    inst = torch.where(prim >= 0, inst_row - int(winst_base), -1)
+    return HitInst(t=t, prim=prim, u=u, v=v, backface=bf,
+                   inst=inst.to(torch.int32))
+
+
+def _tlas_fn():
+    lib = cuda_build.load("trace_tlas")
+    fn = lib.trace_tlas_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, i, i, p, p, p, p, p, p, ctypes.c_int64,
+                       p, p, p, p, p, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask, max_leaf,
+                    stack_size, any_hit) -> HitInst:
+    if "wrows_tlas" not in bvh:
+        raise not_ported("the binary two-level walk (_traverse_tlas) of "
+                         "scenes of ≤ 256 unique triangles", "Queue 1 item 19")
+    return trace_tlas(
+        bvh["wrows_tlas"], int(bvh["winst_base"]), ro.detach().contiguous(),
+        rd.detach().contiguous(), t_min.detach().contiguous(),
+        t_max.detach().contiguous(), active.contiguous(),
+        None if ray_mask is None else ray_mask.contiguous(), max_leaf,
+        stack_size, any_hit=any_hit)
+
+
+def trace_closest_tlas(bvh, tris, inst, ro, rd, t_min, t_max, active,
+                       ray_mask=None, max_leaf: int = 4,
+                       stack_size: int = MAX_STACK_SIZE) -> HitInst:
+    """Two-level closest-hit trace (``ray_tpu``'s ``trace_closest_tlas``).
+    ``bvh``: ``SceneFlat.bvh_soa`` of a tlas scene (its ``wrows_tlas`` and
+    ``winst_base`` are read); ``tris`` and ``inst`` are taken for the
+    signature's sake, as the unified table carries both.  Returns a
+    :class:`HitInst`."""
+    return _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask,
+                           max_leaf, stack_size, False)
+
+
+def trace_occlusion_tlas(bvh, tris, inst, ro, rd, t_min, t_max, active,
+                         ray_mask=None, max_leaf: int = 4,
+                         stack_size: int = MAX_STACK_SIZE) -> torch.Tensor:
+    """Two-level any-hit (shadow) trace: returns (R,) bool ``occluded``."""
+    hit = _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask,
+                          max_leaf, stack_size, True)
+    return hit.prim >= 0
 
 
 def _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf, stack_size,

@@ -1,12 +1,18 @@
-"""The wavefront path-tracing integrator, forward pass.
+"""The wavefront path-tracing integrator.
 
 The port of ``ray_tpu.render.integrator.render_tile``: one call renders one
-sample of one tile — primary rays → [closest-hit trace → surface → uber
-BSDF → light-tree NEE + shadow (any-hit) trace → BSDF sample, Russian
+sample of one tile — primary rays → [closest-hit trace (flatten: one BVH;
+tlas: the two-level walk) → visible sphere lights → surface → textured
+uber BSDF → light-tree NEE + shadow (any-hit) trace → BSDF sample, Russian
 roulette] × bounces → per-pixel radiance + AUX.  ``ray_tpu`` runs the
 bounce body under ``lax.scan``; here it is a Python loop over
 ``max_total_depth + 1`` bounces of whole-wavefront tensor ops, with
-active-lane masks.
+active-lane masks.  Occupancy compaction (``compact_after``) follows
+``ray_tpu``'s conditions exactly: after ``compact_after`` full-width
+bounces, if the live lanes fit in ``K = max(R // compact_factor, 512)``,
+they are gathered to the front (a stable sort) and the remaining bounces
+run on those K lanes, whose state is scattered back after; each lane's
+arithmetic is unchanged, so compaction never changes a pixel.
 
 Backward: PyTorch autograd through the whole tile, with stored residuals
 (``ray_tpu``'s ``remat=False``).  Set float columns of ``scene.materials``
@@ -41,7 +47,12 @@ from ray_tpu_torch.ops.linalg import (
     power_heuristic,
     safe_div_pos,
 )
-from ray_tpu_torch.ops.traverse import trace_closest_soa, trace_occlusion_soa
+from ray_tpu_torch.ops.traverse import (
+    trace_closest_soa,
+    trace_closest_tlas,
+    trace_occlusion_soa,
+    trace_occlusion_tlas,
+)
 from ray_tpu_torch.render import light_sampling, surface as surface_mod, uber
 from ray_tpu_torch.render.bsdf.microfacet import PI
 from ray_tpu_torch.render.raygen import generate_primary_rays
@@ -83,6 +94,9 @@ class PassSettings:
     nan_check: bool = False
 
 
+_TEX_FILTERS = ("bilinear", "stochastic", "stochastic_aniso")
+
+
 class _PathState(NamedTuple):
     ro: torch.Tensor          # (R, 3)
     rd: torch.Tensor          # (R, 3)
@@ -91,9 +105,13 @@ class _PathState(NamedTuple):
     bsdf_pdf: torch.Tensor    # (R,) pdf of the sampled direction, for MIS
     active: torch.Tensor      # (R,) bool
     depth: torch.Tensor       # (R, 4) i32 diffuse/specular/refraction/transparency
+    ior_stack: torch.Tensor   # (R, 4) outside IORs of entered media (-1 free)
     accum: torch.Tensor       # (R, 3) radiance
     aux_base: torch.Tensor    # (R, 3) base color at the primary hit
     aux_dn: torch.Tensor      # (R, 4) normal + depth at the primary hit
+    cone_width: torch.Tensor  # (R,) ray-cone width at the ray origin
+    cone_spread: torch.Tensor  # (R,) ray-cone spread angle
+    seed: torch.Tensor        # (R,) per-lane RNG seed
 
 
 def _clamp_contribution(col, limit: float):
@@ -110,19 +128,61 @@ def _add(acc, contrib, mask):
     return acc + torch.where(mask[:, None], contrib, 0.0)
 
 
+def _slot_mask(slot, n=4):
+    """(R,) slot index → (R, n) one-hot bool."""
+    return slot[:, None] == torch.arange(n, dtype=slot.dtype,
+                                         device=slot.device)[None, :]
+
+
+def _push_ior(stack, val, mask):
+    """Push into the 4-deep IOR stack (ShadeRef.cpp:355-362): the first free
+    slot, else the last."""
+    neg = stack < 0.0
+    has_slot = neg.any(dim=-1)
+    first_neg = torch.argmax(neg.to(torch.int32), dim=-1)
+    slot = torch.where(has_slot, first_neg, 3)
+    take = _slot_mask(slot) & mask[:, None]
+    return torch.where(take, val[:, None], stack)
+
+
+def _pop_ior(stack, mask):
+    """Pop the topmost (highest-index) positive entry
+    (ShadeRef.cpp:364-371)."""
+    pos = stack > 0.0
+    has = pos.any(dim=-1)
+    top = 3 - torch.argmax(pos.flip(-1).to(torch.int32), dim=-1)
+    take = _slot_mask(top) & (mask & has)[:, None]
+    return torch.where(take, -1.0, stack)
+
+
+def _peek_ior(stack, skip_first, default=1.0):
+    """Current outside IOR: the topmost positive entry, optionally skipping
+    one (when exiting a medium) — ShadeRef.cpp:373-380."""
+    out = torch.full(stack.shape[:1], default, dtype=stack.dtype,
+                     device=stack.device)
+    skipped = torch.zeros(stack.shape[:1], dtype=torch.bool,
+                          device=stack.device)
+    found = torch.zeros_like(skipped)
+    for i in range(3, -1, -1):
+        v = stack[:, i]
+        pos = v > 0.0
+        skip_now = pos & skip_first & (~skipped) & (~found)
+        take = pos & (~skip_now) & (~found)
+        out = torch.where(take, v, out)
+        found = found | take
+        skipped = skipped | skip_now
+    return out
+
+
 def _check_supported(scene, settings: PassSettings, cache_mode: str) -> None:
-    if scene.mode != "flatten":
-        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
     if scene.has_visibility:
         raise not_ported("per-ray-type visibility masks", "Queue 1 item 20")
     if scene.has_transparency:
         raise not_ported("transparency", "Queue 1 item 21")
-    if scene.has_textures:
-        raise not_ported("textures", "Queue 1 item 16")
     if settings.remat:
         raise not_ported("remat (path-replay backprop)", "Queue 1 item 10")
-    if settings.compact_after:
-        raise not_ported("occupancy compaction", "Queue 1 item 22")
+    if settings.tex_filter not in _TEX_FILTERS:
+        raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
     if settings.output_sh:
         raise not_ported("the SH-L1 radiance output", "Queue 1 item 33")
     if cache_mode != "off":
@@ -163,7 +223,6 @@ def render_tile(
         use_filter_table=use_filter_table, device=device,
     )
     R = tile_w * tile_h
-    seed = rng.pixel_seed(rays.px, rays.py, rand_seed)
     sample_i = (int(iteration) - 1) & 0xFFFFFFFF
     feats = uber.mat_features(scene.mat_types)
 
@@ -179,37 +238,97 @@ def render_tile(
         active=(torch.ones((R,), dtype=torch.bool, device=device)
                 if pixel_mask is None else pixel_mask.to(device)),
         depth=torch.zeros((R, 4), dtype=torch.int32, device=device),
+        ior_stack=f32((R, 4), -1.0),
         accum=f32((R, 3), 0.0),
         aux_base=f32((R, 3), 0.0),
         aux_dn=f32((R, 4), 0.0),
+        cone_width=f32((R,), 0.0),
+        cone_spread=rays.cone_spread.to(torch.float32).expand(R).contiguous(),
+        seed=rng.pixel_seed(rays.px, rays.py, rand_seed),
     )
-    n_traced = torch.zeros((), dtype=torch.int64, device=device)
-    nonfinite = torch.zeros((), dtype=torch.int64, device=device)
-    for bounce in range(settings.max_total_depth + 1):
-        st, n, bad = _bounce(scene, settings, feats, st, bounce, seed,
-                             sample_i)
-        n_traced = n_traced + n
-        if bad is not None:
-            nonfinite = nonfinite + bad
+    totals = {"n": torch.zeros((), dtype=torch.int64, device=device),
+              "bad": torch.zeros((), dtype=torch.int64, device=device)}
+
+    def run(st, bounces):
+        for bounce in bounces:
+            st, n, bad = _bounce(scene, settings, feats, st, bounce,
+                                 sample_i)
+            totals["n"] = totals["n"] + n
+            if bad is not None:
+                totals["bad"] = totals["bad"] + bad
+        return st
+
+    n_iters = settings.max_total_depth + 1
+    c = settings.compact_after
+    do_compact = (0 < c < n_iters and settings.compact_factor > 1
+                  and R >= 1024)
+    if not do_compact:
+        st = run(st, range(n_iters))
+    else:
+        st = run(st, range(c))
+        K = max(R // settings.compact_factor, 512)
+        if int(st.active.sum()) <= K:
+            # stable: live lanes first, in their original order; each
+            # lane's state scatters back to its own pixel afterwards
+            perm = torch.argsort((~st.active).to(torch.int32), stable=True)
+            idx = perm[:K]
+            head = run(_PathState(*(a[idx] for a in st)), range(c, n_iters))
+            st = _PathState(*(torch.index_copy(full, 0, idx, h)
+                              for full, h in zip(st, head)))
+        else:
+            st = run(st, range(c, n_iters))
 
     out = {
         "color": st.accum,
         "base_color": st.aux_base,
         "depth_normal": st.aux_dn,
-        "rays_traced": n_traced,
+        "rays_traced": totals["n"],
     }
     if settings.nan_check:
-        out["nonfinite"] = nonfinite
+        out["nonfinite"] = totals["bad"]
     return out
 
 
+def _trace_closest(scene, ro, rd, t_max, active):
+    """Mode dispatch: flattened single BVH or the two-level walk.  Returns
+    (hit, inst); inst is None in flatten mode."""
+    t_min = torch.zeros_like(t_max)
+    if scene.mode == "tlas":
+        h = trace_closest_tlas(
+            scene.bvh_soa, scene.tri_soa, scene.inst, ro, rd, t_min, t_max,
+            active, max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+        )
+        return h, h.inst
+    h = trace_closest_soa(
+        scene.bvh_soa, scene.tri_soa, ro, rd, t_min, t_max, active,
+        max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+    )
+    return h, None
+
+
+def _trace_occlusion(scene, ro, rd, t_max, active):
+    """Any-hit (shadow) trace, dispatched like :func:`_trace_closest`."""
+    t_min = torch.zeros_like(t_max)
+    if scene.mode == "tlas":
+        return trace_occlusion_tlas(
+            scene.bvh_soa, scene.tri_soa, scene.inst, ro, rd, t_min, t_max,
+            active, max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+        )
+    return trace_occlusion_soa(
+        scene.bvh_soa, scene.tri_soa, ro, rd, t_min, t_max, active,
+        max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+    )
+
+
 def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
-            seed, sample_i: int):
+            sample_i: int):
     """One wavefront bounce (``ray_tpu``'s ``bounce_step``).  Returns the
     next state, the number of rays traced (closest + shadow) and, with
     ``nan_check``, the count of non-finite live-lane values."""
     ro, rd, t_max, throughput, bsdf_pdf, active, depth = st[:7]
-    accum, aux_base, aux_dn = st.accum, st.aux_base, st.aux_dn
+    ior_stack, accum, aux_base, aux_dn = (st.ior_stack, st.accum, st.aux_base,
+                                          st.aux_dn)
+    cone_width, cone_spread, seed = st.cone_width, st.cone_spread, st.seed
     Rl = ro.shape[0]
     device = ro.device
     have_lights = scene.num_lights > 0
@@ -217,10 +336,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     limit0 = settings.clamp_direct if is_first else settings.clamp_indirect
 
     total_depth = depth[:, 0] + depth[:, 1] + depth[:, 2]
-    hit = trace_closest_soa(
-        scene.bvh_soa, scene.tri_soa, ro, rd, torch.zeros_like(t_max), t_max,
-        active, max_leaf=scene.max_leaf, stack_size=scene.stack_size,
-    )
+    hit, hit_inst = _trace_closest(scene, ro, rd, t_max, active)
     miss = hit.prim < 0
     indirect = total_depth > 0
 
@@ -238,6 +354,24 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         (total_depth + depth[:, 3]).to(torch.int64) * rng.RAND_DIM_BOUNCE_COUNT
     )
 
+    # ---------- visible sphere lights (IntersectAreaLights,
+    # CoreRef.cpp:3616): a light hit in front of geometry ends the path
+    # with MIS-weighted emission ----------
+    light_first = torch.zeros_like(active)
+    if any(vis and k not in (1, 5, 6) for (k, vis, _d, _p) in scene.light_kinds):
+        seg_end = torch.where(miss, t_max, hit.t)
+        al_t, al_i, al_pdf, al_spot = light_sampling.intersect_area_lights(
+            scene, ro, rd, seg_end, no_sphrect=settings.no_sphrect)
+        light_first = active & (al_i >= 0) & (al_t < seg_end)
+        lcol = scene.lights["col"][torch.clamp_min(al_i, 0).long()] \
+            * al_spot[:, None]
+        if settings.use_nee:
+            # MIS at any depth (Evaluate_LightColor, ShadeRef.cpp:1080-1170)
+            lw = torch.where(indirect, power_heuristic(bsdf_pdf, al_pdf), 1.0)
+            lcol = lcol * lw[:, None]
+        l_contrib = _clamp_contribution(throughput * lcol, limit0)
+        accum = _add(accum, l_contrib, light_first & hit_keep)
+
     # ---------- environment on miss (ShadeRef.cpp:1192-1216) ----------
     env_col = light_sampling.env_color(scene, rd)
     if settings.use_nee and scene.env_light_index >= 0:
@@ -253,36 +387,60 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     env_keep = hit_keep
     if settings.no_background:
         env_keep = env_keep & indirect
-    accum = _add(accum, env_contrib, active & miss & env_keep)
+    accum = _add(accum, env_contrib, active & miss & (~light_first) & env_keep)
 
-    alive = active & (~miss)
+    alive = active & (~miss) & (~light_first)
 
     # ---------- surface attributes (one packed row gather per hit) ----
     tri_row = surface_mod.fetch_tri_row(scene, hit.prim)
     surf = surface_mod.compute_surface(
         scene, hit.prim, hit.u, hit.v, hit.backface, ro, rd, hit.t,
-        row=tri_row,
+        inst=hit_inst, row=tri_row,
     )
     mat_id = surface_mod.pick_hit_material(scene, hit.prim, hit.backface,
                                            row=tri_row)
     alive = alive & (mat_id >= 0)
 
+    # ray-cone texture LOD λ (ShadeRef.cpp:1279-1283)
+    cw_at_hit = cone_width + cone_spread * hit.t.detach()
+    lam = surf.lod_base + torch.log2(torch.clamp_min(cw_at_hit, 1e-30))
+
+    tex_rand = None
+    fetch_kw = None
+    if scene.has_textures:
+        tex_rx, tex_ry = rng.scrambled_2d_rand(
+            rand_dim + rng.RAND_DIM_TEX, seed, sample_i)
+        tex_rand = torch.stack([tex_rx, tex_ry], dim=-1)
+        if settings.tex_filter != "bilinear":
+            # the reference's default single jittered tap (CoreRef.cpp:19);
+            # "stochastic_aniso" adds taps along the footprint's major axis
+            fetch_kw = {"rand": tex_rand}
+            if settings.tex_filter == "stochastic_aniso":
+                ar, _ = rng.scrambled_2d_rand(
+                    rand_dim + rng.RAND_DIM_TEX_ANISO, seed, sample_i)
+                fetch_kw.update(
+                    aniso_duv=surf.duv_major_unit
+                    * (cw_at_hit * surf.aniso_elong)[:, None],
+                    aniso_rand=ar,
+                )
     mix_rx, term_r = rng.scrambled_2d_rand(
         rand_dim + rng.RAND_DIM_BSDF_PICK, seed, sample_i)
-    ext_ior = torch.ones((Rl,), dtype=torch.float32, device=device)
+    ext_ior = (_peek_ior(ior_stack, hit.backface) if feats.any_refr
+               else torch.ones((Rl,), dtype=torch.float32, device=device))
     mat_id, mix_rand, mix_weight = surface_mod.resolve_mix(
         scene, mat_id, surf.uv, mix_rx, rd, surf.N, ext_ior, hit.backface,
-        None,
+        tex_rand, lam=lam, fetch_kw=fetch_kw,
     )
-    surf = surface_mod.apply_normal_map(scene, mat_id, surf, rd, None)
+    surf = surface_mod.apply_normal_map(scene, mat_id, surf, rd, tex_rand,
+                                        lam=lam, fetch_kw=fetch_kw)
     surf = surface_mod.apply_tangent_rotation(scene, mat_id, surf)
 
     # path regularization applies once a DIFFUSE bounce is on the path
     # (ShadeRef.cpp:1468); it only reaches the glossy lobes
     reg_alpha = torch.where(depth[:, 0] > 0, settings.regularize_alpha, 0.0)
     params = uber.gather_uber_params(
-        scene, mat_id, surf.uv, rd, surf.N, hit.backface, ext_ior, None,
-        regularize_alpha=reg_alpha, feats=feats,
+        scene, mat_id, surf.uv, rd, surf.N, hit.backface, ext_ior, tex_rand,
+        regularize_alpha=reg_alpha, lam=lam, feats=feats, fetch_kw=fetch_kw,
     )
     if settings.lighting_only and is_first:
         # lightmap mode: ignore albedo at the primary vertex
@@ -292,7 +450,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     emis_mask = alive & (params.emission.amax(dim=-1) > 0.0)
     mis_w = torch.ones((Rl,), dtype=torch.float32, device=device)
     if settings.use_nee and have_lights:
-        lid = surface_mod.hit_light_id(scene, hit.prim, row=tri_row)
+        lid = surface_mod.hit_light_id(scene, hit.prim, hit_inst, row=tri_row)
         lpick = light_sampling.light_pick_pdf(scene, ro, lid)
         light_pdf = light_sampling.tri_light_hit_pdf(
             scene, hit.prim, hit.t, rd, lpick, light_id=lid, ro=ro
@@ -352,12 +510,8 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         sh_d = to_lp / sh_dist[:, None]
         sh_dist = sh_dist * ls.dist_mul
         shadow_active = nee_valid & ls.cast_shadow
-        occluded = trace_occlusion_soa(
-            scene.bvh_soa, scene.tri_soa, sh_o, sh_d,
-            torch.zeros((Rl,), dtype=torch.float32, device=device),
-            sh_dist * 0.999, shadow_active,
-            max_leaf=scene.max_leaf, stack_size=scene.stack_size,
-        )
+        occluded = _trace_occlusion(scene, sh_o, sh_d, sh_dist * 0.999,
+                                    shadow_active)
         visible = nee_valid & ((~ls.cast_shadow) | (~occluded))
         sh_contrib = _clamp_contribution(throughput * nee_col, limit0)
         accum = _add(accum, sh_contrib, visible)
@@ -398,6 +552,12 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         can_shade & depth_ok & rr_pass & (tlum > 0.0) & (bs.pdf > 0.0)
     )
 
+    if feats.any_refr:
+        entering = next_active & is_refr & (~hit.backface)
+        exiting = next_active & is_refr & hit.backface
+        ior_stack = _push_ior(ior_stack, params.int_ior, entering)
+        ior_stack = _pop_ior(ior_stack, exiting)
+
     new_o = offset_ray(
         surf.P,
         torch.where(bs.flip_origin[:, None], -surf.plane_N, surf.plane_N),
@@ -412,6 +572,11 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         [is_diff, is_spec, is_refr, torch.zeros_like(is_diff)], dim=-1
     ).to(torch.int32)
     depth = depth + torch.where(na3, depth_inc, 0)
+    # the cone advances to the hit and spreads by the sampled lobe's alpha
+    # (ShadeRef.cpp:1458-1459 + per-lobe increments)
+    cone_width = torch.where(next_active, cw_at_hit, cone_width)
+    cone_spread = torch.where(next_active, cone_spread + bs.cone_spread_inc,
+                              cone_spread)
 
     n = active.sum()
     if n_shadow is not None:
@@ -420,7 +585,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     if settings.nan_check:
         # every live-lane quantity the next bounce consumes must be finite
         bad = torch.zeros((), dtype=torch.int64, device=device)
-        for arr in (ro, rd, throughput, bsdf_pdf):
+        for arr in (ro, rd, throughput, bsdf_pdf, cone_width, cone_spread):
             nf = ~torch.isfinite(arr)
             if nf.dim() == 2:
                 nf = nf.any(dim=-1)
@@ -429,5 +594,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             bad = bad + (~torch.isfinite(arr)).any(dim=-1).sum()
     new = _PathState(ro=ro, rd=rd, t_max=t_max, throughput=throughput,
                      bsdf_pdf=bsdf_pdf, active=next_active, depth=depth,
-                     accum=accum, aux_base=aux_base, aux_dn=aux_dn)
+                     ior_stack=ior_stack, accum=accum, aux_base=aux_base,
+                     aux_dn=aux_dn, cone_width=cone_width,
+                     cone_spread=cone_spread, seed=seed)
     return new, n, bad

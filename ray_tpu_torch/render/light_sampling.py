@@ -1,13 +1,16 @@
 """Next-event estimation: light picking + per-type position sampling.
 
 The port of ``ray_tpu.render.light_sampling`` for the light kinds this
-slice carries: emissive-triangle (TRI) lights, sampled by spherical-
-triangle solid angle with the uniform-area fallback, and a constant-color
-environment light, sampled over the hemisphere.  Lights are picked by the
-hierarchical light tree (stochastic descent, leaf→root pdf re-walk) or, on
-scenes with fewer lights than the tree threshold, by the power CDF.  The
-other kinds (sphere, directional, line, rect, disk, sky portals) and
-environment maps raise (ROADMAP Queue 1 items 30 and 31).
+port carries: emissive-triangle (TRI) lights, sampled by spherical-
+triangle solid angle with the uniform-area fallback; sphere (and spot)
+lights, sampled over the cone they subtend, and intersected by camera and
+BSDF rays when visible (:func:`intersect_area_lights`); and a constant-
+color environment light, sampled over the hemisphere.  Lights are picked by
+the hierarchical light tree (stochastic descent, leaf→root pdf re-walk) or,
+on scenes with fewer lights than the tree threshold, by the power CDF.  The
+other kinds (directional, line, rect, disk, sky portals), environment maps
+and TRI lights of instanced emissive meshes (tlas mode) raise (ROADMAP
+Queue 1 items 30, 31 and 17).
 
 ``ls.pdf`` is the solid-angle pdf times the light pick probability, so an
 NEE contribution is ``ls.col·f_cos/ls.pdf``.  The tree descent is sampling
@@ -26,8 +29,10 @@ from ray_tpu_torch.ops.linalg import (
     cross,
     dot,
     offset_ray,
+    orthonormal_basis,
     safe_div_pos,
     safe_normalize,
+    saturate,
     world_from_tangent,
 )
 from ray_tpu_torch.render.bsdf.microfacet import PI
@@ -52,7 +57,7 @@ class LightSample(NamedTuple):
 # caller falls back to uniform area sampling (Constants.inl:12-13).
 SPHERICAL_AREA_THRESHOLD = 5e-5
 
-_PORTED_KINDS = frozenset({LightType.TRI, LightType.ENV})
+_PORTED_KINDS = frozenset({LightType.TRI, LightType.ENV, LightType.SPHERE})
 
 
 def check_light_kinds(scene) -> None:
@@ -63,6 +68,9 @@ def check_light_kinds(scene) -> None:
         names = sorted(k for k, v in vars(LightType).items()
                        if not k.startswith("_") and v in missing)
         raise not_ported(f"light kinds {names}", "Queue 1 item 30")
+    if scene.mode == "tlas" and LightType.TRI in kinds:
+        raise not_ported("TRI lights of instanced emissive meshes",
+                         "Queue 1 item 17")
     if any(p for (_k, _v, _d, p) in scene.light_kinds):
         raise not_ported("sky portals", "Queue 1 item 30")
     if scene.env_tab_h > 0:
@@ -141,6 +149,46 @@ def sample_spherical_triangle(P, p1, p2, p3, r1, r2):
     )
     direction = safe_normalize(_slerp(B, C_s, t))
     return pdf, direction, valid
+
+
+def _map_to_cone(r1, r2, axis, radius):
+    """Concentric disk point on the plane through ``axis``'s endpoint
+    (reference CoreRef.cpp map_to_cone)."""
+    ox = 2.0 * r1 - 1.0
+    oy = 2.0 * r2 - 1.0
+    zero = (ox == 0.0) & (oy == 0.0)
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    # signed ratio divisions: ox/oy span [-1, 1]
+    theta = torch.where(
+        use_x,
+        0.25 * PI * _safe_div_signed(oy, torch.where(use_x, ox, 1.0)),
+        0.5 * PI
+        - 0.25 * PI * _safe_div_signed(ox, torch.where(use_x, 1.0, oy)),
+    )
+    st, ct = torch.sin(theta), torch.cos(theta)
+    du = torch.where(zero, 0.0, r * ct)
+    dv = torch.where(zero, 0.0, r * st)
+    n = safe_normalize(axis)
+    t, b = orthonormal_basis(n)
+    return axis + radius[..., None] * (du[..., None] * t + dv[..., None] * b)
+
+
+def _spot_factor(sdot, spot_cos, spot_blend):
+    """Spot falloff from -L·dir (reference ShadeRef.cpp:1152-1163); 1 for
+    plain sphere lights (spot_cos = -2)."""
+    sangle = torch.arccos(saturate(sdot))
+    slimit = torch.arccos(torch.clamp(spot_cos, -1.0, 1.0))
+    return torch.where(
+        spot_cos > -1.5,
+        torch.where(
+            sdot > 0.0,
+            saturate(safe_div_pos(slimit - sangle,
+                                  torch.clamp_min(spot_blend, 1e-6))),
+            0.0,
+        ),
+        1.0,
+    )
 
 
 def _lnode_importance(lt, node, P):
@@ -258,14 +306,13 @@ def sample_light_source(scene, P, T, B, N, rand_pick, rand_uv,
     """Sample one light for each of R shading points.  Returns a
     :class:`LightSample`; ``pdf == 0`` marks a failed/absent sample."""
     check_light_kinds(scene)
-    if scene.mode == "tlas":
-        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
     lights = scene.lights
     R = P.shape[0]
     nl = lights["type"].shape[0]
     kinds = {k for (k, _v, _d, _p) in scene.light_kinds}
     has_tri = LightType.TRI in kinds
     has_env = LightType.ENV in kinds
+    has_sphere = LightType.SPHERE in kinds
 
     if scene.light_tree_depth > 0:
         # hierarchical pick (reference USE_HIERARCHICAL_NEE path)
@@ -293,6 +340,53 @@ def sample_light_source(scene, P, T, B, N, rand_pick, rand_uv,
     out_pdf = torch.zeros((R,), dtype=torch.float32, device=dev)
     out_distmul = torch.ones((R,), dtype=torch.float32, device=dev)
     out_fromenv = torch.zeros((R,), dtype=torch.bool, device=dev)
+
+    if has_sphere:
+        # ---- sphere (incl. spot) — CoreRef.cpp:3322-3368 ----
+        lpos = lights["pos"][idx]
+        ldir = lights["dir"][idx]
+        radius = lights["radius"][idx]
+        visible = lights["visible"][idx]
+        to_c = lpos - P
+        d = torch.sqrt(torch.clamp_min(dot(to_c, to_c, False), 1e-30))
+        light_normal = to_c / d[:, None]
+        outside = d > radius
+        temp = torch.sqrt(torch.clamp_min(d * d - radius * radius, 0.0))
+        disk_radius = safe_div_pos(temp * radius, d)
+        disk_dist = torch.where(radius > 0.0,
+                                safe_div_pos(temp * disk_radius, radius), d)
+        cone_pt = _map_to_cone(r1, r2, disk_dist[:, None] * light_normal,
+                               disk_radius)
+        cone_len = torch.sqrt(torch.clamp_min(dot(cone_pt, cone_pt, False),
+                                              1e-30))
+        sph_L = cone_pt / cone_len[:, None]
+        # project the sampled direction onto the sphere surface
+        b_q = dot(sph_L, -to_c, False)
+        c_q = dot(to_c, to_c, False) - radius * radius
+        disc = torch.clamp_min(b_q * b_q - c_q, 0.0)
+        ls_dist = -b_q - torch.sqrt(disc)
+        sph_surf = P + sph_L * ls_dist[:, None]
+        sph_fwd = safe_normalize(sph_surf - lpos)
+        sampled_area = PI * disk_radius * disk_radius
+        cos_theta_s = dot(sph_L, light_normal, False)
+        sph_pdf = torch.where(
+            radius > 0.0,
+            safe_div_pos(cone_len * cone_len,
+                         sampled_area * torch.clamp_min(cos_theta_s, 1e-7)),
+            safe_div_pos(cone_len * cone_len, PI),
+        )
+        sph_lp = torch.where((radius > 0.0)[:, None],
+                             offset_ray(sph_surf, sph_fwd), lpos)
+        spot = _spot_factor(-dot(sph_L, ldir, False), lights["spot_cos"][idx],
+                            lights["spot_blend"][idx])
+        is_sph = ltype == LightType.SPHERE
+        sph_ok = is_sph & outside
+        out_L = torch.where(sph_ok[:, None], sph_L, out_L)
+        out_lp = torch.where(sph_ok[:, None], sph_lp, out_lp)
+        out_pdf = torch.where(sph_ok, sph_pdf, out_pdf)
+        out_area = torch.where(sph_ok & visible, sampled_area, out_area)
+        out_col = torch.where(is_sph[:, None], out_col * spot[:, None],
+                              out_col)
 
     if has_tri:
         # ---- triangle — CoreRef.cpp:3507-3577 ----
@@ -386,16 +480,73 @@ def env_color(scene, L):
     return scene.env_col.expand(L.shape)
 
 
+def intersect_area_lights(scene, ro, rd, t_max, no_sphrect: bool = False):
+    """Closest visible analytic light along each ray (reference
+    IntersectAreaLights, internal/CoreRef.cpp:3616): every visible sphere
+    light against all rays.  Returns ``(t, light_idx, pdf, spot)``: hit
+    distance (inf if none), light id (-1), the NEE pdf of that hit × the
+    pick probability from ``ro`` (the MIS weight's input, reference
+    Evaluate_LightColor, ShadeRef.cpp:1080-1170), and the spot factor."""
+    check_light_kinds(scene)
+    L = scene.lights
+    R = ro.shape[0]
+    dev = ro.device
+    best_t = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_pdf = torch.zeros((R,), dtype=torch.float32, device=dev)
+    best_spot = torch.ones((R,), dtype=torch.float32, device=dev)
+
+    for i, (ltype, visible, _dsd, _portal) in enumerate(scene.light_kinds):
+        if not visible or ltype != LightType.SPHERE:
+            continue
+        col_pos = L["pos"][i]
+        radius = L["radius"][i]
+        oc = ro - col_pos[None, :]
+        b = dot(rd, oc, False)
+        c = dot(oc, oc, False) - radius * radius
+        disc = b * b - c
+        t_hit = -b - torch.sqrt(torch.clamp_min(disc, 0.0))
+        ok = (disc >= 0.0) & (t_hit > 0.0) & (t_hit < t_max)
+        # NEE pdf of this direction (the sampler's solid-angle disk form,
+        # so that the MIS weights cancel)
+        d2 = dot(oc, oc, False)
+        d = torch.sqrt(torch.clamp_min(d2, 1e-12))
+        temp = torch.sqrt(torch.clamp_min(d2 - radius * radius, 0.0))
+        disk_r = safe_div_pos(temp * radius, d)
+        disk_dist = safe_div_pos(temp * disk_r, torch.clamp_min(radius, 1e-9))
+        area = PI * disk_r * disk_r
+        ln = -oc / d[:, None]
+        cos_theta = dot(rd, ln, False)
+        pdf = safe_div_pos(disk_dist * disk_dist,
+                           area * torch.clamp_min(cos_theta, 1e-9))
+        spot = _spot_factor(-dot(rd, L["dir"][i][None, :], False),
+                            L["spot_cos"][i], L["spot_blend"][i])
+        closer = ok & (t_hit < best_t)
+        best_t = torch.where(closer, t_hit, best_t)
+        best_i = torch.where(closer, i, best_i)
+        best_pdf = torch.where(closer, pdf, best_pdf)
+        best_spot = torch.where(closer, spot, best_spot)
+
+    # fold in the pick probability from the ray origin
+    best_pdf = best_pdf * light_pick_pdf(scene, ro, best_i)
+    return best_t, best_i, best_pdf, best_spot
+
+
 def tri_light_hit_pdf(scene, prim, t, I, pick_pdf_of_light, light_id=None,
                       ro=None):
     """Solid-angle pdf of having NEE-sampled the emissive triangle that a
     BSDF ray just hit — for the MIS weight at emissive hits (reference
     ShadeRef.cpp:1502-1537): spherical-triangle solid angle from the ray
-    origin when above threshold, uniform-area form otherwise."""
+    origin when above threshold, uniform-area form otherwise.  In tlas mode
+    the world-space triangle comes from the light table (``light_id``)."""
     if scene.mode == "tlas":
-        raise not_ported("the two-level TLAS scene mode", "Queue 1 item 17")
-    trow = fetch_tri_pieces(scene.tri_surf, prim, ("p0", "p1", "p2"))
-    p0, p1, p2 = trow["p0"], trow["p1"], trow["p2"]
+        lid = torch.clamp_min(light_id, 0).long()
+        p0 = scene.lights["tp0"][lid]
+        p1 = scene.lights["tp1"][lid]
+        p2 = scene.lights["tp2"][lid]
+    else:
+        trow = fetch_tri_pieces(scene.tri_surf, prim, ("p0", "p1", "p2"))
+        p0, p1, p2 = trow["p0"], trow["p1"], trow["p2"]
     fwd = cross(p1 - p0, p2 - p0)
     fwd_len = torch.sqrt(torch.clamp_min(dot(fwd, fwd, False), 1e-30))
     tri_fwd = fwd / fwd_len[:, None]

@@ -1,16 +1,21 @@
-"""Scene container + finalize ("scene compile"), flatten mode.
+"""Scene container + finalize ("scene compile"), flatten and tlas modes.
 
 The port of ``ray_tpu.scene.scene``: the same imperative builder verbs and
-the same flatten-mode finalize, so a scene compiles to tables identical to
+the same finalize, so a scene compiles to tables identical to
 ``ray_tpu``'s bit for bit.  The result is a :class:`SceneFlat` — a frozen
 dataclass of torch tensors on one device (the render device), with the same
 field names and static fields as ``ray_tpu``'s pytree.
 
-Past 256 triangles finalize adds ``ray_tpu``'s 8-wide row table
-(``bvh_soa["wrows"]``, :mod:`ray_tpu_torch.scene.wbvh`).  Not ported yet,
-and raising ``NotImplementedError`` with the ROADMAP entry that will port
-it: textures and env maps, the two-level TLAS finalize, the physical sky
-and the native/SBVH/HLBVH builders.
+Flatten mode pre-transforms every instance into one world-space BVH, and
+past 256 triangles adds ``ray_tpu``'s 8-wide row table
+(``bvh_soa["wrows"]``, :mod:`ray_tpu_torch.scene.wbvh`).  Tlas mode (a mesh
+instanced more than once) builds one object-space BVH per mesh and a TLAS
+over the instances, and past 256 unique triangles the unified 8-wide table
+``bvh_soa["wrows_tlas"]`` that the traversal walks.  Uncompressed textures
+pack into ``ray_tpu``'s flat texel table (:mod:`.textures`).  Not ported
+yet, and raising ``NotImplementedError`` with the ROADMAP entry that will
+port it: compressed textures and env maps, the physical sky and the
+native/SBVH/HLBVH builders.
 """
 
 from __future__ import annotations
@@ -24,20 +29,28 @@ import torch
 from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.scene import lights as lights_mod
 from ray_tpu_torch.scene.bvh import (
+    LEAF_COUNT_BITS,
+    LEAF_COUNT_MASK,
     build_bvh2,
     bvh_depth,
     pack_bvh_soa,
+    pack_node_columns,
     pack_tri_soa,
     tri_bounds,
 )
 from ray_tpu_torch.scene.camera import Camera
 from ray_tpu_torch.scene.lights import LightDesc, LightType, pack_lights
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode, pack_materials
+from ray_tpu_torch.scene.textures import TexturePacker
 from ray_tpu_torch.scene.visibility import RAY_ALL
-from ray_tpu_torch.scene.wbvh import build_wbvh
+from ray_tpu_torch.scene.wbvh import build_wbvh, build_wtlas, finish_wtlas
 
-# ray_tpu adds an 8-wide BVH layout ("wrows") above this many triangles
+# ray_tpu adds an 8-wide BVH layout ("wrows"/"wrows_tlas") above this many
+# triangles
 WIDE_BVH_MIN_TRIS = 256
+# TLAS leaf marker inside the binary two-level code space (ray_tpu
+# ops/traverse.py INST_LEAF_FLAG)
+INST_LEAF_FLAG = 1 << 28
 
 
 def resolve_device(device=None) -> torch.device:
@@ -181,22 +194,6 @@ def _pack_tri_surf(vertices, normals, uvs, tri_vidx, tri_mats, tri_solid,
     ], axis=1)
 
 
-def empty_texture_table() -> dict:
-    """The texture table of a scene without textures — what
-    ``ray_tpu.scene.textures.TexturePacker().pack()`` returns."""
-    return {
-        "texels_t": np.ascontiguousarray(np.zeros((1, 4), np.float32).T),
-        "tex_offset": np.zeros(1, np.int32),
-        "tex_w": np.ones(1, np.int32),
-        "tex_h": np.ones(1, np.int32),
-        "tex_fmt": np.zeros(1, np.int32),
-        "tex_boff": np.zeros(1, np.int32),
-        "tex_bw": np.zeros(1, np.int32),
-        "tex_mip0": np.zeros(1, np.int32),
-        "tex_mips": np.ones(1, np.int32),
-    }
-
-
 @dataclasses.dataclass
 class _Mesh:
     vertices: np.ndarray
@@ -210,6 +207,7 @@ class Scene:
     """Mutable scene builder (the verbs of ``ray_tpu.scene.scene.Scene``)."""
 
     def __init__(self):
+        self._textures = TexturePacker()
         self._materials: list[MaterialDesc] = []
         self._meshes: list[_Mesh] = []
         self._instances: list[tuple[int, Optional[np.ndarray], int]] = []
@@ -222,7 +220,12 @@ class Scene:
     # -- resources ---------------------------------------------------------
     def add_texture(self, image, srgb: bool = False,
                     generate_mips: bool = True, compress: bool = False) -> int:
-        raise not_ported("textures", "Queue 1 item 16")
+        """Add an image (H, W, C float in [0, 1] or uint8); returns its
+        texture id.  ``compress`` (BC1/BC4/BC5/RGBE storage) is not ported
+        yet."""
+        return self._textures.add(image, srgb=srgb,
+                                  generate_mips=generate_mips,
+                                  compress=compress)
 
     def add_material(self, desc: MaterialDesc) -> int:
         from ray_tpu_torch.scene.materials import NO_TEXTURE
@@ -300,7 +303,8 @@ class Scene:
         ``instancing``: 'flatten' pre-transforms every instance to world
         space and builds one BVH; 'auto' picks it unless a mesh is instanced
         more than once, which needs the two-level TLAS compile.
-        ``max_leaf`` defaults to 8, as in ``ray_tpu``'s flatten mode."""
+        ``max_leaf`` defaults to 8 in flatten mode and 4 in tlas mode, as
+        in ``ray_tpu``."""
         device = resolve_device(device)
         if not self._instances:
             for m in range(len(self._meshes)):
@@ -311,7 +315,10 @@ class Scene:
             ids = [i[0] for i in self._instances]
             instancing = "tlas" if len(ids) != len(set(ids)) else "flatten"
         if instancing == "tlas":
-            raise not_ported("the two-level TLAS finalize", "Queue 1 item 17")
+            return self._finalize_tlas(
+                max_leaf if max_leaf is not None else 4,
+                light_tree_min_lights, has_vis, device,
+            )
         if instancing != "flatten":
             raise ValueError(f"unknown instancing mode {instancing!r}")
         return self._finalize_flatten(
@@ -487,6 +494,217 @@ class Scene:
         }
         return SceneFlat.from_numpy(arrays, static, device)
 
+    def _finalize_tlas(self, max_leaf, light_tree_min_lights, has_vis,
+                       device):
+        """Two-level compile (``ray_tpu``'s ``_finalize_tlas``): one
+        object-space BVH per mesh shared by its instances, a TLAS over the
+        instance boxes, all binary nodes in one code space (TLAS rows
+        first), and past 256 unique triangles the unified 8-wide table
+        ``wrows_tlas``."""
+        meshes = self._meshes
+        if not meshes:
+            raise ValueError("tlas mode needs at least one mesh")
+
+        # --- per-mesh BLAS (shared by all instances of the mesh) ---
+        blas = [None] * len(meshes)
+        mesh_used = sorted({m for m, _, _ in self._instances})
+        for mi in mesh_used:
+            m = meshes[mi]
+            lo, hi = tri_bounds(m.vertices, m.indices)
+            blas[mi] = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True)
+
+        # --- concatenated object-space geometry in BLAS leaf order ---
+        verts, norms, uvs, tris, tri_mat = [], [], [], [], []
+        v_off, t_off = 0, 0
+        tri_base = {}
+        mesh_emissive = {}  # mesh -> [(leaf-local tri, col, two_sided)]
+        tri_light_local_parts = []
+        for mi in mesh_used:
+            m = meshes[mi]
+            perm = blas[mi].prim_indices
+            verts.append(m.vertices)
+            norms.append(m.normals)
+            uvs.append(m.uvs)
+            tris.append(m.indices[perm] + v_off)
+            tri_mat.append(m.tri_mat[perm])
+            tri_base[mi] = t_off
+            # per-mesh emissive ordinals (light id = inst light_base + ordinal)
+            local = np.full(perm.shape[0], -1, np.int32)
+            em_list = []
+            for t in range(perm.shape[0]):
+                em = self._emissive_light_of(int(m.tri_mat[perm[t], 0]))
+                if em is None:
+                    continue
+                local[t] = len(em_list)
+                em_list.append((t, em[0], em[1]))
+            mesh_emissive[mi] = em_list
+            tri_light_local_parts.append(local)
+            v_off += m.vertices.shape[0]
+            t_off += perm.shape[0]
+
+        vertices = np.concatenate(verts)
+        normals = np.concatenate(norms)
+        uv = np.concatenate(uvs)
+        tri_vidx = np.concatenate(tris)
+        tri_mats = np.concatenate(tri_mat)
+        tri_light_local = np.concatenate(tri_light_local_parts)
+        if tri_vidx.shape[0] >= (1 << 24):
+            raise ValueError("tlas mode caps at 16M unique triangles")
+
+        # --- instance transforms + world AABBs ---
+        n_inst = len(self._instances)
+        fwd = np.zeros((n_inst, 3, 4), np.float64)   # world-from-object
+        inv = np.zeros((n_inst, 3, 4), np.float64)   # object-from-world
+        inst_lo = np.zeros((n_inst, 3), np.float32)
+        inst_hi = np.zeros((n_inst, 3), np.float32)
+        inst_vis = np.zeros(n_inst, np.int32)
+        for i, (mi, xf, vis) in enumerate(self._instances):
+            A = np.eye(3) if xf is None else np.asarray(xf, np.float64)[:3, :3]
+            b = np.zeros(3) if xf is None else np.asarray(xf, np.float64)[:3, 3]
+            Ainv = np.linalg.inv(A)
+            fwd[i, :, :3], fwd[i, :, 3] = A, b
+            inv[i, :, :3], inv[i, :, 3] = Ainv, -Ainv @ b
+            rl, rh = blas[mi].root_lo, blas[mi].root_hi
+            corners = np.array(
+                [[rl[0] if c & 1 else rh[0],
+                  rl[1] if c & 2 else rh[1],
+                  rl[2] if c & 4 else rh[2]] for c in range(8)]
+            )
+            wc = corners @ A.T + b
+            inst_lo[i] = wc.min(0).astype(np.float32)
+            inst_hi[i] = wc.max(0).astype(np.float32)
+            inst_vis[i] = vis
+
+        # --- TLAS over instance AABBs (one instance per leaf) ---
+        tlas = build_bvh2(inst_lo, inst_hi, max_leaf=1)
+        n_tlas = tlas.num_nodes
+
+        def retag_tlas(code):
+            if code >= 0:
+                return code  # TLAS-internal: stays a low index
+            v = -code - 1
+            first, count = v >> LEAF_COUNT_BITS, v & LEAF_COUNT_MASK
+            if count == 0:
+                return -1  # empty leaf: decodes as a 0-count tri leaf
+            return -((INST_LEAF_FLAG | int(tlas.prim_indices[first])) + 1)
+
+        tlas_child = np.vectorize(retag_tlas)(tlas.child).astype(np.int32)
+
+        # --- merge node arrays: TLAS rows, then each BLAS with offsets ---
+        node_base = {}
+        all_lo = [tlas.child_lo]
+        all_hi = [tlas.child_hi]
+        all_child = [tlas_child]
+        base = n_tlas
+        for mi in mesh_used:
+            b = blas[mi]
+            node_base[mi] = base
+            c = b.child
+            internal = c >= 0
+            v = -c - 1
+            first = (v >> LEAF_COUNT_BITS) + tri_base[mi]
+            count = v & LEAF_COUNT_MASK
+            leaf_new = -(((first << LEAF_COUNT_BITS) | count) + 1)
+            all_child.append(
+                np.where(internal, c + base,
+                         np.where(count > 0, leaf_new, -1)).astype(np.int32)
+            )
+            all_lo.append(b.child_lo)
+            all_hi.append(b.child_hi)
+            base += b.num_nodes
+        nodes_soa = pack_node_columns(
+            np.concatenate(all_lo), np.concatenate(all_hi),
+            np.concatenate(all_child),
+        )
+        tri_soa = pack_tri_soa(vertices, tri_vidx)
+
+        # the unified wide two-level table, the one the traversal walks
+        if tri_vidx.shape[0] > WIDE_BVH_MIN_TRIS:
+            wt, mesh_root, wbase = build_wtlas(
+                tlas, tlas.prim_indices, inv.astype(np.float32), inst_vis,
+                [blas[mi] for mi in mesh_used], mesh_used, tri_base,
+                tri_soa["packed"], max_leaf,
+            )
+            finish_wtlas(wt, [mi for mi, _, _ in self._instances],
+                         mesh_root, wbase)
+            nodes_soa["wrows_tlas"] = wt["wrows_tlas"]
+            nodes_soa["winst_base"] = np.int32(wbase)
+
+        # --- per-instance columns for the shading transforms ---
+        inst_cols = {"vis": inst_vis}
+        inst_cols["blas_root"] = np.array(
+            [node_base[mi] for mi, _, _ in self._instances], np.int32
+        )
+        for r in range(3):
+            for c in range(3):
+                inst_cols[f"inv{r}{c}"] = inv[:, r, c].astype(np.float32)
+                inst_cols[f"m{r}{c}"] = fwd[:, r, c].astype(np.float32)
+        for ax, name in enumerate("xyz"):
+            inst_cols[f"invt{name}"] = inv[:, ax, 3].astype(np.float32)
+            inst_cols[f"mt{name}"] = fwd[:, ax, 3].astype(np.float32)
+
+        # --- per-instance TRI lights from emissive mesh triangles ---
+        light_descs = list(self._lights)
+        tri_areas = {}
+        light_base = np.zeros(n_inst, np.int32)
+        for i, (mi, xf, vis) in enumerate(self._instances):
+            light_base[i] = len(light_descs)
+            A, b = fwd[i, :, :3], fwd[i, :, 3]
+            for t_local, col, two_sided in mesh_emissive[mi]:
+                perm = blas[mi].prim_indices
+                p_obj = meshes[mi].vertices[meshes[mi].indices[perm[t_local]]]
+                p = (p_obj @ A.T + b).astype(np.float32)
+                area = 0.5 * np.linalg.norm(
+                    np.cross(p[1] - p[0], p[2] - p[0])
+                )
+                li = len(light_descs)
+                light_descs.append(
+                    LightDesc(
+                        type=LightType.TRI,
+                        color=tuple(np.asarray(col, np.float64)),
+                        tri_index=int(tri_base[mi] + t_local),
+                        doublesided=two_sided,
+                        tri_verts=p,
+                    )
+                )
+                tri_areas[li] = float(area)
+        inst_cols["light_base"] = light_base
+
+        common = self._pack_common(
+            light_descs, tri_areas, vertices, tri_vidx, light_tree_min_lights
+        )
+        tri_solid = self._tri_solidity(tri_mats)
+        max_blas_depth = max(bvh_depth(blas[mi]) for mi in mesh_used)
+        arrays = {
+            "vertices": vertices,
+            "normals": normals,
+            "uvs": uv,
+            "tri_vidx": tri_vidx,
+            "tri_mat": tri_mats,
+            "tri_light": np.full(tri_vidx.shape[0], -1, np.int32),
+            "tri_light_local": tri_light_local,
+            "tri_solid": tri_solid,
+            "tri_surf": _pack_tri_surf(
+                vertices, normals, uv, tri_vidx, tri_mats, tri_solid,
+                tri_light_local,
+            ),
+            "bvh_soa": nodes_soa,
+            "tri_soa": tri_soa,
+            "root_lo": tlas.root_lo,
+            "root_hi": tlas.root_hi,
+            "inst": inst_cols,
+            **common["arrays"],
+        }
+        static = {
+            "max_leaf": max_leaf,
+            "stack_size": bvh_depth(tlas) + max_blas_depth + 6,
+            "mode": "tlas",
+            "has_visibility": has_vis,
+            "has_transparency": not bool(self._material_solidity().all()),
+            **common["static"],
+        }
+        return SceneFlat.from_numpy(arrays, static, device)
+
     def _pack_common(self, light_descs, tri_areas, vertices, tri_vidx,
                      light_tree_min_lights):
         """Mode-independent tail of finalize: env light + material/light/
@@ -531,7 +749,7 @@ class Scene:
             "arrays": {
                 "materials": materials,
                 "lights": lights,
-                "textures": empty_texture_table(),
+                "textures": self._textures.pack(),
                 "env_col": self.env_col,
                 "env_map": np.int32(self.env_map),
                 "env_rotation": np.float32(self.env_rotation),
@@ -543,7 +761,7 @@ class Scene:
             "static": {
                 "num_lights": len(light_descs),
                 "env_light_index": env_light_index,
-                "has_textures": False,
+                "has_textures": len(self._textures.num_mips) > 0,
                 "has_mix": any(
                     d.type == ShadingNode.MIX for d in self._materials
                 ),

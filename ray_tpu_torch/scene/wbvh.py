@@ -1,9 +1,11 @@
-"""8-wide BVH row table (``wrows``) for flatten scenes past 256 triangles.
+"""8-wide BVH row tables: ``wrows`` for flatten scenes and ``wrows_tlas``
+for two-level scenes, past 256 triangles.
 
-A numpy copy of ``ray_tpu.scene.wbvh.build_wbvh``: the BVH2 is collapsed
-greedily into 8-wide nodes and padded leaf groups, all in ONE f32 row
-table, nodes first.  ``ray_tpu``'s wide walk (``_traverse_wide``) reads it;
-the port does not walk it yet (ROADMAP Queue 1 item 19) and builds it so
+A numpy copy of ``ray_tpu.scene.wbvh``'s ``build_wbvh`` and
+``build_wtlas`` / ``finish_wtlas``: a BVH2 is collapsed greedily into
+8-wide nodes and padded leaf groups, all in ONE f32 row table, nodes
+first.  The port walks ``wrows_tlas`` (``ops.traverse.trace_tlas``); it
+does not walk ``wrows`` yet (ROADMAP Queue 1 item 19) and builds it so
 that a finalized ``SceneFlat`` carries ``ray_tpu``'s tables bit for bit.
 
 Encodings:
@@ -16,8 +18,7 @@ Row layout, width W = max(56, 11·max_leaf):
 - leaf rows: slot-SoA [p0x(L) p0y(L) p0z(L) p1x(L) p1y(L) p1z(L) p2x(L)
   p2y(L) p2z(L) prim(L) vis(L)].
 Padding slots carry NaN positions; padding children carry EMPTY codes and
-inverted boxes.  The two-level table (``build_wtlas``) waits for the TLAS
-slice (Queue 1 item 17).
+inverted boxes.
 """
 
 from __future__ import annotations
@@ -167,3 +168,125 @@ def build_wbvh(bvh: BVH2, tri_soa_packed: np.ndarray,
     ]) if leaf_codes else _node_rows(nodes, width, lambda g: g)
 
     return {"wrows": rows}
+
+
+# ---------------------------------------------------------------------------
+# Two-level table: TLAS wide nodes, one instance row per instance and each
+# mesh's wide BLAS rows, merged into ONE table so that a traversal step
+# reads exactly one row.
+#
+# Code space (int32):
+#   cur >= 0                    wide-node visit: (row << 8) | child_mask
+#   cur < 0, v = -cur - 1:
+#     v bit 28 set              instance row at v & 0x0FFFFFFF
+#     else                      triangle leaf-group row at v
+#   RESTORE / EMPTY             sentinels (ops/traverse.py)
+# Row budget: row < 2^23 (visit codes shift by 8).
+#
+# Instance row layout (cols 0..13): inv00..inv22 (row-major 3x3 of the
+# object-from-world transform), invtx invty invtz, vis (int bits),
+# blas_root_visit_code (int bits).
+# ---------------------------------------------------------------------------
+
+INST_ROW_BIT = 1 << 28
+
+
+def build_wtlas(tlas: BVH2, inst_of_leaf: np.ndarray, inv: np.ndarray,
+                inst_vis: np.ndarray, blas_list, blas_mesh_ids,
+                blas_tri_base, tri_soa_packed: np.ndarray, max_leaf: int):
+    """Build the unified wide two-level table.
+
+    tlas: BVH2 over instance AABBs (max_leaf=1); ``inst_of_leaf[first]`` =
+      instance index of the TLAS leaf starting at ``first``.
+    inv: (I, 3, 4) object-from-world transforms; inst_vis: (I,) i32.
+    blas_list: per-used-mesh BVH2 (object space, leaf codes local to the
+      mesh); blas_mesh_ids: mesh id per entry; blas_tri_base: global
+      leaf-order triangle offset per mesh id.
+    tri_soa_packed: (T, 9) global leaf-order triangle rows.
+    Returns ({"wrows_tlas": rows}, {mesh id: root visit code}, inst_base).
+    """
+    width = max(NODE_COLS, 11 * max_leaf, 14)
+    n_inst = inv.shape[0]
+
+    # collapse every BLAS first to learn its node and leaf row counts
+    mesh_tables = {}
+    for bvh, mid in zip(blas_list, blas_mesh_ids):
+        leaf_codes = []
+
+        def make_leaf(code, _lc=leaf_codes):
+            _lc.append(code)
+            return len(_lc) - 1
+
+        nodes = _collapse_wide(bvh, make_leaf)
+        mesh_tables[mid] = (nodes, leaf_codes, bvh.max_leaf)
+
+    # row layout: [TLAS nodes | instance rows | mesh m nodes + leaves ...]
+    tlas_leaf_ids = []
+
+    def tlas_leaf(code):
+        enc = -code - 1
+        first = enc >> LEAF_COUNT_BITS
+        if (enc & LEAF_COUNT_MASK) != 1:
+            raise ValueError("a TLAS leaf must hold exactly one instance")
+        tlas_leaf_ids.append(int(inst_of_leaf[first]))
+        return len(tlas_leaf_ids) - 1
+
+    tlas_nodes = _collapse_wide(tlas, tlas_leaf)
+    n_tlas = len(tlas_nodes)
+    inst_base = n_tlas
+    base = inst_base + n_inst
+    mesh_base = {}
+    for mid, (nodes, leaf_codes, _) in mesh_tables.items():
+        mesh_base[mid] = base
+        base += len(nodes) + len(leaf_codes)
+    total_rows = base
+    if total_rows >= (1 << 23):
+        raise ValueError(f"{total_rows} rows: visit codes need < 2^23")
+
+    parts = []
+    # TLAS nodes: leaf ordinal g → instance tlas_leaf_ids[g]'s row;
+    # leaf_code_fn sees the whole raw codes array, so clamp before indexing
+    ids = np.asarray(tlas_leaf_ids, np.int32) if tlas_leaf_ids else \
+        np.zeros(1, np.int32)
+
+    def tlas_leaf_code(g):
+        gi = ids[np.clip(g, 0, ids.shape[0] - 1)]
+        return -(((inst_base + gi) | INST_ROW_BIT) + 1)
+
+    parts.append(_node_rows(tlas_nodes, width, tlas_leaf_code))
+    irows = np.zeros((n_inst, width), np.float32)
+    irows[:, 0:9] = inv[:, :, :3].reshape(n_inst, 9)
+    irows[:, 9:12] = inv[:, :, 3]
+    irows[:, 12] = inst_vis.astype(np.int32).view(np.float32)
+    parts.append(irows)
+    for mid, (nodes, leaf_codes, blas_max_leaf) in mesh_tables.items():
+        nb = mesh_base[mid]
+        leaf_base = nb + len(nodes)
+        parts.append(_node_rows(
+            nodes, width, lambda g: -(leaf_base + g + 1), node_base=nb,
+        ))
+        # leaf codes are mesh-local; shift 'first' to the global tri order
+        tb = blas_tri_base[mid]
+        shifted = [
+            -((((((-c - 1) >> LEAF_COUNT_BITS) + tb) << LEAF_COUNT_BITS)
+               | ((-c - 1) & LEAF_COUNT_MASK)) + 1)
+            for c in leaf_codes
+        ]
+        parts.append(_tri_leaf_rows(
+            shifted, tri_soa_packed, None, blas_max_leaf, width,
+        ))
+    rows = np.concatenate(parts)
+
+    root_code = np.array(
+        [(mesh_base[mid] << 8) | 0xFF for mid in blas_mesh_ids], np.int32
+    )
+    mesh_root = {mid: rc for mid, rc in zip(blas_mesh_ids, root_code)}
+    return {"wrows_tlas": rows}, mesh_root, inst_base
+
+
+def finish_wtlas(table: dict, inst_mesh, mesh_root, inst_base):
+    """Write each instance's BLAS-root visit code into its row (col 13)."""
+    rows = table["wrows_tlas"]
+    for i, mid in enumerate(inst_mesh):
+        rows[inst_base + i, 13] = np.int32(mesh_root[mid]).view(np.float32)
+    return table

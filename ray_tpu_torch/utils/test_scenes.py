@@ -1,13 +1,17 @@
 """Canonical test scenes: the port of ``ray_tpu.utils.test_scenes``'s
-Cornell box, the scene of the flagship frame."""
+Cornell box (the scene of the flagship frame) and the instanced colonnade
+(the big scene: two-level traversal, textures, principled materials,
+sphere lights), and the instanced generator scene of the traversal tests."""
 
 from __future__ import annotations
+
+import numpy as np
 
 from ray_tpu_torch.scene.camera import make_camera
 from ray_tpu_torch.scene.lights import LightDesc, LightType
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.scene.scene import Scene
-from ray_tpu_torch.utils.geometry import make_box, make_quad
+from ray_tpu_torch.utils.geometry import make_box, make_quad, make_uv_sphere
 
 
 def cornell_scene(
@@ -91,3 +95,120 @@ def cornell_scene(
 
     cam = make_camera(origin=(0, 0, -2.9), look_at=(0, 0, 0), fov=45.0)
     return sc, cam
+
+
+def colonnade_scene(
+    n_cols: int = 8,
+    sphere_detail: int = 32,
+    n_lights: int = 12,
+    tex_res: int = 256,
+    seed: int = 7,
+):
+    """Sponza-class benchmark scene: an instanced colonnade hall with a
+    dense displaced-terrain centerpiece — 64 column instances of one
+    3,968-triangle mesh, 16 instances of a 4,418-triangle terrain tile and
+    a floor quad (324,642 instanced triangles over 8,388 unique: TLAS
+    instancing), a procedural 256x256 texture on the stone and floor
+    materials (all PRINCIPLED), and 12 sphere lights + a constant
+    environment, enough to engage the light tree.  Returns (Scene, Camera).
+    """
+    r = np.random.RandomState(seed)
+    sc = Scene()
+
+    # procedural checker/marble texture (floor + columns)
+    yy, xx = np.meshgrid(np.arange(tex_res), np.arange(tex_res), indexing="ij")
+    checker = (((xx // 16) + (yy // 16)) % 2).astype(np.float32)
+    marble = 0.5 + 0.5 * np.sin(0.11 * xx + 4.0 * np.sin(0.07 * yy))
+    tex = np.stack([0.25 + 0.55 * checker,
+                    0.25 + 0.45 * marble,
+                    0.35 + 0.35 * checker * marble], axis=-1).astype(np.float32)
+    tex_id = sc.add_texture(tex, srgb=False)
+
+    stone = sc.add_material(MaterialDesc(
+        type=ShadingNode.PRINCIPLED, base_color=(0.75, 0.72, 0.68),
+        base_texture=tex_id, roughness=0.55, specular=0.3))
+    floor_m = sc.add_material(MaterialDesc(
+        type=ShadingNode.PRINCIPLED, base_color=(0.5, 0.5, 0.55),
+        base_texture=tex_id, roughness=0.25, specular=0.5))
+    gold = sc.add_material(MaterialDesc(
+        type=ShadingNode.PRINCIPLED, base_color=(0.9, 0.7, 0.3),
+        metallic=1.0, roughness=0.3))
+
+    # column: dense capsule-ish sphere stack (unique mesh, instanced)
+    v, idx, n, uv = make_uv_sphere(radius=0.5, rings=sphere_detail,
+                                   segments=2 * sphere_detail)
+    v = v * np.array([1.0, 3.0, 1.0], np.float32)  # stretch into a column
+    column = sc.add_mesh(v, idx, uvs=uv, material=stone)
+
+    # dense displaced terrain tile (raw triangle mass)
+    g = 48
+    gy, gx = np.meshgrid(np.linspace(0, 1, g), np.linspace(0, 1, g),
+                         indexing="ij")
+    h = 0.15 * np.sin(9.0 * gx) * np.cos(7.0 * gy) + 0.05 * r.rand(g, g)
+    tv = np.stack([gx * 4 - 2, h, gy * 4 - 2], axis=-1).reshape(-1, 3)
+    quads = []
+    for j in range(g - 1):
+        for i in range(g - 1):
+            a = j * g + i
+            quads += [[a, a + 1, a + g], [a + 1, a + g + 1, a + g]]
+    terrain = sc.add_mesh(tv.astype(np.float32), np.asarray(quads, np.int32),
+                          uvs=np.stack([gx, gy], -1).reshape(-1, 2),
+                          material=gold)
+
+    fv, fidx, fuv = make_quad((0, 0, 0), (24, 0, 0), (0, 0, 24))
+    floor = sc.add_mesh(fv, fidx, uvs=fuv, material=floor_m)
+
+    def translate(t):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = t
+        return m
+
+    for j in range(n_cols):
+        for i in range(n_cols):
+            x = (i - (n_cols - 1) / 2) * 3.0
+            z = (j - (n_cols - 1) / 2) * 3.0
+            sc.add_instance(column, translate((x, 1.5, z)))
+    for j in range(4):
+        for i in range(4):
+            sc.add_instance(
+                terrain, translate(((i - 1.5) * 4.2, 0.02, (j - 1.5) * 4.2)))
+    sc.add_instance(floor)
+
+    for k in range(n_lights):
+        sc.add_light(LightDesc(
+            type=LightType.SPHERE,
+            color=tuple(6.0 + 8.0 * r.rand(3)),
+            position=((r.rand() - 0.5) * 20.0, 2.5 + 2.0 * r.rand(),
+                      (r.rand() - 0.5) * 20.0),
+            radius=0.15,
+        ))
+    sc.set_environment((0.12, 0.14, 0.18))
+    cam = make_camera(origin=(9.0, 4.0, 9.5), look_at=(0.0, 1.0, 0.0),
+                      fov=55.0)
+    return sc, cam
+
+
+def instanced_scene(meshes=((12, 16),), n_inst: int = 6, seed: int = 3):
+    """Two-level generator scene (tests/test_traverse_tlas_pallas.py
+    ``_instanced_scene`` for the default single mesh): for each (rings,
+    segments) UV sphere of radius 0.6 in ``meshes``, ``n_inst`` instances
+    scaled by U(0.5, 1.4) and translated by U(-2, 2)³, all DIFFUSE, in a
+    constant environment.  Returns the Scene; every mesh is instanced more
+    than once, so ``finalize`` picks tlas mode."""
+    sc = Scene()
+    m = sc.add_material(MaterialDesc(type=ShadingNode.DIFFUSE,
+                                     base_color=(0.7, 0.7, 0.7)))
+    rng = np.random.default_rng(seed)
+    for rings, segments in meshes:
+        v, idx, n, uv = make_uv_sphere(radius=0.6, rings=rings,
+                                       segments=segments)
+        mesh = sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)
+        for _ in range(n_inst):
+            t = rng.uniform(-2.0, 2.0, 3)
+            s = rng.uniform(0.5, 1.4)
+            x = np.eye(4, dtype=np.float32)
+            x[0, 0] = x[1, 1] = x[2, 2] = s
+            x[:3, 3] = t
+            sc.add_instance(mesh, x)
+    sc.set_environment((0.5, 0.5, 0.5))
+    return sc

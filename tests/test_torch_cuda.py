@@ -6,7 +6,8 @@ suite's conftest needs JAX, which the port does not); ``chip_smoke.py``
 runs the same checks at the flagship frame's full size.  Each kernel is
 held bit-exact against its plain PyTorch version, and each scene's path
 is shown to launch its kernel: the flagship ``trace_brute``, the
-``cornell_sphere`` scene (376 triangles) ``trace_bvh``.
+``cornell_sphere`` scene (376 triangles) ``trace_bvh``, the instanced
+colonnade ``trace_tlas``.
 """
 
 import numpy as np
@@ -188,3 +189,104 @@ def test_cornell_sphere_tile_launches_the_bvh_kernel():
     assert cuda_build.launch_counts["trace_bvh_closest"] == 6
     assert cuda_build.launch_counts["trace_bvh_anyhit"] == 6
     assert cuda_build.launch_counts["trace_brute_closest"] == 0
+
+
+def _tlas_case(n_inst, n_rays, seed, stack=None, mask=False):
+    from ray_tpu_torch.utils.test_scenes import instanced_scene
+
+    scene = instanced_scene(n_inst=n_inst).finalize(device="cuda")
+    r = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    ro = (r.rand(n_rays, 3) - 0.5) * 8.0
+    rd = r.randn(n_rays, 3)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    ray_mask = None
+    if mask:
+        ray_mask = torch.tensor(np.where(r.rand(n_rays) < 0.5, 0x7fffffff, 2),
+                                dtype=torch.int32, device=dev)
+    return (scene.bvh_soa["wrows_tlas"], int(scene.bvh_soa["winst_base"]),
+            f(ro), f(rd), f(np.where(r.rand(n_rays) < 0.3, r.rand(n_rays), 0.0)),
+            f(np.where(r.rand(n_rays) < 0.8, 1e30, r.rand(n_rays) * 6.0)),
+            torch.tensor(r.rand(n_rays) < 0.9, device=dev), ray_mask,
+            scene.max_leaf, stack or scene.stack_size)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_inst,stack,mask", [
+    (6, None, False), (64, None, False), (64, None, True),
+    (64, 4, False),   # a stack shallower than the tree: overflow semantics
+])
+def test_trace_tlas_kernel_bit_exact(n_inst, stack, mask, any_hit):
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops.traverse import trace_tlas, trace_tlas_plain
+
+    case = _tlas_case(n_inst, 300_001, n_inst, stack, mask)
+    before = cuda_build.launch_counts.copy()
+    k = trace_tlas(*case, any_hit=any_hit)
+    p = trace_tlas_plain(*case, any_hit=any_hit)
+    torch.cuda.synchronize()
+    name = "trace_tlas_anyhit" if any_hit else "trace_tlas_closest"
+    assert cuda_build.launch_counts[name] == before[name] + 1
+    assert 0 < int((p.prim >= 0).sum()) < 300_001
+    for f in k._fields:
+        a, b = getattr(k, f), getattr(p, f)
+        assert a.device == b.device and a.dtype == b.dtype, f
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+def test_trace_tlas_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops.traverse import trace_tlas
+
+    rows, base, ro, rd, tmin, tmax, act, _, ml, ss = _tlas_case(6, 64, 0)
+    rays = (ro, rd, tmin, tmax, act)
+    with pytest.raises(ValueError):   # width != max(56, 11 max_leaf, 14)
+        trace_tlas(rows[:, :55].contiguous(), base, *rays, None, ml, ss)
+    with pytest.raises(ValueError):   # the table has 56 columns, not 88
+        trace_tlas(rows, base, *rays, None, 8, ss)
+    with pytest.raises(ValueError):
+        trace_tlas(rows.t().contiguous().t(), base, *rays, None, ml, ss)
+    with pytest.raises(TypeError):
+        trace_tlas(rows.double(), base, *rays, None, ml, ss)
+    with pytest.raises(ValueError):
+        trace_tlas(rows.cpu(), base, *rays, None, ml, ss)
+    with pytest.raises(ValueError):
+        trace_tlas(rows, base, ro[:, :2].contiguous(), *rays[1:], None, ml, ss)
+    with pytest.raises(TypeError):
+        trace_tlas(rows, base, *rays, torch.zeros(64, device="cuda"), ml, ss)
+    with pytest.raises(ValueError):
+        trace_tlas(rows, base, *rays, torch.zeros(63, dtype=torch.int32,
+                                                  device="cuda"), ml, ss)
+    for bad_stack in (0, 65):
+        with pytest.raises(ValueError):
+            trace_tlas(rows, base, *rays, None, ml, bad_stack)
+
+
+def test_colonnade_tile_launches_the_tlas_kernel():
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils.test_scenes import colonnade_scene
+
+    sc, cam = colonnade_scene()
+    scene = sc.finalize()
+    assert scene.device.type == "cuda" and scene.mode == "tlas"
+    cuda_build.reset_launch_counts()
+    out = render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                      height=1080, tile_w=256, tile_h=128,
+                      settings=PassSettings(max_total_depth=5,
+                                            min_total_depth=2,
+                                            compact_after=2,
+                                            compact_factor=4),
+                      use_filter_table=False)
+    assert bool(torch.isfinite(out["color"]).all())
+    assert float(out["color"].mean()) > 0.0
+    counts = dict(cuda_build.launch_counts)
+    assert counts.get("trace_tlas_closest") == 6, counts
+    assert counts.get("trace_tlas_anyhit") == 6, counts
+    assert not any(counts.get(f"{k}_{m}") for k in ("trace_brute", "trace_bvh")
+                   for m in ("closest", "anyhit")), counts

@@ -110,3 +110,25 @@ def test_bvh_wrapper_never_falls_back():
         trace_bvh(nodes, tris, *rays, 4, 8)
     with pytest.raises(ValueError):
         trace_bvh(torch.zeros(3, 14), torch.zeros(50, 9), *rays, 4, 8)
+
+
+def test_tlas_wrapper_never_falls_back():
+    """The two-level wrapper, likewise: a non-CPU, non-CUDA device, or rows,
+    rays or the ray mask split across devices, raise rather than running
+    ``trace_tlas_plain``."""
+    from ray_tpu_torch.ops.traverse import trace_tlas
+
+    m = torch.device("meta")
+    rows = torch.empty((40, 56), device=m)
+    ro = torch.empty((8, 3), device=m)
+    rays = (ro, ro, torch.empty(8, device=m), torch.empty(8, device=m),
+            torch.empty(8, dtype=torch.bool, device=m))
+    with pytest.raises(ValueError):
+        trace_tlas(rows, 3, *rays, None, 4, 16)
+    cpu_rays = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8),
+                torch.zeros(8), torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        trace_tlas(rows, 3, *cpu_rays, None, 4, 16)
+    with pytest.raises(ValueError):
+        trace_tlas(torch.zeros(40, 56), 3, *cpu_rays,
+                   torch.empty(8, dtype=torch.int32, device=m), 4, 16)

@@ -1,9 +1,11 @@
 """ray_tpu_torch's scene compile against ray_tpu's: bit for bit.
 
-The port's ``Scene.finalize(device="cpu")`` of the Cornell scenes must give
-every table and static field of ``ray_tpu``'s flatten-mode ``SceneFlat``,
-and ``SceneFlat.from_numpy`` must carry a finalized ``ray_tpu`` scene
-across unchanged.
+The port's ``Scene.finalize(device="cpu")`` of the Cornell scenes (flatten
+mode) and of instanced scenes (tlas mode, with ``wrows_tlas``) must give
+every table and static field of ``ray_tpu``'s ``SceneFlat``, textures
+must pack into ``ray_tpu``'s texel table, and ``SceneFlat.from_numpy``
+must carry a finalized ``ray_tpu`` scene across unchanged.  (The
+colonnade's tables: tests/test_torch_tlas.py.)
 """
 
 import dataclasses
@@ -22,6 +24,8 @@ from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.scene.scene import SceneFlat
 from ray_tpu_torch.utils.geometry import make_uv_sphere as t_sphere
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
+from ray_tpu_torch.utils.test_scenes import instanced_scene
+from test_traverse_tlas_pallas import _instanced_scene
 
 _STATIC = [f.name for f in dataclasses.fields(JSceneFlat)
            if f.metadata.get("static")]
@@ -140,10 +144,57 @@ def test_from_numpy_rejects_unknown_fields():
 def test_unported_finalize_paths_raise():
     sc, _ = t_cornell()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.add_texture(np.zeros((4, 4, 3), np.float32))
+        sc.add_texture(np.zeros((4, 4, 3), np.float32), compress=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sc.set_environment((1, 1, 1), map_id=0)
+    # the two-level finalize is ported; its binary walk (≤ 256 unique
+    # triangles, no wrows_tlas) raises at render time: tests/test_torch_tlas.py
     sc.add_instance(0)
     sc.add_instance(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.finalize(device="cpu", instancing="tlas")
+    scene = sc.finalize(device="cpu", instancing="tlas")
+    assert scene.mode == "tlas" and "wrows_tlas" not in scene.bvh_soa
+
+
+@pytest.mark.parametrize("n_inst", [2, 6, 64])
+def test_instanced_finalize_matches_ray_tpu(n_inst):
+    """Tlas mode: the binary code space, ``wrows_tlas``/``winst_base``, the
+    instance columns and the object-space ``tri_surf``, all equal."""
+    ref = _instanced_scene(n_inst)
+    port = instanced_scene(n_inst=n_inst).finalize(device="cpu")
+    _assert_scene_equal(port, ref)
+    assert port.mode == "tlas" and port.max_leaf == 4
+    assert port.bvh_soa["wrows_tlas"].shape[1] == 56
+    assert port.inst["vis"].shape[0] == n_inst
+
+
+def test_tlas_from_numpy_round_trip():
+    ref = _instanced_scene(6)
+    arrays = {n: jax.tree_util.tree_map(np.asarray, getattr(ref, n))
+              for n in _ARRAYS}
+    static = {n: getattr(ref, n) for n in _STATIC}
+    port = SceneFlat.from_numpy(arrays, static, device="cpu")
+    _assert_scene_equal(port, ref)
+    assert port.bvh_soa["wrows_tlas"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape,dtype,srgb,mips", [
+    ((16, 8, 3), np.float32, False, True),
+    ((5, 7, 4), np.float32, True, True),   # odd sizes, sRGB → linear
+    ((12, 12), np.uint8, False, True),     # one channel, bytes
+    ((9, 6, 2), np.float32, False, False),
+])
+def test_texture_packing_matches_ray_tpu(shape, dtype, srgb, mips):
+    """Mip chains (2x2 box filter, odd edges), sRGB linearisation, channel
+    padding and the record table: ray_tpu's ``TexturePacker`` bit for
+    bit."""
+    from ray_tpu.scene.textures import TexturePacker as JPacker
+    from ray_tpu_torch.scene.textures import TexturePacker as TPacker
+
+    r = np.random.RandomState(sum(shape))
+    imgs = [(r.rand(*shape) * (255 if dtype == np.uint8 else 1)).astype(dtype)
+            for _ in range(2)]
+    jp, tp = JPacker(), TPacker()
+    for img in imgs:
+        assert jp.add(img, srgb=srgb, generate_mips=mips) == tp.add(
+            img, srgb=srgb, generate_mips=mips)
+    _assert_same(tp.pack(), jp.pack(), "textures")
