@@ -6,7 +6,7 @@
 Drives ``ray_tpu_torch`` (never JAX, never ``ray_tpu``) through the entry
 points a user calls — a scene → ``Scene.finalize()`` → ``render_tile`` at
 1920x1080, 1 spp, depth 5, and for fwd+bwd the bench loss through autograd
-— on three scenes:
+— on five scenes:
 
 * the flagship ``cornell_scene("emissive_quad")`` (24 triangles: every
   trace goes to ``trace_brute``);
@@ -16,28 +16,37 @@ points a user calls — a scene → ``Scene.finalize()`` → ``render_tile`` at
   over 8,388 unique in 81 instances, a texture, PRINCIPLED materials, 12
   sphere lights: every trace goes to ``trace_tlas``.  Forward only, at
   bench.py's big-scene settings without remat (compaction after bounce 2),
-  rendered as a 2x2 grid of 960x540 tiles as bench.py does.
+  rendered as a 2x2 grid of 960x540 tiles as bench.py does;
+* the colonnade finalized with ``instancing="flatten"`` (the 324,642
+  triangles in one BVH2 from the native builder, 67,138 8-wide rows):
+  every trace goes to ``trace_tlas`` over the flatten ``wrows`` (the wide
+  route, ``trace_wide``), at the same settings and grid;
+* ``colonnade_scene(n_cols=5)`` finalized with ``instancing="flatten",
+  pallas_binned=True`` (169,890 triangles in 469 subtree slabs): every
+  trace goes to ``trace_binned``, at the same settings and grid.
 
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``); exits non-zero when
    CUDA is absent;
-2. builds the three CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc``
+2. builds the four CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version: on the
-   traversal tests' generator scenes at 2M rays (brute 8/24/40 triangles,
+   traversal tests' generator scenes (at 2M rays brute 8/24/40 triangles,
    BVH 100/300/500, TLAS 6 and 64 instances of one mesh and a 12,600-row
-   table of five meshes, one run with a ray mask), in both modes, and on
-   the inputs of all 12 launches of one frame of the flagship and
-   ``cornell_sphere`` and of one 960x540 colonnade tile;
+   table of five meshes, one run with a ray mask; at 300,000 rays binned
+   clouds of 20,000 and 120,000 triangles, with the sort key), in both
+   modes, and on the inputs of all 12 launches of one frame of the
+   flagship and ``cornell_sphere`` and of one 960x540 tile of each
+   colonnade;
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
    terrain and floor);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
-   others; the colonnade frame is 4 tiles): Mray/s, frame ms and spread,
-   peak memory; and one more colonnade line at grid 1x1;
+   others; a colonnade frame is 4 tiles): Mray/s, frame ms and spread,
+   peak memory; and one more instanced colonnade line at grid 1x1;
 6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each scene, the bench loss
    differentiated w.r.t. the float material columns and ``env_col``
    (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms split into
@@ -45,10 +54,14 @@ Phases:
    non-zero for ``base_color`` and ``env_col``; then a 64x48 fwd+bwd tile
    of ``cornell_sphere`` on the card against the CPU path's gradients;
 7. profiles one forward and one fwd+bwd flagship frame and one forward
-   colonnade frame with ``torch.profiler``: device time, its share of the
-   unprofiled frame, the RNG's cost; op tables in ``chiprun_out/``;
-8. times each kernel (CUDA events) at its frame's (the colonnade: its
-   tile's) launch shapes beside its plain version and its bound, and
+   frame of the instanced and of the binned colonnade with
+   ``torch.profiler``: device time, its share of the unprofiled frame, the
+   RNG's cost; op tables in ``chiprun_out/``;
+8. times each kernel (CUDA events) at its frame's (a colonnade: its
+   tile's) launch shapes beside its plain version (``trace_binned``'s on
+   one launch of each mode: it takes seconds) and its bound, and
+   ``trace_tlas`` over the binned scene's ``wrows`` on the binned tile's
+   rays (the wide route that scene takes without ``pallas_binned``), and
    prints one ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -78,7 +91,14 @@ KERNELS = {
                       replaces="ray_tpu/ops/traverse_pallas.py:204"),
     "trace_tlas": dict(source="ray_tpu_torch/csrc/trace_tlas.cu",
                        replaces="ray_tpu/ops/traverse_pallas.py:501"),
+    "trace_binned": dict(source="ray_tpu_torch/csrc/trace_binned.cu",
+                         replaces="ray_tpu/ops/traverse_pallas.py:939"),
 }
+# the binned scene: the largest colonnade whose subtree partition fits in
+# 512 slabs (S = 469)
+BINNED_COLS = 5
+# the binned generator clouds (tests/test_traverse_pallas.py:196-246)
+BINNED_CLOUDS = (20_000, 120_000)
 # the colonnade's instance layout (colonnade_scene): columns, terrain, floor
 COLONNADE_COLUMNS, COLONNADE_TERRAIN = 64, 16
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
@@ -93,6 +113,8 @@ OPS_PER_NODE_STEP = 2 * 13
 # origin (18 ops) and the direction (15) and takes 3 reciprocals
 OPS_PER_WIDE_NODE_STEP = 8 * 13
 OPS_PER_INST_ENTRY = 36
+# the binned walk tests one subtree box (13 ops) per box scanned
+OPS_PER_BOX_TEST = 13
 # every lane reads t_max, active (5 B) and writes t, u, v, prim, backface
 # (17 B); an active lane also reads ro, rd, t_min (28 B).  trace_tlas also
 # writes the instance row (4 B) and reads a ray mask when given (4 B)
@@ -160,6 +182,19 @@ def colonnade():
     return colonnade_scene()
 
 
+def colonnade_binned():
+    from ray_tpu_torch.utils.test_scenes import colonnade_scene
+
+    return colonnade_scene(n_cols=BINNED_COLS)
+
+
+# how each scene is finalized (beside the device)
+FINALIZE = {
+    "colonnade flatten": dict(instancing="flatten"),
+    "colonnade binned": dict(instancing="flatten", pallas_binned=True),
+}
+
+
 # generator two-level scenes: (meshes, instances of each)
 TLAS_CASES = {
     "6 instances": (((12, 16),), 6),
@@ -176,7 +211,9 @@ def generator_case(kernel, n_tris, n_rays, seed, device):
     (T, 9) triangles) or of ``trace_bvh`` (a BVH2 with max_leaf 4 or 8 and
     the scene's stack size, depth + 4); for ``trace_tlas`` ``n_tris`` is a
     ``TLAS_CASES`` entry and the rays are tests/test_traverse_tlas_pallas.py's
-    (origins in a cube around the instances, every 17th lane inactive)."""
+    (origins in a cube around the instances, every 17th lane inactive); for
+    ``trace_binned`` the slab tables of the BVH2 (max_leaf 4) and the rays
+    of the other kernels."""
     import numpy as np
     import torch
 
@@ -216,6 +253,14 @@ def generator_case(kernel, n_tris, n_rays, seed, device):
     v = tris.reshape(-1, 3)
     idx = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
     lo, hi = tri_bounds(v, idx)
+    if kernel == "trace_binned":
+        # the native builder (from 8,192 triangles on), max_leaf 4
+        from ray_tpu_torch.scene.binned import pack_binned_scene
+        from ray_tpu_torch.scene.bvh import pack_tri_soa
+
+        bvh = build_bvh2(lo, hi, max_leaf=4)
+        binned = pack_binned_scene(bvh, pack_tri_soa(v, idx[bvh.prim_indices]))
+        return ({k: t(a) for k, a in binned.items()},) + rays + (4,)
     max_leaf = 4 if n_tris <= 100 else 8
     bvh = build_bvh2(lo, hi, max_leaf=max_leaf)
     return ((t(pack_bvh_soa(bvh)["packed"]),
@@ -290,8 +335,8 @@ def capture_frame(scene, cam, settings, iteration, x0=0, y0=0, tw=None,
 
     def recorder(kernel):
         def recording(*args, any_hit=False):
-            copied = tuple(a.clone() if i >= (1 if kernel == "trace_brute"
-                                              else 2) and hasattr(a, "clone")
+            first_ray = RAY_ARG.get(kernel, 2)
+            copied = tuple(a.clone() if i >= first_ray and hasattr(a, "clone")
                            else a for i, a in enumerate(args))
             calls.append((kernel, copied, any_hit))
             return real[kernel](*args, any_hit=any_hit)
@@ -307,11 +352,12 @@ def capture_frame(scene, cam, settings, iteration, x0=0, y0=0, tw=None,
     return out, calls
 
 
-def time_launches(fn, reps):
+def time_launches(fn, reps, warmup=True):
     """Mean device ms of ``fn`` over ``reps`` back-to-back calls."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -323,14 +369,37 @@ def time_launches(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# where a wrapper's rays start among its arguments (the tables before them)
+RAY_ARG = {"trace_brute": 1, "trace_binned": 1}
+
+
 def split_args(kernel, args):
     """(tables, (ro, rd, t_min, t_max, active), extra) of a captured
     launch: the extra arguments after the rays (for trace_tlas the ray mask
-    and the ints)."""
-    n = 1 if kernel == "trace_brute" else 2
+    and the ints; trace_binned's one table is the dict of slabs)."""
+    n = RAY_ARG.get(kernel, 2)
     if kernel == "trace_tlas":
         return args[:1], args[2:7], args[7:]
     return args[:n], args[n:n + 5], tuple(int(a) for a in args[n + 5:])
+
+
+def binned_arrays(binned):
+    """The binned tables in the C entry point's order, and S."""
+    from ray_tpu_torch.scene.binned import CI
+
+    return ([binned[k] for k in ("slab_f", "slab_i", "sub_lo", "sub_hi")],
+            binned["slab_i"].shape[0] // CI)
+
+
+def sorted_rays(binned, rays):
+    """The rays in the order trace_binned launches its kernel on them: by
+    the sort key (the key kernel, uncounted here), stable."""
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    perm = torch.argsort(traverse.binned_sort_key(binned, *rays), stable=True)
+    return tuple(a[perm] for a in rays)
 
 
 def launch_bound(kernel, args, any_hit):
@@ -345,9 +414,17 @@ def launch_bound(kernel, args, any_hit):
     plain_fn = getattr(traverse, f"{kernel}_plain")
     n_active = int(active.sum())
     R = ro.shape[0]
-    node_steps = inst_entries = 0
+    node_steps = inst_entries = box_tests = 0
     lane_bytes = BYTES_PER_LANE
-    if kernel == "trace_brute":
+    if kernel == "trace_binned":
+        work = {}
+        plain_fn(*args, any_hit=any_hit, work=work)
+        tests, node_steps = work["tri_tests"], work["node_steps"]
+        box_tests = work["box_tests"]
+        ops = (OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
+               + OPS_PER_BOX_TEST * box_tests)
+        tables = binned_arrays(tables[0])[0]
+    elif kernel == "trace_brute":
         T = tables[0].shape[0]
         if any_hit:
             # tests run until the first hit: prim + 1 for hits, T for misses
@@ -373,7 +450,7 @@ def launch_bound(kernel, args, any_hit):
     nbytes = lane_bytes * R + BYTES_PER_ACTIVE_LANE * n_active + table_bytes
     return {"kernel": kernel, "any_hit": bool(any_hit), "rays": R,
             "active": n_active, "tests": tests, "node_steps": node_steps,
-            "inst_entries": inst_entries,
+            "inst_entries": inst_entries, "box_tests": box_tests,
             "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "ops_ms": ops / PEAK_F32_FLOPS * 1e3}
 
@@ -386,6 +463,8 @@ def raw_launch(kernel, args, any_hit):
     from ray_tpu_torch.ops import traverse
 
     tables, rays, extra = split_args(kernel, args)
+    if kernel == "trace_binned":
+        rays = sorted_rays(tables[0], rays)
     ro, rd, t_min, t_max, active = rays
     R = ro.shape[0]
     dtypes = [torch.float32, torch.int32, torch.float32, torch.float32,
@@ -404,6 +483,12 @@ def raw_launch(kernel, args, any_hit):
                        *ray_ptrs, None if mask is None else mask.data_ptr(),
                        R, *out_ptrs, int(max_leaf), int(stack_size),
                        int(any_hit), stream)
+    elif kernel == "trace_binned":
+        arrays, S = binned_arrays(tables[0])
+        fn = traverse._binned_fn()
+        launch_args = (*(a.data_ptr() for a in arrays), S, *ray_ptrs, R,
+                       *out_ptrs, *extra,
+                       tables[0]["stack_arr"].shape[0], int(any_hit), stream)
     else:
         fn = (traverse._brute_fn() if kernel == "trace_brute"
               else traverse._bvh_fn())
@@ -413,7 +498,8 @@ def raw_launch(kernel, args, any_hit):
         launch_args = (*ptrs, *ray_ptrs, R, *out_ptrs, *extra, int(any_hit),
                        stream)
 
-    def launch():
+    def launch(_alive=(tables, rays, outs)):
+        # the default argument keeps the tensors behind the pointers alive
         if fn(*launch_args) != 0:
             fail(f"{kernel} launch failed while timing")
     return launch
@@ -421,18 +507,60 @@ def raw_launch(kernel, args, any_hit):
 
 def kernel_timings(calls):
     """Per captured launch: kernel ms (the raw launch, uncounted), plain
-    ms and the launch's bound."""
+    ms and the launch's bound.  trace_binned's plain version takes seconds
+    a launch: it is timed once, on the first launch of each mode (the
+    primary closest-hit and shadow traces), and its other rows carry
+    None; the other walks' plain versions (a third of a second a launch)
+    once after a warm-up, trace_brute's three times."""
     from ray_tpu_torch.ops import traverse
 
     rows = []
+    timed_plain = set()
     for kernel, args, any_hit in calls:
         plain_fn = getattr(traverse, f"{kernel}_plain")
         row = launch_bound(kernel, args, any_hit)
         row["ms"] = time_launches(raw_launch(kernel, args, any_hit), 50)
-        row["plain_ms"] = time_launches(
-            lambda: plain_fn(*args, any_hit=any_hit), 3)
+        row["plain_ms"] = None
+        if kernel != "trace_binned":
+            row["plain_ms"] = time_launches(
+                lambda: plain_fn(*args, any_hit=any_hit),
+                3 if kernel == "trace_brute" else 1)
+        elif any_hit not in timed_plain:
+            timed_plain.add(any_hit)
+            row["plain_ms"] = time_launches(
+                lambda: plain_fn(*args, any_hit=any_hit), 1, warmup=False)
         rows.append(row)
     return rows
+
+
+def wide_route_timings(scene, calls):
+    """trace_tlas over the binned scene's flatten ``wrows`` on each captured
+    trace_binned launch's rays (unsorted, as trace_wide gets them): the
+    route the scene takes without ``pallas_binned``.  Returns (ms, lanes
+    whose hit differs, lanes whose prim differs) a launch; fails when over
+    0.1% of the lanes differ in their hit."""
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    rows = scene.bvh_soa["wrows"]
+    out = []
+    for _, args, any_hit in calls:
+        _, rays, _ = split_args("trace_binned", args)
+        wide = (rows, 0, *rays, None, scene.max_leaf, scene.stack_size)
+        w = traverse.trace_tlas(*wide, any_hit=any_hit)
+        b = traverse.trace_binned(*args, any_hit=any_hit)
+        # the same hits: a closest hit's t (two triangles at one t may
+        # differ in prim by visit order), an any-hit verdict
+        differ = (((w.prim >= 0) != (b.prim >= 0)) if any_hit
+                  else (w.t.view(torch.int32) != b.t.view(torch.int32)))
+        n_diff = int(differ.sum())
+        if n_diff > 1e-3 * differ.numel():
+            fail(f"the wide route and trace_binned disagree on {n_diff} of "
+                 f"{differ.numel()} lanes of the binned tile")
+        out.append((time_launches(raw_launch("trace_tlas", wide, any_hit), 50),
+                    n_diff, int((w.prim != b.prim).sum())))
+    return out
 
 
 def forward_path(label, scene, cam, settings, kernel, grid=(1, 1),
@@ -476,6 +604,24 @@ def spread(frame_s):
     return (f"frames min {min(frame_s) * 1e3:.1f} max {max(frame_s) * 1e3:.1f} "
             f"ms, spread (max - min) / mean "
             f"{(max(frame_s) - min(frame_s)) / statistics.fmean(frame_s):.3f}")
+
+
+def check_sort_key(args, label):
+    """The binned sort-key kernel against its plain version: equal keys."""
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    binned, rays = args[0], args[1:6]
+    key = traverse.binned_sort_key(binned, *rays)
+    plain = traverse.binned_sort_key_plain(binned["sub_lo"], binned["sub_hi"],
+                                           *rays)
+    if not torch.equal(key, plain):
+        fail(f"the binned sort key differs from its plain version on {label} "
+             f"on {int((key != plain).sum())} rays")
+    S = binned["slab_i"].shape[0] // 16
+    print(f"  parity {label} binned sort key: equal ({int((key < S).sum())} "
+          f"of {key.shape[0]} rays enter a subtree)")
 
 
 def check_counts(label, counts, kernel, frames, per_frame=6):
@@ -563,28 +709,49 @@ def fwd_bwd_path(label, scene, cam, settings, kernel):
     return frame_ms
 
 
+# the AUX normal's bound on the flattened colonnades (atol; rtol 1e-5 and
+# atol 1e-6 elsewhere).  The card's camera rays differ from the CPU's by
+# up to 1.2e-7 (an ulp of the camera math, as on every scene), and a
+# column triangle seen from ~10 units away conditions the hit's
+# barycentric u ~1e4: the interpolated normal of the same triangle moves
+# by up to 1.9e-5.  Measured on the card (PR 4) at this tile: 4 of 3,072
+# pixels past the 1e-6 bound on the flattened colonnade, 2 on the binned
+# one, 1 on the instanced one; depth and base color all within 1e-5.
+WORLD_NORMAL_ATOL = {"colonnade flatten": 1e-4, "colonnade binned": 1e-4}
+
+
 def check_tile_against_cpu(make_scene, label, x0, y0, settings):
     """A 64x48 tile on the card against the same tile on the port's plain
     CPU path.  The card's transcendentals differ from the CPU's by ulps,
     which rarely flips a Russian-roulette decision — hence the per-pixel
-    fraction bounds."""
+    fraction bounds (and ``WORLD_NORMAL_ATOL``)."""
     import numpy as np
 
     outs = []
     for dev in ("cuda", "cpu"):
         sc, cam = make_scene()
-        o = render(sc.finalize(device=dev), cam, settings, 1, x0, y0, 64, 48)
+        scene = sc.finalize(device=dev, **FINALIZE.get(label, {}))
+        o = render(scene, cam, settings, 1, x0, y0, 64, 48)
         outs.append({k: v.cpu().numpy() for k, v in o.items()})
     g, c = outs
     close = np.isclose(g["color"], c["color"], rtol=1e-3, atol=1e-4).all(-1)
+    n_atol = WORLD_NORMAL_ATOL.get(label, 1e-6)
     aux = (np.isclose(g["base_color"], c["base_color"], rtol=1e-5, atol=1e-6)
-           .all(-1) & np.isclose(g["depth_normal"], c["depth_normal"],
-                                 rtol=1e-5, atol=1e-6).all(-1))
+           .all(-1)
+           & np.isclose(g["depth_normal"][:, :3], c["depth_normal"][:, :3],
+                        rtol=1e-5, atol=n_atol).all(-1)
+           & np.isclose(g["depth_normal"][:, 3], c["depth_normal"][:, 3],
+                        rtol=1e-5, atol=1e-6))
     mean_rel = abs(g["color"].mean() - c["color"].mean()) / c["color"].mean()
     rays_rel = abs(int(g["rays_traced"]) - int(c["rays_traced"])) / int(
         c["rays_traced"])
+    dn = np.abs(g["depth_normal"][:, :3] - c["depth_normal"][:, :3])
+    strict = ~np.isclose(g["depth_normal"][:, :3], c["depth_normal"][:, :3],
+                         rtol=1e-5, atol=1e-6).all(-1)
     print(f"tile 64x48 {label} card vs cpu: color close {close.mean():.4f}, "
-          f"aux close {aux.mean():.4f}, mean rel diff {mean_rel:.2e}, rays "
+          f"aux close {aux.mean():.4f} (normal atol {n_atol:g}; normal max "
+          f"|diff| {dn.max():.3e}, {int(strict.sum())} pixels past atol "
+          f"1e-6), mean rel diff {mean_rel:.2e}, rays "
           f"{int(g['rays_traced'])} vs {int(c['rays_traced'])}")
     if not (close.mean() >= 0.99 and aux.mean() >= 0.999 and mean_rel < 1e-3
             and rays_rel < 5e-3 and np.isfinite(g["color"]).all()):
@@ -689,6 +856,11 @@ def rng_cost(settings):
           f"{rng_ms:.3f} ms x {n_rng} draws a frame = {rng_ms * n_rng:.1f} ms")
 
 
+def phase(name: str, t_start: float) -> None:
+    """Mark where a phase starts, in seconds since the script began."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] {name}")
+
+
 def main() -> int:
     global CARD
     import torch
@@ -721,6 +893,7 @@ def main() -> int:
     settings_big = dataclasses.replace(settings, compact_after=2,
                                        compact_factor=4)
 
+    phase("kernel parity", t_start)
     # ---- kernel parity on the generator scenes ------------------------
     errs = {}
     for kernel, sizes in (("trace_brute", (8, 24, 40)),
@@ -745,29 +918,50 @@ def main() -> int:
             check_parity("trace_tlas", case[:7] + (mask,) + case[8:],
                          (False,), f"generator {label} with a ray mask", errs)
         del case
+    for n_tris in BINNED_CLOUDS:
+        # tests/test_traverse_pallas.py's clouds (seed 7)
+        case = generator_case("trace_binned", n_tris, 300_000, 7, device)
+        _, S = binned_arrays(case[0])
+        print(f"  generator binned {n_tris} tris: {S} subtrees, stack "
+              f"{case[0]['stack_arr'].shape[0]}")
+        check_sort_key(case, f"generator {n_tris} tris")
+        check_parity("trace_binned", case, (False, True),
+                     f"generator {n_tris} tris", errs)
+        del case
 
+    phase("the scenes", t_start)
     # ---- the scenes; a warm-up frame (a colonnade tile) captures every
     # kernel input ------------------------------------------------------
     scenes = {}
     for label, make, kernel, st, grid in (
             ("flagship", flagship, "trace_brute", settings, (1, 1)),
             ("cornell_sphere", cornell_sphere, "trace_bvh", settings, (1, 1)),
-            ("colonnade", colonnade, "trace_tlas", settings_big, GRID)):
+            ("colonnade", colonnade, "trace_tlas", settings_big, GRID),
+            ("colonnade flatten", colonnade, "trace_tlas", settings_big, GRID),
+            ("colonnade binned", colonnade_binned, "trace_binned",
+             settings_big, GRID)):
         sc, cam = make()
         t_fin = time.perf_counter()
-        scene = sc.finalize()
+        scene = sc.finalize(**FINALIZE.get(label, {}))
         t_fin = time.perf_counter() - t_fin
         if scene.device.type != "cuda":
             fail(f"finalize() put the scene on {scene.device}, not CUDA")
-        rows = scene.bvh_soa.get("wrows_tlas")
+        soa = scene.bvh_soa
+        rows = soa.get("wrows_tlas")
+        tables = ""
+        if rows is not None:
+            tables = (f", wrows_tlas {tuple(rows.shape)}, "
+                      f"{scene.inst['vis'].shape[0]} instances")
+        elif "wrows" in soa:
+            tables = f", wrows {tuple(soa['wrows'].shape)}"
+        if "binned_slab_f" in soa:
+            tables += (f", {soa['binned_slab_i'].shape[0] // 16} binned "
+                       f"subtrees ({sum(soa[k].numel() * soa[k].element_size() for k in soa if k.startswith('binned_')) / 1e6:.1f} MB), binned "
+                       f"stack {soa['binned_stack_arr'].shape[0]}")
         print(f"scene {label}: mode {scene.mode}, {scene.num_tris} unique "
-              f"tris, {scene.bvh_soa['code0'].shape[0]} BVH2 nodes"
-              + (f", wrows_tlas {tuple(rows.shape)}, "
-                 f"{scene.inst['vis'].shape[0]} instances" if rows is not None
-                 else "")
-              + f", stack {scene.stack_size}, {scene.num_lights} lights, "
-              f"light tree depth {scene.light_tree_depth}; finalize "
-              f"{t_fin:.3f} s")
+              f"tris, {soa['code0'].shape[0]} BVH2 nodes{tables}, stack "
+              f"{scene.stack_size}, {scene.num_lights} lights, light tree "
+              f"depth {scene.light_tree_depth}; finalize {t_fin:.3f} s")
         # the top-right tile: on the colonnade (sky in its upper half)
         # under a quarter of the lanes live on past bounce 2, so the last 8
         # launches run compacted
@@ -781,12 +975,13 @@ def main() -> int:
         n_compact = sum(c[1][2].shape[0] < tw * th for c in calls)
         print(f"  {label} tile at ({x0}, {y0}): {n_compact} of 12 launches "
               f"compacted")
-        if st.compact_after and not n_compact:
+        if label == "colonnade" and not n_compact:
             fail(f"no {label} launch ran compacted")
         for i, (k, args, any_hit) in enumerate(calls):
             check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
         scenes[label] = (scene, cam, kernel, calls, st, grid)
 
+    phase("card vs CPU tiles", t_start)
     # ---- small tiles: card vs the port's plain CPU path ---------------
     check_tile_against_cpu(flagship, "flagship", 928, 516, settings)
     check_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840, settings)
@@ -797,20 +992,27 @@ def main() -> int:
     if not (n_col > 0 and n_ter + n_floor > 0):
         fail("the colonnade tile does not cover columns and terrain or floor")
     check_tile_against_cpu(colonnade, "colonnade", 912, 500, settings_big)
+    check_tile_against_cpu(colonnade, "colonnade flatten", 912, 500,
+                           settings_big)
+    check_tile_against_cpu(colonnade_binned, "colonnade binned", 912, 500,
+                           settings_big)
 
+    phase("forward paths", t_start)
     # ---- the forward main paths ---------------------------------------
     launches, frame_ms = {}, {}
     for label, (scene, cam, kernel, _, st, grid) in scenes.items():
         counts, frame_ms[label] = forward_path(label, scene, cam, st, kernel,
                                                grid)
         for mode in ("closest", "anyhit"):
-            launches[f"{kernel}_{mode}"] = counts[f"{kernel}_{mode}"]
+            name = f"{kernel}_{mode}"
+            launches[name] = launches.get(name, 0) + counts[name]
     scene, cam = scenes["colonnade"][:2]
     # each tile issues the whole op sequence: the 2x2 frame pays host
     # dispatch four times; the 1x1 frame shows what that costs
     forward_path("colonnade", scene, cam, settings_big, "trace_tlas", (1, 1),
                  FRAMES_1X1)
 
+    phase("fwd+bwd", t_start)
     # ---- fwd+bwd --------------------------------------------------------
     bwd_ms = {}
     for label in ("flagship", "cornell_sphere"):
@@ -819,27 +1021,59 @@ def main() -> int:
     check_grad_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840,
                                 settings)
 
-    flag, colo = scenes["flagship"], scenes["colonnade"]
+    phase("profiles", t_start)
+    flag = scenes["flagship"]
+
+    def colonnade_frame(label):
+        scene, cam = scenes[label][:2]
+        return (f"forward {label}", frame_ms[label],
+                lambda: render_frame(scene, cam, settings_big, 99, GRID))
+
     profile_frames((
         ("forward flagship", frame_ms["flagship"],
          lambda: render_frame(flag[0], flag[1], settings, 99, (1, 1))),
         ("fwd+bwd flagship", bwd_ms["flagship"],
          lambda: fwd_bwd(flag[0], flag[1], settings, 99)),
-        ("forward colonnade", frame_ms["colonnade"],
-         lambda: render_frame(colo[0], colo[1], settings_big, 99, GRID)),
+        # (a profiled colonnade frame costs ~2 minutes of the script; the
+        # flattened one's wide route is the instanced one's walk)
+        *(colonnade_frame(label) for label in
+          ("colonnade", "colonnade binned")),
     ))
     rng_cost(settings)
 
+    phase("kernel timing", t_start)
     # ---- kernel timing at each frame's (tile's) launch shapes ----------
-    rows = kernel_timings([c for label in scenes for c in scenes[label][3]])
-    for r in rows:
-        print(f"  {r['kernel']} {'anyhit ' if r['any_hit'] else 'closest'} "
-              f"active {r['active']:>8}/{r['rays']} node steps "
-              f"{r['node_steps']:>10} inst entries {r['inst_entries']:>8} "
-              f"tests {r['tests']:>10}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound "
-              f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms "
-              f"(bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
+    for label in scenes:
+        print(f"kernel timing, {label}:")
+        rows = kernel_timings(scenes[label][3])
+        for r in rows:
+            plain = ("-" if r["plain_ms"] is None
+                     else f"{r['plain_ms']:.3f} ms")
+            print(f"  {r['kernel']} {'anyhit ' if r['any_hit'] else 'closest'} "
+                  f"active {r['active']:>8}/{r['rays']} node steps "
+                  f"{r['node_steps']:>10} inst entries {r['inst_entries']:>8} "
+                  f"box tests {r['box_tests']:>11} tests {r['tests']:>10}: "
+                  f"kernel {r['ms']:.4f} ms, plain {plain}, bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms "
+                  f"(bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
+        scenes[label] = scenes[label] + (rows,)
+    scene, _, _, calls = scenes["colonnade binned"][:4]
+    wide = wide_route_timings(scene, calls)
+    for (ms, n_diff, n_prim), (_, args, any_hit), r in zip(
+            wide, calls, scenes["colonnade binned"][-1]):
+        print(f"  wide route (trace_tlas over wrows) on the binned tile's "
+              f"{'anyhit ' if any_hit else 'closest'} launch of "
+              f"{args[1].shape[0]} rays: {ms:.4f} ms against trace_binned "
+              f"{r['ms']:.4f} ms; hits differ on {n_diff} lanes, prim on "
+              f"{n_prim}")
+    for any_hit in (False, True):
+        sel = [(w[0], r["ms"]) for w, c, r in zip(
+            wide, calls, scenes["colonnade binned"][-1]) if c[2] == any_hit]
+        print(f"binned tile {'anyhit' if any_hit else 'closest'}: wide route "
+              f"{statistics.fmean(w for w, _ in sel):.4f} ms, trace_binned "
+              f"{statistics.fmean(b for _, b in sel):.4f} ms a launch (mean "
+              f"of {len(sel)}) [{CARD}]")
+    rows = [r for label in scenes for r in scenes[label][-1]]
     kernels = []
     for kernel, info in KERNELS.items():
         for mode, any_hit in (("closest", False), ("anyhit", True)):
@@ -854,7 +1088,8 @@ def main() -> int:
                 "replaces": info["replaces"], "launches": launches[name],
                 "max_abs_err": errs[name],
                 "ms": statistics.fmean(r["ms"] for r in rs),
-                "plain_ms": statistics.fmean(r["plain_ms"] for r in rs),
+                "plain_ms": statistics.fmean(
+                    r["plain_ms"] for r in rs if r["plain_ms"] is not None),
                 "bound_ms": statistics.fmean(
                     max(r["bytes_ms"], r["ops_ms"]) for r in rs),
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",

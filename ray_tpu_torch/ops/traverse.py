@@ -2,13 +2,20 @@
 
 The port of ``ray_tpu.ops.traverse``'s ``trace_closest_soa`` /
 ``trace_occlusion_soa``, routed as ``ray_tpu``'s ``_pallas_mode`` routes
-on a TPU (:func:`_trace_mode`):
+on a TPU and in the dispatch order of ``_trace_closest_soa_jit``
+(:func:`_trace_mode`):
 
 * ≤ 40 triangles → :func:`trace_brute` (``trace_brute_pallas``);
 * max(nodes, triangles) ≤ 512 → :func:`trace_bvh` (``trace_bvh_pallas``),
   a per-ray stack walk of the BVH2;
-* larger scenes raise ``NotImplementedError`` (the 8-wide walk is ROADMAP
-  Queue 1 item 19).
+* a scene finalized with ``pallas_binned=True`` (``binned_*`` subtree
+  slabs) → :func:`trace_binned` (``trace_flat_binned``), a near-to-far walk
+  over the subtree slabs;
+* any other scene with the 8-wide table ``wrows`` → :func:`trace_wide`
+  (``_traverse_wide``), which is the two-level walk on a table without
+  instance rows and runs as :func:`trace_tlas`;
+* a larger scene without ``wrows`` raises ``NotImplementedError``
+  (ROADMAP Queue 1 item 19).
 
 and of ``trace_closest_tlas`` / ``trace_occlusion_tlas`` for two-level
 scenes: every one that carries the unified 8-wide table ``wrows_tlas``
@@ -17,11 +24,12 @@ unique triangles, which ``ray_tpu`` walks with the binary ``_traverse_tlas``)
 raises (ROADMAP Queue 1 item 19).
 
 Each wrapper launches its hand-written kernel
-(``ray_tpu_torch/csrc/trace_{brute,bvh,tlas}.cu``) on a CUDA tensor, or
-raises; on a CPU tensor it runs its plain PyTorch version
+(``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,binned}.cu``) on a CUDA
+tensor, or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`trace_brute_plain`, :func:`trace_bvh_plain`,
-:func:`trace_tlas_plain`) — the same arithmetic in the same expression
-order, the executable spec each kernel is held to bit for bit on the card.
+:func:`trace_tlas_plain`, :func:`trace_binned_plain`) — the same
+arithmetic in the same expression order, the executable spec each kernel
+is held to bit for bit on the card.
 
 Traversal is a discrete decision procedure: hits come back detached
 (``prim`` int32, ``backface`` bool) and shading re-derives differentiable
@@ -37,6 +45,7 @@ import torch
 
 from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops import cuda_build
+from ray_tpu_torch.scene.binned import CF, CI, MAX_SUBTREES, SUB_ROWS
 from ray_tpu_torch.scene.bvh import (
     LEAF_COUNT_BITS,
     LEAF_COUNT_MASK,
@@ -80,16 +89,26 @@ RESTORE = -0x7ffffffe
 FULL_RAY_MASK = 0x7fffffff
 # slab-test slack: f32 1 + 2 ulp (ray_tpu ops/traverse.py _aabb_c)
 SLAB_SLACK = 1.00000024
+# the binned walk's "no subtree yet" entry distance: jnp.float32(3.4e38)
+BINNED_BIG = 3.4e38
+INT32_MAX = 0x7FFFFFFF
 
 
-def _trace_mode(n_nodes: int, n_tris: int) -> str:
+def _trace_mode(n_nodes: int, n_tris: int, has_binned: bool = False,
+                has_wide: bool = False) -> str:
+    """``ray_tpu``'s ``_pallas_mode`` on a TPU, and the dispatch order of
+    ``_trace_closest_soa_jit``: brute, bvh, binned, then the 8-wide walk."""
     if n_tris <= BRUTE_MAX_TRIS:
         return "brute"
     if max(n_nodes, n_tris) <= BVH_MAX_ROWS:
         return "bvh"
+    if has_binned:
+        return "binned"
+    if has_wide:
+        return "wide"
     raise not_ported(
-        f"the 8-wide BVH walk ({n_tris} triangles, {n_nodes} nodes)",
-        "Queue 1 item 19")
+        f"the BVH2 walk past {BVH_MAX_ROWS} rows without the 8-wide table "
+        f"({n_tris} triangles, {n_nodes} nodes)", "Queue 1 item 19")
 
 
 def trace_brute_plain(tris, ro, rd, t_min, t_max, active, any_hit=False) -> Hit:
@@ -219,22 +238,41 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
     dict; node steps and triangle tests are added to its ``"node_steps"`` /
     ``"tri_tests"``."""
     R = ro.shape[0]
-    device = ro.device
-    S = int(stack_size)
-    ox, oy, oz = ro[:, 0], ro[:, 1], ro[:, 2]
     dx, dy, dz = rd[:, 0], rd[:, 1], rd[:, 2]
-    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
-    codes = nodes.contiguous().view(torch.int32)[:, 12:14]
+    ray = (ro[:, 0], ro[:, 1], ro[:, 2], dx, dy, dz,
+           _safe_inv(dx), _safe_inv(dy), _safe_inv(dz), t_min, t_max)
+    hit = (t_max.clone(),
+           torch.full((R,), -1, dtype=torch.int32, device=ro.device),
+           torch.zeros_like(t_max), torch.zeros_like(t_max),
+           torch.zeros((R,), dtype=torch.bool, device=ro.device))
+    nodes = nodes.contiguous()
+    return Hit(*_walk_bvh2(nodes, nodes.view(torch.int32)[:, 12:14], tris,
+                           None, None, ray, hit, active, max_leaf,
+                           stack_size, any_hit, work))
+
+
+def _walk_bvh2(nodes, codes, tris, base, prim_map, ray, hit, walk, max_leaf,
+               stack_size, any_hit, work):
+    """The BVH2 stack walk of :func:`trace_bvh_plain` (its docstring states
+    the semantics), from the root for the lanes ``walk``, continuing the
+    hit record ``hit`` = (t, prim, u, v, backface).
+
+    ``nodes`` (N, ≥ 12) f32 child boxes and ``codes`` (N, 2) i32 child
+    codes, ``tris`` (T, 9) f32; ``ray`` = (ox, oy, oz, dx, dy, dz, ix, iy,
+    iz, t_min, t_max), each (R,).  ``base``: None, or an (R,) int64 row
+    offset added to every node and triangle index (the lane's subtree slab
+    in :func:`trace_binned_plain`); ``prim_map``: None (``prim`` is the
+    triangle's row) or a table mapping the row to the ``prim`` recorded."""
+    ox, oy, oz, dx, dy, dz, ix, iy, iz, t_min, t_max = ray
+    t_best, prim, u_b, v_b, bf = hit
+    R = ox.shape[0]
+    device = ox.device
+    S = int(stack_size)
     lanes = torch.arange(R, device=device)
 
     stack = torch.full((S, R), EMPTY, dtype=torch.int32, device=device)
     sp = torch.zeros((R,), dtype=torch.int32, device=device)
-    cur = torch.where(active, 0, EMPTY).to(torch.int32)
-    t_best = t_max.clone()
-    prim = torch.full((R,), -1, dtype=torch.int32, device=device)
-    u_b = torch.zeros_like(t_max)
-    v_b = torch.zeros_like(t_max)
-    bf = torch.zeros((R,), dtype=torch.bool, device=device)
+    cur = torch.where(walk, 0, EMPTY).to(torch.int32)
     empty = torch.full_like(cur, EMPTY)
     if work is not None:
         work.setdefault("node_steps", 0)
@@ -244,6 +282,8 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
         is_node = cur >= 0
         is_leaf = (cur < 0) & (cur != EMPTY)
         node = torch.where(is_node, cur, 0).long()
+        if base is not None:
+            node = node + base
 
         nrow = nodes[node]
         h0, t0 = _aabb_c(ox, oy, oz, ix, iy, iz, nrow[:, 0], nrow[:, 1],
@@ -273,12 +313,14 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
         for k in range(max_leaf):
             valid = is_leaf & (k < count)
             tri = torch.where(valid, first + k, 0)
+            row = tri.long() if base is None else tri.long() + base
             th, tt, tu, tv, tb = _tri_c(
-                ox, oy, oz, dx, dy, dz, tris[tri.long()], t_min,
+                ox, oy, oz, dx, dy, dz, tris[row], t_min,
                 t_max if any_hit else t_best)
             take = th & valid
             t_best = torch.where(take, tt, t_best)
-            prim = torch.where(take, tri, prim)
+            prim = torch.where(take, tri if prim_map is None
+                               else prim_map[row], prim)
             u_b = torch.where(take, tu, u_b)
             v_b = torch.where(take, tv, v_b)
             bf = torch.where(take, tb, bf)
@@ -300,7 +342,7 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
                              empty)
         cur = torch.where(need_pop, popped, next_cur)
         sp = torch.where(need_pop, sp - 1, sp)
-    return Hit(t=t_best, prim=prim, u=u_b, v=v_b, backface=bf)
+    return t_best, prim, u_b, v_b, bf
 
 
 def tlas_width(max_leaf: int) -> int:
@@ -685,6 +727,287 @@ def _tlas_fn():
     return fn
 
 
+def trace_wide(rows, ro, rd, t_min, t_max, active, max_leaf, stack_size,
+               any_hit=False) -> Hit:
+    """The 8-wide walk of a flatten scene over its ``wrows`` table:
+    ``ray_tpu``'s ``_traverse_wide`` (ops/traverse.py:236), which is the
+    two-level walk on a table with no instance rows, so it runs as
+    :func:`trace_tlas` with ``winst_base`` 0 and no ray mask (on a CUDA
+    tensor the ``trace_tlas`` kernel, counted as its launch), the instance
+    dropped.  ``rows``: (N, W) f32 with W = ``tlas_width(max_leaf)``."""
+    h = trace_tlas(rows, 0, ro, rd, t_min, t_max, active, None, max_leaf,
+                   stack_size, any_hit=any_hit)
+    return Hit(t=h.t, prim=h.prim, u=h.u, v=h.v, backface=h.backface)
+
+
+# ---------------------------------------------------------------------------
+# The binned trace of big flatten scenes (ray_tpu's trace_flat_binned):
+# subtree slabs from ray_tpu_torch.scene.binned, walked near to far.
+# ---------------------------------------------------------------------------
+
+
+def _binned_tables(binned):
+    """(slab_f, slab_i, sub_lo, sub_hi) as contiguous tensors, S and the
+    walk's stack size."""
+    S = int(binned["slab_i"].shape[0]) // CI
+    return (binned["slab_f"].contiguous(), binned["slab_i"].contiguous(),
+            binned["sub_lo"].contiguous(), binned["sub_hi"].contiguous(),
+            S, int(binned["stack_arr"].shape[0]))
+
+
+def _next_subtree(sub_lo, sub_hi, ray, f_t, f_sid, t_best, chunk=64):
+    """Each lane's next subtree: the lexicographic minimum of (t_enter, sid)
+    strictly after its frontier (f_t, f_sid) over the subtree boxes that
+    its ray enters before ``t_best`` (``_binned_kernel``'s
+    ``next_subtree``: a box is taken when its t_enter < the best so far,
+    or equal with a smaller sid; the best starts at (3.4e38, INT32_MAX)).
+    The S boxes are scanned ``chunk`` at a time.  Returns (t_enter, sid),
+    sid -1 where no subtree is left."""
+    ox, oy, oz, _, _, _, ix, iy, iz, t_min, _ = ray
+    n = ox.shape[0]
+    S = sub_lo.shape[0]
+    bt = torch.full((n,), BINNED_BIG, dtype=torch.float32, device=ox.device)
+    bs = torch.full((n,), INT32_MAX, dtype=torch.int64, device=ox.device)
+    col = (lambda a: a[:, None])  # noqa: E731
+    for c0 in range(0, S, chunk):
+        lo, hi = sub_lo[c0:c0 + chunk], sub_hi[c0:c0 + chunk]
+        sid = torch.arange(c0, c0 + lo.shape[0], device=ox.device)
+        hit, tn = _aabb_c(col(ox), col(oy), col(oz), col(ix), col(iy),
+                          col(iz), lo[:, 0], lo[:, 1], lo[:, 2], hi[:, 0],
+                          hi[:, 1], hi[:, 2], col(t_min), col(t_best))
+        after = (tn > col(f_t)) | ((tn == col(f_t)) & (sid > col(f_sid)))
+        cand = hit & after & (tn <= BINNED_BIG)
+        ct = torch.where(cand, tn, float("inf")).amin(dim=1)
+        first = torch.argmax((cand & (tn == col(ct))).to(torch.int8), dim=1)
+        # a later chunk's sid is larger: it wins only on a smaller t_enter,
+        # or on t_enter == 3.4e38 while nothing is taken yet
+        take = cand.any(dim=1) & ((ct < bt) | ((ct == bt) & (bs == INT32_MAX)))
+        bt = torch.where(take, ct, bt)
+        bs = torch.where(take, first + c0, bs)
+    return bt, torch.where(bs == INT32_MAX, -1, bs)
+
+
+def trace_binned_plain(binned, ro, rd, t_min, t_max, active, max_leaf,
+                       any_hit=False, work=None) -> Hit:
+    """The binned trace in plain PyTorch: ``_binned_kernel``'s per-lane
+    semantics (ray_tpu/ops/traverse_pallas.py:939-1168).
+
+    Each ray keeps a frontier (t_enter, sid), starting at (-3.4e38, -1),
+    and runs rounds: it picks its next subtree (:func:`_next_subtree`: the
+    lexicographic-min (t_enter, sid) after its frontier, among the subtree
+    boxes it enters before its best hit), walks that subtree's slab with
+    :func:`trace_bvh_plain`'s walk on local codes (a fresh stack each
+    round, ``prim`` mapped from the slab's local→global column) and moves
+    its frontier there; it stops when no subtree is left, and in any-hit
+    mode once it has a hit.  ``ray_tpu``'s kernel serialises a block's
+    lanes over rounds (the block walks its smallest pending sid, and a lane
+    whose next subtree differs sits the round out, keeping its frontier and
+    best hit), so every lane visits the same subtrees in the same order as
+    here.  Stack overflow pops on, as :func:`trace_bvh_plain` does (ROADMAP
+    Queue 3).
+
+    ``binned``: the dict of :func:`ray_tpu_torch.scene.binned.pack_binned_scene`
+    as tensors.  ``work``: optional dict; ``rounds`` (subtree walks),
+    ``box_tests`` (S for every lane's subtree scan), ``node_steps`` and
+    ``tri_tests`` are added to it."""
+    slab_f, slab_i, sub_lo, sub_hi, S, stack_size = _binned_tables(binned)
+    R = ro.shape[0]
+    device = ro.device
+    # row-major per-entry tables: entry idx of subtree s is row s*512 + idx
+    cols_f = slab_f.view(S, CF // 4, SUB_ROWS).transpose(1, 2)
+    cols_i = slab_i.view(S, CI // 4, SUB_ROWS).transpose(1, 2)
+    nodes = cols_f[:, :, 0:12].reshape(S * SUB_ROWS, 12)
+    tris = cols_f[:, :, 12:21].reshape(S * SUB_ROWS, 9)
+    codes = cols_i[:, :, 0:2].reshape(S * SUB_ROWS, 2)
+    prim_map = cols_i[:, :, 2].reshape(S * SUB_ROWS)
+
+    dx, dy, dz = rd[:, 0], rd[:, 1], rd[:, 2]
+    ray = (ro[:, 0], ro[:, 1], ro[:, 2], dx, dy, dz,
+           _safe_inv(dx), _safe_inv(dy), _safe_inv(dz), t_min, t_max)
+    t_best = t_max.clone()
+    prim = torch.full((R,), -1, dtype=torch.int32, device=device)
+    u_b = torch.zeros_like(t_max)
+    v_b = torch.zeros_like(t_max)
+    bf = torch.zeros((R,), dtype=torch.bool, device=device)
+    f_t = torch.full((R,), -BINNED_BIG, dtype=torch.float32, device=device)
+    f_sid = torch.full((R,), -1, dtype=torch.int64, device=device)
+    live = active.clone()
+    if work is not None:
+        for k in ("rounds", "box_tests", "node_steps", "tri_tests"):
+            work.setdefault(k, 0)
+
+    while True:
+        if any_hit:
+            live = live & (prim < 0)
+        lanes = torch.nonzero(live).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        sub_ray = tuple(a[lanes] for a in ray)
+        bt, bs = _next_subtree(sub_lo, sub_hi, sub_ray, f_t[lanes],
+                               f_sid[lanes], t_best[lanes])
+        go = bs >= 0
+        live[lanes[~go]] = False
+        if work is not None:
+            work["box_tests"] += S * int(lanes.numel())
+            work["rounds"] += int(go.sum())
+        lanes, bt, bs = lanes[go], bt[go], bs[go]
+        if lanes.numel() == 0:
+            break
+        sub_ray = tuple(a[lanes] for a in ray)
+        hit = _walk_bvh2(
+            nodes, codes, tris, bs * SUB_ROWS, prim_map, sub_ray,
+            (t_best[lanes], prim[lanes], u_b[lanes], v_b[lanes], bf[lanes]),
+            torch.ones_like(lanes, dtype=torch.bool), max_leaf, stack_size,
+            any_hit, work)
+        for dst, src in zip((t_best, prim, u_b, v_b, bf), hit):
+            dst[lanes] = src
+        f_t[lanes] = bt
+        f_sid[lanes] = bs
+    return Hit(t=t_best, prim=prim, u=u_b, v=v_b, backface=bf)
+
+
+def binned_sort_key_plain(sub_lo, sub_hi, ro, rd, t_min, t_max, active,
+                          chunk=64) -> torch.Tensor:
+    """Each ray's first subtree, the key ``trace_flat_binned`` sorts rays
+    by (ray_tpu/ops/traverse_pallas.py:1255-1275), in its own arithmetic:
+    the entry distance is the max over the axes of the slab minima, the
+    exit distance the max of the maxima times the slack, capped by t_max;
+    the first box in sid order with the smallest entry distance below
+    3.4e38 wins.  (R,) int32, S where no box is hit or the lane is
+    inactive.  It decides only the order of the rays, never a result."""
+    S = sub_lo.shape[0]
+    inv = torch.reciprocal(torch.where(
+        torch.abs(rd) > 1e-7, rd,
+        torch.where(rd >= 0, 1e-7, -1e-7).to(rd.dtype)))
+    best_t = torch.full(t_min.shape, BINNED_BIG, dtype=torch.float32,
+                        device=ro.device)
+    best_s = torch.full(t_min.shape, S, dtype=torch.int64, device=ro.device)
+    for c0 in range(0, S, chunk):
+        lo, hi = sub_lo[c0:c0 + chunk], sub_hi[c0:c0 + chunk]
+        t0 = (lo[None] - ro[:, None]) * inv[:, None]
+        t1 = (hi[None] - ro[:, None]) * inv[:, None]
+        tn = torch.maximum(torch.amax(torch.minimum(t0, t1), dim=-1),
+                           t_min[:, None])
+        tf = torch.minimum(
+            torch.amax(torch.maximum(t0, t1), dim=-1) * SLAB_SLACK,
+            t_max[:, None])
+        cand = (tn <= tf) & active[:, None] & (tn < BINNED_BIG)
+        ct = torch.where(cand, tn, float("inf")).amin(dim=1)
+        first = torch.argmax((cand & (tn == ct[:, None])).to(torch.int8),
+                             dim=1)
+        take = cand.any(dim=1) & (ct < best_t)
+        best_t = torch.where(take, ct, best_t)
+        best_s = torch.where(take, first + c0, best_s)
+    return best_s.to(torch.int32)
+
+
+def _binned_inputs(binned, ro, rd, t_min, t_max, active):
+    slab_f, slab_i, sub_lo, sub_hi, S, stack_size = _binned_tables(binned)
+    tables = (("slab_f", slab_f, 128), ("sub_lo", sub_lo, 3),
+              ("sub_hi", sub_hi, 3))
+    if slab_i.device != ro.device:
+        raise ValueError(f"slab_i is on {slab_i.device}, ro on {ro.device}")
+    device, R, rows = _cuda_inputs("trace_binned", tables, ro, rd, t_min,
+                                   t_max, active)
+    if device.type == "cuda":
+        _check("slab_i", slab_i, torch.int32, (S * CI, 128), device)
+        if tuple(rows) != (S * CF, S, S):
+            raise ValueError(f"binned tables of {S} subtrees need slab_f "
+                             f"({S * CF}, 128) and sub_lo/sub_hi ({S}, 3), "
+                             f"got {rows[0]} and {rows[1]}/{rows[2]} rows")
+        if not 2 <= S <= MAX_SUBTREES:
+            raise ValueError(f"trace_binned takes 2 to {MAX_SUBTREES} "
+                             f"subtrees, got {S}")
+        if not 1 <= stack_size <= MAX_STACK_SIZE:
+            raise ValueError(f"stack_size {stack_size} outside "
+                             f"[1, {MAX_STACK_SIZE}]")
+    return (slab_f, slab_i, sub_lo, sub_hi, S, stack_size), device, R
+
+
+def binned_sort_key(binned, ro, rd, t_min, t_max, active) -> torch.Tensor:
+    """:func:`binned_sort_key_plain` on a CPU tensor; on a CUDA tensor the
+    ``trace_binned.cu`` key kernel (one thread per ray), counted under
+    ``trace_binned_sortkey``."""
+    (_, _, sub_lo, sub_hi, S, _), device, R = _binned_inputs(
+        binned, ro, rd, t_min, t_max, active)
+    if device.type == "cpu":
+        return binned_sort_key_plain(sub_lo, sub_hi, ro, rd, t_min, t_max,
+                                     active)
+    key = torch.empty((R,), dtype=torch.int32, device=device)
+    if R == 0:
+        return key
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _binned_key_fn()(
+            sub_lo.data_ptr(), sub_hi.data_ptr(), S, ro.data_ptr(),
+            rd.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            active.data_ptr(), R, key.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"binned sort-key kernel launch failed: CUDA "
+                           f"error {err}")
+    cuda_build.launch_counts["trace_binned_sortkey"] += 1
+    return key
+
+
+def trace_binned(binned, ro, rd, t_min, t_max, active, max_leaf,
+                 any_hit=False, sort_rays=True) -> Hit:
+    """The binned trace of a big flatten scene (``ray_tpu``'s
+    ``trace_flat_binned``): ``binned`` the dict of slab tables
+    (:mod:`ray_tpu_torch.scene.binned`; 2 to 512 subtrees, a stack of at
+    most 64), the rays as for :func:`trace_brute`, the scene's
+    ``max_leaf`` (≤ 15).  With ``sort_rays`` the rays are first ordered by
+    their first subtree (:func:`binned_sort_key`, a stable sort) and the
+    hits scattered back, which changes no result.  CPU tensors run
+    :func:`trace_binned_plain`; CUDA tensors launch the kernel on the
+    current stream."""
+    (slab_f, slab_i, sub_lo, sub_hi, S, stack_size), device, R = (
+        _binned_inputs(binned, ro, rd, t_min, t_max, active))
+    if device.type == "cuda" and not 1 <= max_leaf <= LEAF_COUNT_MASK:
+        raise ValueError(f"max_leaf {max_leaf} outside [1, {LEAF_COUNT_MASK}]")
+    perm = None
+    if sort_rays:
+        perm = torch.argsort(
+            binned_sort_key(binned, ro, rd, t_min, t_max, active), stable=True)
+        ro, rd, t_min, t_max, active = (
+            a[perm] for a in (ro, rd, t_min, t_max, active))
+    if device.type == "cpu":
+        out = trace_binned_plain(binned, ro, rd, t_min, t_max, active,
+                                 max_leaf, any_hit)
+    else:
+        out = _launch("trace_binned", _binned_fn(), device, R,
+                      (slab_f.data_ptr(), slab_i.data_ptr(),
+                       sub_lo.data_ptr(), sub_hi.data_ptr(), S),
+                      ro, rd, t_min, t_max, active, any_hit, int(max_leaf),
+                      stack_size)
+    if perm is None:
+        return out
+    back = torch.empty_like(perm)
+    back[perm] = torch.arange(perm.shape[0], device=device)
+    return Hit(*(x[back] for x in out))
+
+
+def _binned_fn():
+    lib = cuda_build.load("trace_binned")
+    fn = lib.trace_binned_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, p, p, p, p, p, ctypes.c_int64,
+                       p, p, p, p, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _binned_key_fn():
+    lib = cuda_build.load("trace_binned")
+    fn = lib.binned_sort_key_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, ctypes.c_int, p, p, p, p, p, ctypes.c_int64, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask, max_leaf,
                     stack_size, any_hit) -> HitInst:
     if "wrows_tlas" not in bvh:
@@ -723,14 +1046,21 @@ def _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf, stack_size,
            tri_vis, any_hit):
     if tri_vis is not None:
         raise not_ported("per-ray-type visibility masks", "Queue 1 item 20")
-    mode = _trace_mode(bvh["code0"].shape[0], tris["p0x"].shape[0])
+    mode = _trace_mode(bvh["code0"].shape[0], tris["p0x"].shape[0],
+                       "binned_slab_f" in bvh, "wrows" in bvh)
     rays = (ro.detach().contiguous(), rd.detach().contiguous(),
             t_min.detach().contiguous(), t_max.detach().contiguous(),
             active.contiguous())
     if mode == "brute":
         return trace_brute(tris["packed"], *rays, any_hit=any_hit)
-    return trace_bvh(bvh["packed"], tris["packed"], *rays, max_leaf,
-                     stack_size, any_hit=any_hit)
+    if mode == "bvh":
+        return trace_bvh(bvh["packed"], tris["packed"], *rays, max_leaf,
+                         stack_size, any_hit=any_hit)
+    if mode == "binned":
+        binned = {k[7:]: v for k, v in bvh.items() if k.startswith("binned_")}
+        return trace_binned(binned, *rays, max_leaf, any_hit=any_hit)
+    return trace_wide(bvh["wrows"], *rays, max_leaf, stack_size,
+                      any_hit=any_hit)
 
 
 def trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
@@ -740,8 +1070,8 @@ def trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
 
     Args:
       bvh: dict of (N,) node columns + packed (N, 14) rows
-        (``SceneFlat.bvh_soa``; the 8-wide ``wrows``, if present, is not
-        read).
+        (``SceneFlat.bvh_soa``; past 512 rows its binned slabs
+        ``binned_*`` or else its 8-wide ``wrows`` are walked).
       tris: dict of (T,) triangle columns + packed (T, 9) rows, leaf order.
       ro, rd: (R, 3) f32; t_min, t_max: (R,) f32; active: (R,) bool.
       tri_vis/ray_mask: per-ray-type visibility (not ported yet).

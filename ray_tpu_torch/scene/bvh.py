@@ -1,10 +1,14 @@
 """Host-side SAH BVH builder (numpy).
 
-A copy of the numpy binned-SAH path of ``ray_tpu.scene.bvh`` — the builder
-``ray_tpu`` itself uses below ``NATIVE_BUILDER_THRESHOLD`` primitives, so a
-scene of that size gets the same nodes and leaf order here.  The native C++
-builder and the SBVH spatial splits are not ported yet (ROADMAP Queue 1
-item 18); ``build_bvh2`` raises for scenes that would take them.
+A copy of ``ray_tpu.scene.bvh``: the numpy binned-SAH builder, which
+``ray_tpu`` uses below ``NATIVE_BUILDER_THRESHOLD`` primitives, and at that
+size and above the native C++ builder (:mod:`ray_tpu_torch.scene.native`,
+compiled with g++ at first use), as ``ray_tpu``'s ``use_native="auto"``
+does, so a scene gets the same nodes and leaf order here.  Also
+``partition_subtrees``, which cuts a BVH2 into the subtree slabs of the
+binned trace (:mod:`ray_tpu_torch.scene.binned`).  The SBVH spatial splits
+are not ported yet (ROADMAP Queue 1 item 18): ``spatial_splits=True``
+raises.
 
 Child code convention (int32) — self-contained so the traversal stack needs
 no side lookups:
@@ -54,17 +58,23 @@ def _leaf_code(first: int, count: int) -> int:
     return -(((first << LEAF_COUNT_BITS) | count) + 1)
 
 
-NATIVE_BUILDER_THRESHOLD = 8192  # prims; ray_tpu switches to C++ here
+NATIVE_BUILDER_THRESHOLD = 8192  # prims; below this numpy is fast enough
 
 
 def build_bvh2(
     tri_lo: np.ndarray, tri_hi: np.ndarray, max_leaf: int = 4,
-    fat_leaves: bool = False,
+    use_native: str = "auto", fat_leaves: bool = False,
+    spatial_splits: bool = False,
 ) -> BVH2:
     """Build a binary SAH BVH over primitives with AABBs [tri_lo, tri_hi].
 
-    ``fat_leaves``: stop splitting as soon as a node fits ``max_leaf``
-    primitives (see ``ray_tpu.scene.bvh.build_bvh2``).
+    ``use_native``: 'auto' takes the C++ builder from
+    ``NATIVE_BUILDER_THRESHOLD`` primitives on, 'never' forces numpy,
+    'always' forces native (``ray_tpu``'s switch; the port raises where the
+    C++ builder cannot be built instead of falling back).  ``fat_leaves``:
+    stop splitting as soon as a node fits ``max_leaf`` primitives (see
+    ``ray_tpu.scene.bvh.build_bvh2``).  ``spatial_splits`` (SBVH) is not
+    ported yet.
     """
     tri_lo = np.asarray(tri_lo, np.float32)
     tri_hi = np.asarray(tri_hi, np.float32)
@@ -73,8 +83,21 @@ def build_bvh2(
         raise ValueError("empty BVH")
     if not 1 <= max_leaf <= LEAF_COUNT_MASK:
         raise ValueError(f"max_leaf {max_leaf} outside [1, {LEAF_COUNT_MASK}]")
-    if n >= NATIVE_BUILDER_THRESHOLD:
-        raise not_ported(f"the native BVH builder ({n} prims)", "Queue 1 item 18")
+    if use_native not in ("auto", "never", "always"):
+        raise ValueError(f"use_native {use_native!r} is not auto, never or "
+                         f"always")
+    if spatial_splits:
+        raise not_ported("the SBVH builder (spatial_splits=True)",
+                         "Queue 1 item 18")
+    if use_native == "always" or (
+            use_native == "auto" and n >= NATIVE_BUILDER_THRESHOLD):
+        from ray_tpu_torch.scene import native
+
+        c_lo, c_hi, child, counts, prim, root_lo, root_hi = (
+            native.build_bvh2_native(tri_lo, tri_hi, max_leaf, fat_leaves))
+        return BVH2(child_lo=c_lo, child_hi=c_hi, child=child, counts=counts,
+                    prim_indices=prim, root_lo=root_lo, root_hi=root_hi,
+                    max_leaf=max_leaf)
     centroids = 0.5 * (tri_lo + tri_hi)
 
     order = np.arange(n, dtype=np.int32)
@@ -277,3 +300,150 @@ def bvh_depth(bvh: BVH2) -> int:
             if c >= 0:
                 depth[c] = depth[i] + 1
     return int(depth.max()) + 1 if bvh.num_nodes else 1
+
+
+# ---------------------------------------------------------------------------
+# Subtree partition for the binned trace (scene/binned.py): cut the BVH2
+# into subtree slabs of at most 512 node and 512 triangle rows.
+# ---------------------------------------------------------------------------
+
+
+def _subtree_extents(bvh: BVH2):
+    """Per-node DFS extents: node range [i, node_end[i]) and total leaf tri
+    count of the subtree rooted at i.  Node layout must be
+    parent-before-child and DFS-contiguous; leaf triangle indices need not
+    be contiguous (the native builder's aren't) — subtrees carry an
+    explicit local→global triangle map instead."""
+    n = bvh.num_nodes
+    node_end = np.zeros(n, np.int64)
+    tcnt = np.zeros(n, np.int64)
+    for i in range(n - 1, -1, -1):
+        ne = i + 1
+        cnt = 0
+        for side in range(2):
+            c = int(bvh.child[i, side])
+            if c >= 0:
+                if c <= i:
+                    raise ValueError("builder must lay children after parents")
+                ne = max(ne, node_end[c])
+                cnt += tcnt[c]
+            else:
+                cnt += (-c - 1) & LEAF_COUNT_MASK
+        node_end[i] = ne
+        tcnt[i] = cnt
+    return node_end, tcnt
+
+
+def partition_subtrees(bvh: BVH2, max_rows: int = 512):
+    """Cut ``bvh`` into subtrees with ≤ ``max_rows`` nodes AND ≤ max_rows
+    tris each, plus a top tree over the cut roots (``ray_tpu``'s
+    ``partition_subtrees``).  A node too large to be a subtree whose child
+    is a leaf cannot be cut: that raises ``ValueError``, where ``ray_tpu``
+    fails its assertion on the same scenes.
+
+    Returns a dict:
+      top_child_lo/top_child_hi (Nt, 2, 3), top_code (Nt, 2) — internal
+        child ≥ 0 indexes the top array; a subtree leaf is ``-(sid+1)``;
+      sub_local: list of per-subtree BVH2s with LOCAL codes (child index −
+        node_off; leaf firsts renumbered consecutively);
+      sub_tri_ids: list of (n_s,) int32 local→global tri id maps;
+      depth: max subtree depth (stack sizing).
+    """
+    node_end, tcnt = _subtree_extents(bvh)
+
+    # the cut roots in depth-first order, child 0 before child 1
+    cuts = []
+    todo = [0]
+    while todo:
+        v = todo.pop()
+        if (node_end[v] - v) <= max_rows and tcnt[v] <= max_rows:
+            cuts.append(v)
+            continue
+        kids = []
+        for side in range(2):
+            c = int(bvh.child[v, side])
+            if c < 0:
+                raise ValueError(
+                    f"leaf with {bvh.counts[v, side]} tris cannot be split "
+                    f"below max_rows={max_rows}")
+            kids.append(c)
+        todo.extend(reversed(kids))
+    sid_of = {v: i for i, v in enumerate(cuts)}
+
+    # ---- top tree: the ancestors of the cut roots, renumbered in the same
+    # depth-first order ----
+    top_nodes = []
+    todo = [0]
+    while todo:
+        v = todo.pop()
+        if v in sid_of:
+            continue
+        top_nodes.append(v)
+        todo.extend(int(bvh.child[v, side]) for side in (1, 0))
+    if not top_nodes:
+        # whole tree is one subtree: top tree = one pseudo-node whose
+        # child 0 is subtree 0 and child 1 is empty
+        top_child_lo = np.zeros((1, 2, 3), np.float32)
+        top_child_hi = np.zeros((1, 2, 3), np.float32)
+        top_child_lo[0, 0] = bvh.root_lo
+        top_child_hi[0, 0] = bvh.root_hi
+        top_child_lo[0, 1] = 1.0   # inverted box: never hits
+        top_child_hi[0, 1] = 0.0
+        top_code = np.array([[-1, -0x7FFFFFF0]], np.int32)
+    else:
+        remap = {v: i for i, v in enumerate(top_nodes)}
+        nt = len(top_nodes)
+        top_child_lo = np.zeros((nt, 2, 3), np.float32)
+        top_child_hi = np.zeros((nt, 2, 3), np.float32)
+        top_code = np.zeros((nt, 2), np.int32)
+        for v in top_nodes:
+            i = remap[v]
+            top_child_lo[i] = bvh.child_lo[v]
+            top_child_hi[i] = bvh.child_hi[v]
+            for side in range(2):
+                c = int(bvh.child[v, side])
+                if c in sid_of:
+                    top_code[i, side] = -(sid_of[c] + 1)
+                else:
+                    top_code[i, side] = remap[c]
+
+    # ---- per-subtree local arrays: renumber leaf tris consecutively and
+    # record the local→global id map ----
+    sub_local = []
+    sub_tri_ids = []
+    depth = 1
+    for v in cuts:
+        ns, ne = v, int(node_end[v])
+        child = bvh.child[ns:ne].astype(np.int64).copy()
+        internal = child >= 0
+        child[internal] -= ns
+        ids = []
+        flat = child.reshape(-1)
+        for j in range(flat.shape[0]):
+            c = int(flat[j])
+            if c >= 0:
+                continue
+            code = -c - 1
+            first = code >> LEAF_COUNT_BITS
+            count = code & LEAF_COUNT_MASK
+            local_first = len(ids)
+            ids.extend(range(first, first + count))
+            flat[j] = -(((local_first << LEAF_COUNT_BITS) | count) + 1)
+        sub = BVH2(
+            child_lo=bvh.child_lo[ns:ne], child_hi=bvh.child_hi[ns:ne],
+            child=child, counts=bvh.counts[ns:ne],
+            prim_indices=None, root_lo=None, root_hi=None,
+            max_leaf=bvh.max_leaf,
+        )
+        depth = max(depth, bvh_depth(sub))
+        sub_local.append(sub)
+        sub_tri_ids.append(np.asarray(ids, np.int32))
+
+    return {
+        "top_child_lo": top_child_lo,
+        "top_child_hi": top_child_hi,
+        "top_code": top_code,
+        "sub_local": sub_local,
+        "sub_tri_ids": sub_tri_ids,
+        "depth": depth,
+    }

@@ -6,16 +6,19 @@ the same finalize, so a scene compiles to tables identical to
 dataclass of torch tensors on one device (the render device), with the same
 field names and static fields as ``ray_tpu``'s pytree.
 
-Flatten mode pre-transforms every instance into one world-space BVH, and
-past 256 triangles adds ``ray_tpu``'s 8-wide row table
-(``bvh_soa["wrows"]``, :mod:`ray_tpu_torch.scene.wbvh`).  Tlas mode (a mesh
+Flatten mode pre-transforms every instance into one world-space BVH (from
+8,192 triangles on with the native C++ builder, :mod:`.native`), past 256
+triangles adds ``ray_tpu``'s 8-wide row table (``bvh_soa["wrows"]``,
+:mod:`ray_tpu_torch.scene.wbvh`), and with ``pallas_binned=True`` the
+subtree slabs of the binned trace (``bvh_soa["binned_*"]``,
+:mod:`.binned`).  Tlas mode (a mesh
 instanced more than once) builds one object-space BVH per mesh and a TLAS
 over the instances, and past 256 unique triangles the unified 8-wide table
 ``bvh_soa["wrows_tlas"]`` that the traversal walks.  Uncompressed textures
 pack into ``ray_tpu``'s flat texel table (:mod:`.textures`).  Not ported
 yet, and raising ``NotImplementedError`` with the ROADMAP entry that will
 port it: compressed textures and env maps, the physical sky and the
-native/SBVH/HLBVH builders.
+SBVH/HLBVH builders.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.scene import lights as lights_mod
+from ray_tpu_torch.scene.binned import CI, MAX_SUBTREES, pack_binned_scene
 from ray_tpu_torch.scene.bvh import (
     LEAF_COUNT_BITS,
     LEAF_COUNT_MASK,
@@ -48,6 +52,9 @@ from ray_tpu_torch.scene.wbvh import build_wbvh, build_wtlas, finish_wtlas
 # ray_tpu adds an 8-wide BVH layout ("wrows"/"wrows_tlas") above this many
 # triangles
 WIDE_BVH_MIN_TRIS = 256
+# ray_tpu's BVH-kernel limit (T_MAX_BVH): a flatten scene past it in node or
+# triangle rows may carry binned subtree slabs
+BVH_MAX_ROWS = 512
 # TLAS leaf marker inside the binary two-level code space (ray_tpu
 # ops/traverse.py INST_LEAF_FLAG)
 INST_LEAF_FLAG = 1 << 28
@@ -157,6 +164,20 @@ def _bvh_soa_with_wide(bvh, tri_soa, tri_vis=None):
     out = pack_bvh_soa(bvh)
     if tri_soa["packed"].shape[0] > WIDE_BVH_MIN_TRIS:
         out["wrows"] = build_wbvh(bvh, tri_soa["packed"], tri_vis)["wrows"]
+    return out
+
+
+def _maybe_pack_binned(out, bvh, tri_soa, tri_vis):
+    """Add the binned trace's subtree slabs to ``out`` under ``binned_``
+    keys (``ray_tpu.scene.scene._maybe_pack_binned``): only without
+    per-triangle visibility, past ``BVH_MAX_ROWS`` node or triangle rows,
+    and for 2 to 512 subtrees.  A partition that cannot be cut raises."""
+    n_tris = tri_soa["p0x"].shape[0]
+    if tri_vis is None and max(bvh.num_nodes, n_tris) > BVH_MAX_ROWS:
+        b = pack_binned_scene(bvh, tri_soa)
+        if 2 <= b["slab_i"].shape[0] // CI <= MAX_SUBTREES:
+            for k, v in b.items():
+                out["binned_" + k] = v
     return out
 
 
@@ -296,7 +317,9 @@ class Scene:
     # -- finalize ----------------------------------------------------------
     def finalize(self, device=None, max_leaf: int | None = None,
                  light_tree_min_lights: int = 2,
-                 instancing: str = "auto") -> SceneFlat:
+                 instancing: str = "auto",
+                 spatial_splits: bool = False,
+                 pallas_binned: bool = False) -> SceneFlat:
         """Compile to a :class:`SceneFlat` on ``device`` (default: CUDA;
         raises ``RuntimeError`` when there is none and no device is given).
 
@@ -304,7 +327,13 @@ class Scene:
         space and builds one BVH; 'auto' picks it unless a mesh is instanced
         more than once, which needs the two-level TLAS compile.
         ``max_leaf`` defaults to 8 in flatten mode and 4 in tlas mode, as
-        in ``ray_tpu``."""
+        in ``ray_tpu``.  ``pallas_binned``: a flatten scene past 512 node or
+        triangle rows also carries the subtree slabs that route its traces
+        to the binned kernel (``ray_tpu``'s opt-in of the same name).
+        ``spatial_splits`` (SBVH) is not ported yet."""
+        if spatial_splits:
+            raise not_ported("the SBVH builder (spatial_splits=True)",
+                             "Queue 1 item 18")
         device = resolve_device(device)
         if not self._instances:
             for m in range(len(self._meshes)):
@@ -323,7 +352,7 @@ class Scene:
             raise ValueError(f"unknown instancing mode {instancing!r}")
         return self._finalize_flatten(
             max_leaf if max_leaf is not None else 8,
-            light_tree_min_lights, has_vis, device,
+            light_tree_min_lights, has_vis, device, pallas_binned,
         )
 
     def _material_solidity(self) -> np.ndarray:
@@ -376,7 +405,7 @@ class Scene:
         return col, d.two_sided
 
     def _finalize_flatten(self, max_leaf, light_tree_min_lights, has_vis,
-                          device):
+                          device, pallas_binned=False):
         verts, norms, uvs, tris, tri_mat, tri_vis = [], [], [], [], [], []
         tan_q, tan_q0 = [], []
         voffset = 0
@@ -464,6 +493,11 @@ class Scene:
         )
         tri_solid = self._tri_solidity(tri_mats)
         tri_soa = pack_tri_soa(vertices, tri_vidx)
+        bvh_soa = _bvh_soa_with_wide(bvh, tri_soa,
+                                     tri_viss if has_vis else None)
+        if pallas_binned:
+            _maybe_pack_binned(bvh_soa, bvh, tri_soa,
+                               tri_viss if has_vis else None)
         arrays = {
             "vertices": vertices,
             "normals": normals,
@@ -477,8 +511,7 @@ class Scene:
                 vertices, normals, uv, tri_vidx, tri_mats, tri_solid,
                 tri_light, tangent_q=tangent_q, tangent_q0=tangent_q0,
             ),
-            "bvh_soa": _bvh_soa_with_wide(
-                bvh, tri_soa, tri_viss if has_vis else None),
+            "bvh_soa": bvh_soa,
             "tri_soa": tri_soa,
             "root_lo": bvh.root_lo,
             "root_hi": bvh.root_hi,
@@ -576,7 +609,7 @@ class Scene:
             inst_vis[i] = vis
 
         # --- TLAS over instance AABBs (one instance per leaf) ---
-        tlas = build_bvh2(inst_lo, inst_hi, max_leaf=1)
+        tlas = build_bvh2(inst_lo, inst_hi, max_leaf=1, use_native="never")
         n_tlas = tlas.num_nodes
 
         def retag_tlas(code):

@@ -4,9 +4,10 @@ for two-level scenes, past 256 triangles.
 A numpy copy of ``ray_tpu.scene.wbvh``'s ``build_wbvh`` and
 ``build_wtlas`` / ``finish_wtlas``: a BVH2 is collapsed greedily into
 8-wide nodes and padded leaf groups, all in ONE f32 row table, nodes
-first.  The port walks ``wrows_tlas`` (``ops.traverse.trace_tlas``); it
-does not walk ``wrows`` yet (ROADMAP Queue 1 item 19) and builds it so
-that a finalized ``SceneFlat`` carries ``ray_tpu``'s tables bit for bit.
+first.  The port walks both with the two-level walk
+(``ops.traverse.trace_tlas``; ``trace_wide`` for a flatten ``wrows``,
+which has no instance rows), and builds them so that a finalized
+``SceneFlat`` carries ``ray_tpu``'s tables bit for bit.
 
 Encodings:
 - visit code ≥ 0: wide-node visit, ``row << 8 | child_mask``;

@@ -7,7 +7,9 @@ runs the same checks at the flagship frame's full size.  Each kernel is
 held bit-exact against its plain PyTorch version, and each scene's path
 is shown to launch its kernel: the flagship ``trace_brute``, the
 ``cornell_sphere`` scene (376 triangles) ``trace_bvh``, the instanced
-colonnade ``trace_tlas``.
+colonnade ``trace_tlas``, a big flatten scene ``trace_tlas`` over its
+``wrows`` (the wide route) and, finalized with ``pallas_binned=True``,
+``trace_binned``.
 """
 
 import numpy as np
@@ -289,4 +291,128 @@ def test_colonnade_tile_launches_the_tlas_kernel():
     assert counts.get("trace_tlas_closest") == 6, counts
     assert counts.get("trace_tlas_anyhit") == 6, counts
     assert not any(counts.get(f"{k}_{m}") for k in ("trace_brute", "trace_bvh")
+                   for m in ("closest", "anyhit")), counts
+
+
+def _binned_case(n_tris, n_rays, seed, stack=None):
+    """A generator cloud (max_leaf 4; the native builder from 8,192
+    triangles on) packed into subtree slabs, and rays with a t window."""
+    from ray_tpu_torch.scene.binned import pack_binned_scene
+    from ray_tpu_torch.scene.bvh import build_bvh2, pack_tri_soa, tri_bounds
+
+    tris, ro, rd, _, tmax, act = _case(n_tris, n_rays, seed)
+    v = tris.cpu().numpy().reshape(-1, 3)
+    idx = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+    bvh = build_bvh2(*tri_bounds(v, idx), max_leaf=4)
+    binned = pack_binned_scene(bvh, pack_tri_soa(v, idx[bvh.prim_indices]))
+    if stack is not None:
+        binned["stack_arr"] = np.zeros(stack, np.int8)
+    dev = ro.device
+    r = np.random.RandomState(seed + 3)
+    tmin = torch.tensor(np.where(r.rand(n_rays) < 0.3, r.rand(n_rays) * 4.0,
+                                 0.0), dtype=torch.float32, device=dev)
+    return ({k: torch.from_numpy(a).to(dev) for k, a in binned.items()},
+            ro, rd, tmin, tmax, act, 4)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_tris,stack", [
+    (3000, None), (20_000, None),
+    (20_000, 3),   # a stack shallower than the subtrees: overflow semantics
+])
+def test_trace_binned_kernel_bit_exact(n_tris, stack, any_hit):
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops.traverse import (
+        binned_sort_key, binned_sort_key_plain, trace_binned,
+        trace_binned_plain)
+
+    case = _binned_case(n_tris, 300_001, n_tris, stack)
+    key = binned_sort_key(*case[:6])
+    assert torch.equal(key, binned_sort_key_plain(
+        case[0]["sub_lo"], case[0]["sub_hi"], *case[1:6]))
+    before = cuda_build.launch_counts.copy()
+    p = trace_binned_plain(*case, any_hit=any_hit)
+    for sort_rays in (True, False):
+        k = trace_binned(*case, any_hit=any_hit, sort_rays=sort_rays)
+        torch.cuda.synchronize()
+        assert 0 < int((p.prim >= 0).sum()) < 300_001
+        for f in k._fields:
+            a, b = getattr(k, f), getattr(p, f)
+            assert a.device == b.device and a.dtype == b.dtype, f
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (f, sort_rays)
+    name = "trace_binned_anyhit" if any_hit else "trace_binned_closest"
+    assert cuda_build.launch_counts[name] == before[name] + 2
+    assert (cuda_build.launch_counts["trace_binned_sortkey"]
+            == before["trace_binned_sortkey"] + 1)
+
+
+def test_trace_binned_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops.traverse import trace_binned
+
+    binned, ro, rd, tmin, tmax, act, ml = _binned_case(3000, 64, 0)
+    rays = (ro, rd, tmin, tmax, act)
+    with pytest.raises(ValueError):   # slab_f rows do not match S
+        trace_binned(dict(binned, slab_f=binned["slab_f"][:-8].contiguous()),
+                     *rays, ml)
+    with pytest.raises(TypeError):
+        trace_binned(dict(binned, slab_i=binned["slab_i"].float()), *rays, ml)
+    with pytest.raises(ValueError):
+        trace_binned(dict(binned, sub_lo=binned["sub_lo"].cpu()), *rays, ml)
+    with pytest.raises(ValueError):
+        trace_binned(binned, ro[:, :2].contiguous(), *rays[1:], ml)
+    with pytest.raises(ValueError):   # one subtree
+        one = {k: v[:88] if k == "slab_f" else v[:16] if k == "slab_i"
+               else v[:1] if k in ("sub_lo", "sub_hi") else v
+               for k, v in binned.items()}
+        trace_binned(one, *rays, ml)
+    with pytest.raises(ValueError):
+        trace_binned(dict(binned, stack_arr=torch.zeros(65)), *rays, ml)
+    for bad_leaf in (0, 16):
+        with pytest.raises(ValueError):
+            trace_binned(binned, *rays, bad_leaf)
+
+
+def _big_flatten_tile(**finalize):
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils.test_scenes import colonnade_scene
+
+    sc, cam = colonnade_scene(n_cols=5)
+    scene = sc.finalize(instancing="flatten", **finalize)
+    assert scene.device.type == "cuda" and scene.mode == "flatten"
+    cuda_build.reset_launch_counts()
+    out = render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                      height=1080, tile_w=256, tile_h=128,
+                      settings=PassSettings(max_total_depth=5,
+                                            min_total_depth=2,
+                                            compact_after=2,
+                                            compact_factor=4),
+                      use_filter_table=False)
+    assert bool(torch.isfinite(out["color"]).all())
+    assert float(out["color"].mean()) > 0.0
+    return dict(cuda_build.launch_counts)
+
+
+def test_binned_colonnade_tile_launches_the_binned_kernel():
+    _need_cuda()
+    counts = _big_flatten_tile(pallas_binned=True)
+    assert counts.get("trace_binned_closest") == 6, counts
+    assert counts.get("trace_binned_anyhit") == 6, counts
+    assert not any(counts.get(f"{k}_{m}")
+                   for k in ("trace_brute", "trace_bvh", "trace_tlas")
+                   for m in ("closest", "anyhit")), counts
+
+
+def test_flatten_colonnade_tile_launches_only_the_tlas_kernel():
+    """The wide route: ``trace_wide`` runs the ``trace_tlas`` kernel."""
+    _need_cuda()
+    counts = _big_flatten_tile()
+    assert counts.get("trace_tlas_closest") == 6, counts
+    assert counts.get("trace_tlas_anyhit") == 6, counts
+    assert not any(counts.get(f"{k}_{m}")
+                   for k in ("trace_brute", "trace_bvh", "trace_binned")
                    for m in ("closest", "anyhit")), counts

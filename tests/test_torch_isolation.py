@@ -132,3 +132,31 @@ def test_tlas_wrapper_never_falls_back():
     with pytest.raises(ValueError):
         trace_tlas(torch.zeros(40, 56), 3, *cpu_rays,
                    torch.empty(8, dtype=torch.int32, device=m), 4, 16)
+
+
+def test_binned_wrapper_never_falls_back():
+    """The binned wrapper, likewise: a non-CPU, non-CUDA device, or slabs
+    and rays split across devices, raise rather than running
+    ``trace_binned_plain``."""
+    from ray_tpu_torch.ops.traverse import binned_sort_key, trace_binned
+
+    m = torch.device("meta")
+    binned = {"slab_f": torch.empty((2 * 88, 128), device=m),
+              "slab_i": torch.empty((2 * 16, 128), dtype=torch.int32,
+                                    device=m),
+              "sub_lo": torch.empty((2, 3), device=m),
+              "sub_hi": torch.empty((2, 3), device=m),
+              "stack_arr": torch.empty(8, dtype=torch.int8, device=m)}
+    ro = torch.empty((8, 3), device=m)
+    rays = (ro, ro, torch.empty(8, device=m), torch.empty(8, device=m),
+            torch.empty(8, dtype=torch.bool, device=m))
+    with pytest.raises(ValueError):
+        trace_binned(binned, *rays, 4)
+    with pytest.raises(ValueError):
+        binned_sort_key(binned, *rays)
+    cpu_rays = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8),
+                torch.zeros(8), torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        trace_binned(binned, *cpu_rays, 4, sort_rays=False)
+    with pytest.raises(ValueError):
+        trace_binned(binned, *cpu_rays, 4)

@@ -27,6 +27,11 @@ from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
 from ray_tpu_torch.utils.test_scenes import instanced_scene
 from test_traverse_tlas_pallas import _instanced_scene
 
+# One intra-op thread for the port's CPU tests (this module and those that
+# import it): their tensors are small, and the suite runs several test
+# processes at once, whose idle threads would spin on each other's cores.
+torch.set_num_threads(1)
+
 _STATIC = [f.name for f in dataclasses.fields(JSceneFlat)
            if f.metadata.get("static")]
 _ARRAYS = [f.name for f in dataclasses.fields(JSceneFlat)

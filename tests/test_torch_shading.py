@@ -31,6 +31,9 @@ from ray_tpu_torch.scene.lights import LightDesc, LightType
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
 
+# one intra-op thread, as in tests/test_torch_scene.py
+torch.set_num_threads(1)
+
 W, H = 1920, 1080
 TILE = dict(x0=928, y0=516, tile_w=64, tile_h=48)
 RTOL, ATOL = 1e-5, 1e-6

@@ -33,6 +33,9 @@ from ray_tpu.ops.traverse import trace_occlusion_soa as j_occlusion
 from ray_tpu.scene.bvh import build_bvh2, tri_bounds
 from ray_tpu_torch.ops import traverse as tt
 
+# one intra-op thread, as in tests/test_torch_scene.py
+torch.set_num_threads(1)
+
 
 def _scene(n_tris, seed, max_leaf=4):
     """tests/test_traverse_pallas.py's generator: reference SoA tables and
