@@ -5,8 +5,9 @@
 
 Drives ``ray_tpu_torch`` (never JAX, never ``ray_tpu``) through the entry
 points a user calls — a scene → ``Scene.finalize()`` → ``render_tile`` at
-1920x1080, 1 spp, depth 5, and for fwd+bwd the bench loss through autograd
-— on five scenes:
+1920x1080, 1 spp, depth 5, for fwd+bwd the bench loss through autograd,
+and ``create_renderer`` → ``Renderer.render`` → ``pixels`` — on five
+scenes:
 
 * the flagship ``cornell_scene("emissive_quad")`` (24 triangles: every
   trace goes to ``trace_brute``);
@@ -14,9 +15,10 @@ points a user calls — a scene → ``Scene.finalize()`` → ``render_tile`` at
   triangles, 59 nodes: every trace goes to ``trace_bvh``);
 * ``colonnade_scene``, bench.py's big scene: 324,642 instanced triangles
   over 8,388 unique in 81 instances, a texture, PRINCIPLED materials, 12
-  sphere lights: every trace goes to ``trace_tlas``.  Forward only, at
-  bench.py's big-scene settings without remat (compaction after bounce 2),
-  rendered as a 2x2 grid of 960x540 tiles as bench.py does;
+  sphere lights: every trace goes to ``trace_tlas``.  Forward at bench.py's
+  big-scene settings without remat (compaction after bounce 2), and
+  fwd+bwd at bench.py's ``settings_big`` (the same with ``remat=True``:
+  path replay), rendered as a 2x2 grid of 960x540 tiles as bench.py does;
 * the colonnade finalized with ``instancing="flatten"`` (the 324,642
   triangles in one BVH2 from the native builder, 67,138 8-wide rows):
   every trace goes to ``trace_tlas`` over the flatten ``wrows`` (the wide
@@ -29,9 +31,11 @@ Phases:
 
 1. the card's name and power limit (``nvidia-smi``); exits non-zero when
    CUDA is absent;
-2. builds the four CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc``
+2. builds the five CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and prints the build seconds;
-3. holds each kernel bit-exact against its plain PyTorch version: on the
+3. holds each kernel bit-exact against its plain PyTorch version: the
+   gather probe's ``gather_table`` on the probe's own inputs, on a table
+   with NaNs and -0 and on 2,073,600 random lanes; the traces on the
    traversal tests' generator scenes (at 2M rays brute 8/24/40 triangles,
    BVH 100/300/500, TLAS 6 and 64 instances of one mesh and a 12,600-row
    table of five meshes, one run with a ray mask; at 300,000 rays binned
@@ -47,23 +51,37 @@ Phases:
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
    others; a colonnade frame is 4 tiles): Mray/s, frame ms and spread,
    peak memory; and one more instanced colonnade line at grid 1x1;
-6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each scene, the bench loss
-   differentiated w.r.t. the float material columns and ``env_col``
-   (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms split into
-   forward and backward, peak memory, launch counts, gradients finite and
-   non-zero for ``base_color`` and ``env_col``; then a 64x48 fwd+bwd tile
-   of ``cornell_sphere`` on the card against the CPU path's gradients;
-7. profiles one forward and one fwd+bwd flagship frame and one forward
+6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each Cornell scene, the
+   bench loss differentiated w.r.t. the float material columns and
+   ``env_col`` (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms
+   split into forward and backward, peak memory, launch counts, gradients
+   finite and non-zero for ``base_color`` and ``env_col``; a 64x48 fwd+bwd
+   tile of ``cornell_sphere`` on the card against the CPU path's
+   gradients; the flagship frame with remat against stored residuals (loss
+   bit-identical, gradients within 1e-4 of each column's scale);
+7. the colonnade's fwd+bwd: ``COLONNADE_BWD_FRAMES`` 2x2 frames with remat
+   (each tile its own backward, the gradients summed; 24 + 24
+   ``trace_tlas`` launches a frame, none in backward), one frame with
+   ``remat_save_trace=False`` (the backward launches them again), the same
+   frames with stored residuals, and a 64x48 remat gradient tile on the
+   card against the CPU path;
+8. the renderer: ``create_renderer`` → 8 samples of the flagship at
+   1920x1080 → ``pixels`` with AgX (LUT) and filmic, then 8 adaptive
+   samples (ms a sample, Mray/s, 6 + 6 ``trace_brute`` launches a sample);
+   a 64x48 adaptive renderer on the card against the CPU; the README
+   quickstart at 512x512, 16 samples;
+9. profiles one forward and one fwd+bwd flagship frame and one forward
    frame of the instanced and of the binned colonnade with
    ``torch.profiler``: device time, its share of the unprofiled frame, the
    RNG's cost; op tables in ``chiprun_out/``;
-8. times each kernel (CUDA events) at its frame's (a colonnade: its
+10. times each kernel (CUDA events) at its frame's (a colonnade: its
    tile's) launch shapes beside its plain version (``trace_binned``'s on
-   one launch of each mode: it takes seconds) and its bound, and
-   ``trace_tlas`` over the binned scene's ``wrows`` on the binned tile's
-   rays (the wide route that scene takes without ``pallas_binned``), and
-   prints one ``kernels`` JSON line, the card line, and last the
-   ``{"ok": true, ...}`` line.
+   one launch of each mode: it takes seconds) and its bound, ``gather_table``
+   at the probe's size and a frame's beside its plain version and
+   ``index_select``, and ``trace_tlas`` over the binned scene's ``wrows``
+   on the binned tile's rays (the wide route that scene takes without
+   ``pallas_binned``), and prints one ``kernels`` JSON line, the card
+   line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
 """
@@ -81,6 +99,7 @@ import time
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 10
 BWD_FRAMES = 5
+COLONNADE_BWD_FRAMES = 3  # bench.py's iters
 FRAMES_1X1 = 3
 GRID = (2, 2)  # bench.py renders the big scene as 2x2 tiles
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -94,6 +113,10 @@ KERNELS = {
     "trace_binned": dict(source="ray_tpu_torch/csrc/trace_binned.cu",
                          replaces="ray_tpu/ops/traverse_pallas.py:939"),
 }
+# the gather probe's table length (scripts/test_pallas_gather.py N)
+GATHER_TABLE = 1024
+GATHER = dict(source="ray_tpu_torch/csrc/gather_table.cu",
+              replaces="scripts/test_pallas_gather.py:31")
 # the binned scene: the largest colonnade whose subtree partition fits in
 # 512 slabs (S = 469)
 BINNED_COLS = 5
@@ -298,26 +321,29 @@ def render(scene, cam, settings, iteration, x0=0, y0=0, tw=None, th=None):
                        settings=settings, use_filter_table=False)
 
 
+def grid_tiles(grid):
+    """The (x0, y0, tw, th) tiles of a (nx, ny) grid over the frame."""
+    nx, ny = grid
+    tw, th = WIDTH // nx, HEIGHT // ny
+    return [(tx * tw, ty * th, tw, th) for ty in range(ny) for tx in range(nx)]
+
+
 def render_frame(scene, cam, settings, iteration, grid):
     """One sample of the whole frame as a (nx, ny) grid of tiles, as
     bench.py renders it.  Returns (rays traced, mean radiance); fails on a
     tile of the wrong shape, with non-finite pixels, or a black frame."""
     import torch
 
-    nx, ny = grid
-    tw, th = WIDTH // nx, HEIGHT // ny
     rays, total = 0, 0.0
-    for ty in range(ny):
-        for tx in range(nx):
-            out = render(scene, cam, settings, iteration, tx * tw, ty * th,
-                         tw, th)
-            color = out["color"]
-            if tuple(color.shape) != (tw * th, 3):
-                fail(f"a tile's color has shape {tuple(color.shape)}")
-            if not bool(torch.isfinite(color).all()):
-                fail("non-finite pixels in a frame")
-            rays += int(out["rays_traced"])  # synchronises
-            total += float(color.sum())
+    for x0, y0, tw, th in grid_tiles(grid):
+        out = render(scene, cam, settings, iteration, x0, y0, tw, th)
+        color = out["color"]
+        if tuple(color.shape) != (tw * th, 3):
+            fail(f"a tile's color has shape {tuple(color.shape)}")
+        if not bool(torch.isfinite(color).all()):
+            fail("non-finite pixels in a frame")
+        rays += int(out["rays_traced"])  # synchronises
+        total += float(color.sum())
     mean = total / (WIDTH * HEIGHT * 3)
     if not mean > 0.0:
         fail("the frame is black")
@@ -636,10 +662,13 @@ def check_counts(label, counts, kernel, frames, per_frame=6):
                      f"{frames} frames, expected {want}")
 
 
-def fwd_bwd(scene, cam, settings, iteration, x0=0, y0=0, tw=None, th=None):
+def fwd_bwd(scene, cam, settings, iteration, tiles=None):
     """The bench loss (bench.py: sum(color^2) / (H W 3)) and its gradients
     w.r.t. every float material column and env_col, set as leaf tensors.
-    Returns (loss, rays, grads, forward s, backward s)."""
+    Like bench.py's ``fwd_bwd``, each tile of ``tiles`` ((x0, y0, tw, th);
+    default the whole frame) runs its own forward and ``backward()``, and
+    the gradients sum into the same leaves.  Returns (loss, rays, grads,
+    forward s, backward s)."""
     import torch
 
     params = {k: v.detach().clone().requires_grad_(True)
@@ -648,65 +677,125 @@ def fwd_bwd(scene, cam, settings, iteration, x0=0, y0=0, tw=None, th=None):
     merged = dict(scene.materials)
     merged.update(params)
     sc = dataclasses.replace(scene, materials=merged, env_col=env)
-    t0 = time.perf_counter()
-    out = render(sc, cam, settings, iteration, x0, y0, tw, th)
-    loss = (out["color"] ** 2).sum() / (HEIGHT * WIDTH * 3)
-    rays = int(out["rays_traced"])
-    if scene.device.type == "cuda":
-        torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    loss.backward()
-    if scene.device.type == "cuda":
-        torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    cuda = scene.device.type == "cuda"
+    total, rays, fwd_s, bwd_s = 0.0, 0, 0.0, 0.0
+    for x0, y0, tw, th in tiles or [(0, 0, WIDTH, HEIGHT)]:
+        t0 = time.perf_counter()
+        out = render(sc, cam, settings, iteration, x0, y0, tw, th)
+        loss = (out["color"] ** 2).sum() / (HEIGHT * WIDTH * 3)
+        rays += int(out["rays_traced"])
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        if cuda:
+            torch.cuda.synchronize()
+        fwd_s += t1 - t0
+        bwd_s += time.perf_counter() - t1
+        total += float(loss.detach())
     grads = {k: p.grad for k, p in params.items()}
     grads["env_col"] = env.grad
-    return float(loss.detach()), rays, grads, t1 - t0, t2 - t1
+    return total, rays, grads, fwd_s, bwd_s
 
 
-def fwd_bwd_path(label, scene, cam, settings, kernel):
-    """``BWD_FRAMES`` timed fwd+bwd frames after a warm-up frame."""
+def fwd_bwd_path(label, scene, cam, settings, kernel, grid=(1, 1),
+                 frames=BWD_FRAMES):
+    """``frames`` timed fwd+bwd frames (each a ``grid`` of tiles) after a
+    warm-up frame; 6 + 6 trace launches a tile, none in backward (remat
+    with ``remat_save_trace`` or stored residuals)."""
     import torch
 
     from ray_tpu_torch.ops import cuda_build
 
-    fwd_bwd(scene, cam, settings, 1)
+    tiles = grid_tiles(grid)
+    fwd_bwd(scene, cam, settings, 1, tiles)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
     rays = 0
     frame_s, fwd_s, bwd_s = [], [], []
     t_all = time.perf_counter()
-    for f in range(BWD_FRAMES):
-        loss, n, grads, tf, tb = fwd_bwd(scene, cam, settings, 2 + f)
+    for f in range(frames):
+        loss, n, grads, tf, tb = fwd_bwd(scene, cam, settings, 2 + f, tiles)
         rays += n
         fwd_s.append(tf)
         bwd_s.append(tb)
         frame_s.append(tf + tb)
-        for k in ("base_color", "env_col"):
-            g = grads[k]
-            if g is None or not bool(torch.isfinite(g).all()):
-                fail(f"{label} fwd+bwd: gradient of {k} missing or not finite")
-            if not float(g.abs().max()) > 0.0:
-                fail(f"{label} fwd+bwd: gradient of {k} is zero")
-        for k, g in grads.items():
-            if g is not None and not bool(torch.isfinite(g).all()):
-                fail(f"{label} fwd+bwd: gradient of {k} not finite")
+        check_grads(f"{label} fwd+bwd", grads)
     wall = time.perf_counter() - t_all
     counts = dict(cuda_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    check_counts(f"{label} fwd+bwd", counts, kernel, BWD_FRAMES)
-    frame_ms = wall / BWD_FRAMES * 1e3
-    print(f"{label} fwd+bwd 1920x1080 1spp depth5 (grid 1x1): "
-          f"{rays / wall / 1e6:.3f} Mray/s over {BWD_FRAMES} frames, frame "
+    check_counts(f"{label} fwd+bwd", counts, kernel, frames, 6 * len(tiles))
+    frame_ms = wall / frames * 1e3
+    print(f"{label} fwd+bwd 1920x1080 1spp depth5 (grid {grid[0]}x{grid[1]}"
+          f"{', remat' if settings.remat else ''}): "
+          f"{rays / wall / 1e6:.3f} Mray/s over {frames} frames, frame "
           f"{frame_ms:.1f} ms (forward {statistics.fmean(fwd_s) * 1e3:.1f} + "
           f"backward {statistics.fmean(bwd_s) * 1e3:.1f}); {spread(frame_s)}; "
           f"peak memory {peak / 2**30:.3f} GiB; loss {loss:.6e}; "
           f"|grad base_color| max {float(grads['base_color'].abs().max()):.3e}, "
           f"|grad env_col| max {float(grads['env_col'].abs().max()):.3e} "
           f"[{CARD}]")
-    print(f"  launch counts over {BWD_FRAMES} frames: {counts}")
+    print(f"  launch counts over {frames} frames: {counts}")
     return frame_ms
+
+
+def check_grads(label, grads):
+    """Every gradient finite; base_color's and env_col's non-zero."""
+    import torch
+
+    for k in ("base_color", "env_col"):
+        g = grads[k]
+        if g is None or not float(g.abs().max()) > 0.0:
+            fail(f"{label}: gradient of {k} missing or zero")
+    for k, g in grads.items():
+        if g is not None and not bool(torch.isfinite(g).all()):
+            fail(f"{label}: gradient of {k} not finite")
+
+
+def remat_trace_counts(scene, cam, settings, kernel):
+    """One fwd+bwd 2x2 frame with ``remat_save_trace=False``: the backward
+    replays launch every trace again, so 12 + 12 launches a tile."""
+    from ray_tpu_torch.ops import cuda_build
+
+    st = dataclasses.replace(settings, remat_save_trace=False)
+    cuda_build.reset_launch_counts()
+    _, _, grads, tf, tb = fwd_bwd(scene, cam, st, 9, grid_tiles(GRID))
+    counts = dict(cuda_build.launch_counts)
+    check_grads("colonnade fwd+bwd, remat_save_trace=False", grads)
+    check_counts("colonnade fwd+bwd, remat_save_trace=False", counts, kernel,
+                 1, 2 * 6 * len(grid_tiles(GRID)))
+    print(f"colonnade fwd+bwd 2x2 with remat_save_trace=False: forward "
+          f"{tf * 1e3:.1f} + backward {tb * 1e3:.1f} ms; launch counts "
+          f"{counts} (the backward replays every trace) [{CARD}]")
+
+
+def check_remat_against_stored(scene, cam, settings):
+    """The flagship fwd+bwd frame with remat and with stored residuals on
+    the card: the loss bit-identical, each gradient column within 1e-4 of
+    its largest entry (the backward's index_add_ atomics sum in another
+    order)."""
+    loss_r, _, g_r, _, _ = fwd_bwd(scene, cam, dataclasses.replace(
+        settings, remat=True), 77)
+    loss_s, _, g_s, _, _ = fwd_bwd(scene, cam, settings, 77)
+    if loss_r != loss_s:
+        fail(f"flagship remat loss {loss_r!r} differs from the stored-"
+             f"residual loss {loss_s!r}")
+    worst = 0.0
+    for k, g in g_s.items():
+        if g is None or g_r[k] is None:
+            if (g is None) != (g_r[k] is None):
+                fail(f"flagship remat: {k} has a gradient with one policy")
+            continue
+        scale = float(g.abs().max())
+        rel = float((g_r[k] - g).abs().max()) / scale if scale > 0 else 0.0
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            fail(f"flagship remat: {k} differs from stored residuals by "
+                 f"{rel:.3e} of its largest entry")
+    print(f"flagship fwd+bwd remat vs stored residuals on the card: loss "
+          f"bit-identical ({loss_r:.9e}), worst column max |diff| / max |g| "
+          f"{worst:.2e} (limit 1e-4)")
 
 
 # the AUX normal's bound on the flattened colonnades (atol; rtol 1e-5 and
@@ -767,7 +856,7 @@ def check_grad_tile_against_cpu(make_scene, label, x0, y0, settings):
     for dev in ("cuda", "cpu"):
         sc, cam = make_scene()
         _, _, g, _, _ = fwd_bwd(sc.finalize(device=dev), cam, settings, 1,
-                                x0, y0, 64, 48)
+                                [(x0, y0, 64, 48)])
         grads.append(g)
     worst = 0.0
     for k, gc in grads[1].items():
@@ -856,6 +945,212 @@ def rng_cost(settings):
           f"{rng_ms:.3f} ms x {n_rng} draws a frame = {rng_ms * n_rng:.1f} ms")
 
 
+def gather_cases(device):
+    """The gather probe's inputs (scripts/test_pallas_gather.py
+    ``try_kernel``: ``arange`` tables of shape (1024,) and (1, 1024), the
+    (8, 128) index of ``default_rng(0)``), a random table with NaNs
+    (payloads included), -0 and infinities, and 2,073,600 random indices:
+    one 1080p frame of lanes.  {label: (table, idx)}."""
+    import numpy as np
+    import torch
+
+    n = GATHER_TABLE
+    idx = np.random.default_rng(0).integers(0, n, (8, 128)).astype(np.int32)
+    r = np.random.default_rng(1)
+    bits = r.normal(size=n).astype(np.float32).view(np.uint32)
+    bits[::7] = 0x7FC00000 | r.integers(0, 1 << 22, bits[::7].shape,
+                                        dtype=np.uint32)
+    bits[3::11] = 0xFFC00001
+    bits[1::13] = 0x80000000
+    bits[5::19] = 0x7F800000
+    special = bits.view(np.float32)
+    frame = r.integers(0, n, (HEIGHT, WIDTH)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    arange = np.arange(n, dtype=np.float32)
+    return {"probe (1024,)": (t(arange), t(idx)),
+            "probe (1, 1024)": (t(arange.reshape(1, n)), t(idx)),
+            "probe NaN/-0 table": (t(special), t(idx)),
+            "frame 2,073,600 lanes": (t(special), t(frame))}
+
+
+def check_gather(cases):
+    """gather_table bit-exact against gather_table_plain on every case."""
+    from ray_tpu_torch.ops.gather_probe import gather_table, gather_table_plain
+
+    for label, (table, idx) in cases.items():
+        k = gather_table(table, idx)
+        p = gather_table_plain(table, idx)
+        if k.shape != idx.shape or not same_bits(k, p):
+            fail(f"gather_table differs from its plain version on {label}")
+        print(f"  parity gather_table {label}: bit-exact ({idx.numel()} "
+              f"lanes, table {tuple(table.shape)})")
+
+
+def gather_timings(cases):
+    """Kernel (raw launch, uncounted), plain version and the one-call
+    library yardstick (``index_select``, which takes int32 indices) at the
+    probe's size and a frame's; the bound: bytes, 4 a table entry and 8 a
+    lane, over the HBM rate."""
+    import torch
+
+    from ray_tpu_torch.ops import gather_probe
+
+    rows = {}
+    for label in ("probe (1024,)", "frame 2,073,600 lanes"):
+        table, idx = cases[label]
+        out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+        fn = gather_probe._gather_fn()
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (table.data_ptr(), table.numel(), idx.data_ptr(), idx.numel(),
+                out.data_ptr(), stream)
+
+        def launch():
+            if fn(*args) != 0:
+                fail("gather_table launch failed while timing")
+        flat = table.reshape(-1)
+        rows[label] = {
+            "ms": time_launches(launch, 200),
+            "plain_ms": time_launches(
+                lambda: gather_probe.gather_table_plain(table, idx), 200),
+            "library_ms": time_launches(
+                lambda: torch.index_select(flat, 0, idx.reshape(-1)), 200),
+            "bound_ms": (4 * table.numel() + 8 * idx.numel())
+            / PEAK_BYTES_PER_S * 1e3,
+        }
+        r = rows[label]
+        print(f"gather_table {label}: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, library (index_select) "
+              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
+              f"(bytes) [{CARD}]")
+    return rows
+
+
+def renderer_path(settings):
+    """The user's entry point at full width: ``create_renderer`` →
+    ``render`` (8 samples) → ``pixels`` (AgX through its LUT, filmic
+    medium contrast), then 8 more samples with adaptive sampling on
+    (``min_samples=4, variance_threshold=0.05``), the launch counts set to 0
+    just before each and read just after: 6 + 6 ``trace_brute`` launches a
+    sample."""
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.ops import cuda_build
+
+    sc, cam = flagship()
+    scene = sc.finalize()
+    r = ray_tpu.create_renderer(
+        ray_tpu.RenderSettings(width=WIDTH, height=HEIGHT,
+                               collect_stats=True),
+        settings, log=ray_tpu.LogStdout())
+    if r.device != scene.device:
+        fail(f"the renderer is on {r.device}, the scene on {scene.device}")
+    r.render(scene, cam, 1)          # warm-up
+    r.clear()
+    counts = {}
+    for half, samples in (("plain", 8), ("adaptive", 8)):
+        if half == "adaptive":
+            r.settings = dataclasses.replace(r.settings, min_samples=4,
+                                             variance_threshold=0.05)
+        r.reset_stats()
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = r.render(scene, cam, samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[half] = dict(cuda_build.launch_counts)
+        check_counts(f"renderer ({half})", counts[half], "trace_brute",
+                     samples)
+        rays = r.get_stats()["rays_traced"]
+        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or img.device != r.device:
+            fail(f"radiance_image has shape {tuple(img.shape)} on "
+                 f"{img.device}")
+        if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0:
+            fail("the renderer's radiance is not finite or black")
+        print(f"renderer flagship 1920x1080 depth5, {half} samples "
+              f"{r.iteration - samples + 1}..{r.iteration}: "
+              f"{wall / samples * 1e3:.1f} ms a sample, "
+              f"{rays / wall / 1e6:.3f} Mray/s ({rays / samples:.0f} rays a "
+              f"sample); active share {float(r.active_px.float().mean()):.4f}"
+              f"; radiance mean {float(img.mean()):.6f} [{CARD}]")
+        print(f"  launch counts over {samples} samples: {counts[half]}")
+        if half == "plain":
+            for vt in ("AGX", "FILMIC_MED_CONTRAST"):
+                px = r.pixels(cam, getattr(ray_tpu.ViewTransform, vt))
+                if not (tuple(px.shape) == (HEIGHT, WIDTH, 3)
+                        and bool(((px >= 0) & (px <= 1)).all())
+                        and float(px.mean()) > 0.0):
+                    fail(f"pixels({vt}) out of [0, 1], black or misshapen")
+                print(f"  pixels({vt}): mean {float(px.mean()):.6f}")
+    active = float(r.active_px.float().mean())
+    if not active < 1.0:
+        fail("adaptive sampling stopped no pixel")
+    return counts
+
+
+def check_renderer_against_cpu(settings):
+    """A 64x48 renderer, 4 samples with adaptive sampling on (from sample
+    2), on the card against the same on the CPU: radiance within rtol 1e-3
+    (atol 1e-4) and pixels(AGX) within 1e-3 on >= 99% of pixels, the active
+    masks equal on >= 99.9%."""
+    import numpy as np
+
+    import ray_tpu_torch as ray_tpu
+
+    outs = []
+    for backend in ("gpu", "cpu"):
+        sc, cam = flagship()
+        r = ray_tpu.create_renderer(
+            ray_tpu.RenderSettings(width=64, height=48, min_samples=2,
+                                   variance_threshold=0.05),
+            settings, enabled_types=(backend,))
+        r.render(sc.finalize(device=r.device), cam, 4)
+        outs.append([a.cpu().numpy() for a in (
+            r.radiance_image(), r.pixels(cam, ray_tpu.ViewTransform.AGX),
+            r.active_px)])
+    (g_rad, g_px, g_act), (c_rad, c_px, c_act) = outs
+    rad = np.isclose(g_rad, c_rad, rtol=1e-3, atol=1e-4).all(-1).mean()
+    px = (np.abs(g_px - c_px) <= 1e-3).all(-1).mean()
+    act = (g_act == c_act).mean()
+    print(f"renderer 64x48 (4 samples, adaptive) card vs cpu: radiance close "
+          f"{rad:.4f}, pixels close {px:.4f}, active masks equal {act:.4f} "
+          f"(active share {g_act.mean():.4f} / {c_act.mean():.4f})")
+    if not (rad >= 0.99 and px >= 0.99 and act >= 0.999
+            and np.isfinite(g_rad).all()):
+        fail("the card's 64x48 renderer disagrees with the CPU path")
+
+
+def quickstart():
+    """The README quickstart on the card: 2 triangles, a GLOSSY material,
+    a sphere light, 512x512, 16 samples."""
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+
+    sc = ray_tpu.Scene()
+    mat = sc.add_material(ray_tpu.MaterialDesc(type=1,
+                                               base_color=(.7, .7, .7)))
+    sc.add_mesh(vertices=[[-5, 0, -5], [5, 0, -5], [5, 0, 5], [-5, 0, 5]],
+                indices=[[0, 1, 2], [0, 2, 3]], material=mat)
+    sc.add_light(ray_tpu.LightDesc(type=0, position=(0, 3, 0), radius=.3,
+                                   color=(20, 20, 20)))
+    scene = sc.finalize()
+    cam = ray_tpu.make_camera(origin=(0, 2, 6), look_at=(0, 0, 0), fov=50)
+    r = ray_tpu.create_renderer(ray_tpu.RenderSettings(width=512, height=512))
+    t0 = time.perf_counter()
+    img = r.render(scene, cam, samples=16)
+    pixels = r.pixels(cam, ray_tpu.ViewTransform.AGX)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (bool(torch.isfinite(img).all()) and bool(
+            torch.isfinite(pixels).all()) and float(img.mean()) > 0.0):
+        fail("the quickstart image is not finite, or black")
+    print(f"quickstart 512x512, 16 samples: {wall * 1e3:.1f} ms, radiance "
+          f"mean {float(img.mean()):.6f}, pixels(AGX) mean "
+          f"{float(pixels.mean()):.6f}")
+
+
 def phase(name: str, t_start: float) -> None:
     """Mark where a phase starts, in seconds since the script began."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {name}")
@@ -882,18 +1177,24 @@ def main() -> int:
 
     # ---- build: one nvcc per kernel, all at once ----------------------
     t0 = time.perf_counter()
-    cuda_build.build(list(KERNELS))
-    for k in KERNELS:
+    names = [*KERNELS, "gather_table"]
+    cuda_build.build(names)
+    for k in names:
         cuda_build.load(k)
-    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.3f} s")
+    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.3f} s")
 
     device = torch.device("cuda")
     settings = PassSettings(max_total_depth=5, min_total_depth=2)
     # bench.py's big-scene settings, without remat (a forward pass)
     settings_big = dataclasses.replace(settings, compact_after=2,
                                        compact_factor=4)
+    # ... and with it: bench.py's settings_big of the colonnade's fwd+bwd
+    settings_remat = dataclasses.replace(settings_big, remat=True)
 
     phase("kernel parity", t_start)
+    # ---- the gather probe: bit-exact on its inputs and a frame's ------
+    gathers = gather_cases(device)
+    check_gather(gathers)
     # ---- kernel parity on the generator scenes ------------------------
     errs = {}
     for kernel, sizes in (("trace_brute", (8, 24, 40)),
@@ -1020,6 +1321,28 @@ def main() -> int:
         bwd_ms[label] = fwd_bwd_path(label, scene, cam, st, kernel)
     check_grad_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840,
                                 settings)
+    check_remat_against_stored(*scenes["flagship"][:2], settings)
+
+    phase("colonnade fwd+bwd", t_start)
+    # ---- the colonnade's fwd+bwd frame: bench.py's settings_big (remat),
+    # 2x2 tiles, each its own backward -----------------------------------
+    scene, cam = scenes["colonnade"][:2]
+    bwd_ms["colonnade"] = fwd_bwd_path("colonnade", scene, cam,
+                                       settings_remat, "trace_tlas", GRID,
+                                       COLONNADE_BWD_FRAMES)
+    remat_trace_counts(scene, cam, settings_remat, "trace_tlas")
+    # stored residuals: ~18.6 GB a 960x540 tile predicted
+    # (tools/remat_saved_bytes.py), so it fits beside remat on one card
+    fwd_bwd_path("colonnade", scene, cam, settings_big, "trace_tlas", GRID,
+                 COLONNADE_BWD_FRAMES)
+    check_grad_tile_against_cpu(colonnade, "colonnade", 912, 500,
+                                settings_remat)
+
+    phase("renderer", t_start)
+    # ---- the user's entry point: create_renderer -> render -> pixels ---
+    renderer_path(settings)
+    check_renderer_against_cpu(settings)
+    quickstart()
 
     phase("profiles", t_start)
     flag = scenes["flagship"]
@@ -1042,6 +1365,7 @@ def main() -> int:
     rng_cost(settings)
 
     phase("kernel timing", t_start)
+    gather_rows = gather_timings(gathers)
     # ---- kernel timing at each frame's (tile's) launch shapes ----------
     for label in scenes:
         print(f"kernel timing, {label}:")
@@ -1095,6 +1419,14 @@ def main() -> int:
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "library_ms": None,
             })
+    g = gather_rows["frame 2,073,600 lanes"]
+    kernels.append({
+        "name": "gather_table", "route": "cuda", **GATHER,
+        # on no path of the system: a compiler probe, held and timed here
+        "launches": 0, "max_abs_err": 0.0, "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": "bytes", "library_ms": g["library_ms"],
+    })
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

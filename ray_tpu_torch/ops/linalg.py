@@ -110,3 +110,12 @@ def offset_ray(p, n):
     p_i_bits = pd.view(torch.int32) + torch.where(pd < 0.0, -of_i, of_i)
     p_i = p_i_bits.view(torch.float32)
     return torch.where(torch.abs(p) < origin, p + float_scale * n, p_i)
+
+
+def linear_to_srgb(c):
+    c = torch.clamp_min(c, 0.0)
+    return torch.where(
+        c > 0.0031308,
+        1.055 * torch.pow(torch.clamp_min(c, 0.0031308), 1.0 / 2.4) - 0.055,
+        12.92 * c,
+    )

@@ -14,18 +14,30 @@ they are gathered to the front (a stable sort) and the remaining bounces
 run on those K lanes, whose state is scattered back after; each lane's
 arithmetic is unchanged, so compaction never changes a pixel.
 
-Backward: PyTorch autograd through the whole tile, with stored residuals
-(``ray_tpu``'s ``remat=False``).  Set float columns of ``scene.materials``
-and ``env_col`` to leaf tensors with ``requires_grad=True``
-(``dataclasses.replace``, as ``bench.py`` does) and ``out["color"]``
-carries their gradient: every render-time read of them goes through the
-scene passed in.  Hits are detached, as ``ray_tpu``'s traces are
-(``stop_gradient``); surface interpolation, BSDF and light math are
-recomputed from the scene tables with out-of-place ops, and the only other
-detached values are the ones ``ray_tpu`` detaches (light-tree picking
+Backward: PyTorch autograd through the whole tile.  Set float columns of
+``scene.materials`` and ``env_col`` to leaf tensors with
+``requires_grad=True`` (``dataclasses.replace``, as ``bench.py`` does) and
+``out["color"]`` carries their gradient: every render-time read of them
+goes through the scene passed in.  Hits are detached, as ``ray_tpu``'s
+traces are (``stop_gradient``); surface interpolation, BSDF and light math
+are recomputed from the scene tables with out-of-place ops, and the only
+other detached values are the ones ``ray_tpu`` detaches (light-tree picking
 position and tables, the ray-cone footprint).  Stochastic decisions use
-detached comparisons.  ``remat=True`` (path replay) is not ported: ROADMAP
-Queue 1 item 10.
+detached comparisons.
+
+``remat=False`` stores every bounce's residuals.  ``remat=True`` is path
+replay (``ray_tpu``'s ``jax.checkpoint`` of the bounce body): each bounce
+runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps only
+the bounce's input state and recomputes its shading in backward.  The RNG
+is a hash of (pixel, iteration, dimension) and the forward has no atomics
+or unstable sorts, so the replay computes the forward's values bit for
+bit.  With ``remat_save_trace`` (the default) the bounce's two trace
+outputs are kept as well and handed back to the replay (``_TraceTape``,
+``ray_tpu``'s ``save_only_these_names("trace")``): backward launches no
+trace.  Without it the replay launches both traces again.
+``remat_save_dots`` is accepted and changes nothing: ``ray_tpu`` saves its
+one-hot matmul outputs with it, and the port's bounce has no matrix
+product (the table reads are ``index_select``).
 
 Render options and scene features this slice does not carry raise
 ``NotImplementedError`` naming their ROADMAP entry.
@@ -37,6 +49,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.utils import checkpoint
 
 from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops import rng
@@ -76,7 +89,7 @@ class PassSettings:
     use_nee: bool = True
     use_path_termination: bool = True
     no_sphrect: bool = False
-    # path-replay backprop (checkpointed bounce bodies): ROADMAP item 10
+    # path-replay backprop: checkpointed bounce bodies (module docstring)
     remat: bool = False
     remat_save_trace: bool = True
     remat_save_dots: bool = False
@@ -179,8 +192,6 @@ def _check_supported(scene, settings: PassSettings, cache_mode: str) -> None:
         raise not_ported("per-ray-type visibility masks", "Queue 1 item 20")
     if scene.has_transparency:
         raise not_ported("transparency", "Queue 1 item 21")
-    if settings.remat:
-        raise not_ported("remat (path-replay backprop)", "Queue 1 item 10")
     if settings.tex_filter not in _TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
     if settings.output_sh:
@@ -249,10 +260,13 @@ def render_tile(
     totals = {"n": torch.zeros((), dtype=torch.int64, device=device),
               "bad": torch.zeros((), dtype=torch.int64, device=device)}
 
+    bounce_fn = (_replayed_bounce if settings.remat and torch.is_grad_enabled()
+                 else _bounce)
+
     def run(st, bounces):
         for bounce in bounces:
-            st, n, bad = _bounce(scene, settings, feats, st, bounce,
-                                 sample_i)
+            st, n, bad = bounce_fn(scene, settings, feats, st, bounce,
+                                   sample_i)
             totals["n"] = totals["n"] + n
             if bad is not None:
                 totals["bad"] = totals["bad"] + bad
@@ -289,6 +303,46 @@ def render_tile(
     return out
 
 
+class _TraceTape:
+    """The trace outputs of one checkpointed bounce, in call order: recorded
+    when the bounce runs forward, handed back when backward replays it, so
+    the replay shades the same (detached) hits without launching a trace."""
+
+    def __init__(self):
+        self.outs = []
+        self.pos = 0
+
+    def __call__(self, trace, *args):
+        if self.pos == len(self.outs):
+            self.outs.append(trace(*args))
+        out = self.outs[self.pos]
+        self.pos += 1
+        return out
+
+
+def _untaped(trace, *args):
+    return trace(*args)
+
+
+def _replayed_bounce(scene, settings: PassSettings, feats, st: _PathState,
+                     bounce: int, sample_i: int):
+    """:func:`_bounce` under non-reentrant ``torch.utils.checkpoint``:
+    autograd keeps the input state (and with ``remat_save_trace`` the
+    tape's trace outputs) and re-runs the whole body in backward (early
+    stop off, so a replay without the tape launches both traces again)."""
+    tape = _TraceTape() if settings.remat_save_trace else None
+
+    def body(*state):
+        if tape is not None:
+            tape.pos = 0
+        return _bounce(scene, settings, feats, _PathState(*state), bounce,
+                       sample_i, tape)
+
+    with checkpoint.set_checkpoint_early_stop(False):
+        return checkpoint.checkpoint(body, *st, use_reentrant=False,
+                                     preserve_rng_state=False)
+
+
 def _trace_closest(scene, ro, rd, t_max, active):
     """Mode dispatch: flattened single BVH or the two-level walk.  Returns
     (hit, inst); inst is None in flatten mode."""
@@ -321,10 +375,12 @@ def _trace_occlusion(scene, ro, rd, t_max, active):
 
 
 def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
-            sample_i: int):
+            sample_i: int, tape=None):
     """One wavefront bounce (``ray_tpu``'s ``bounce_step``).  Returns the
     next state, the number of rays traced (closest + shadow) and, with
-    ``nan_check``, the count of non-finite live-lane values."""
+    ``nan_check``, the count of non-finite live-lane values.  ``tape``: a
+    :class:`_TraceTape` that both traces go through."""
+    traced = _untaped if tape is None else tape
     ro, rd, t_max, throughput, bsdf_pdf, active, depth = st[:7]
     ior_stack, accum, aux_base, aux_dn = (st.ior_stack, st.accum, st.aux_base,
                                           st.aux_dn)
@@ -336,7 +392,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     limit0 = settings.clamp_direct if is_first else settings.clamp_indirect
 
     total_depth = depth[:, 0] + depth[:, 1] + depth[:, 2]
-    hit, hit_inst = _trace_closest(scene, ro, rd, t_max, active)
+    hit, hit_inst = traced(_trace_closest, scene, ro, rd, t_max, active)
     miss = hit.prim < 0
     indirect = total_depth > 0
 
@@ -510,8 +566,8 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         sh_d = to_lp / sh_dist[:, None]
         sh_dist = sh_dist * ls.dist_mul
         shadow_active = nee_valid & ls.cast_shadow
-        occluded = _trace_occlusion(scene, sh_o, sh_d, sh_dist * 0.999,
-                                    shadow_active)
+        occluded = traced(_trace_occlusion, scene, sh_o, sh_d,
+                          sh_dist * 0.999, shadow_active)
         visible = nee_valid & ((~ls.cast_shadow) | (~occluded))
         sh_contrib = _clamp_contribution(throughput * nee_col, limit0)
         accum = _add(accum, sh_contrib, visible)

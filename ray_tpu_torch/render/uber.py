@@ -1,13 +1,14 @@
 """The uber-BSDF: one superset parameter block evaluated for every hit.
 
 The port of ``ray_tpu.render.uber`` for the node types this port carries:
-DIFFUSE (Oren-Nayar, uniform-hemisphere sampled), EMISSIVE and PRINCIPLED
-(Burley diffuse with sheen, GGX specular, GTR1 clearcoat and GGX
-refraction, with the Cycles-style lobe weights).  A node type pins the lobe
+DIFFUSE (Oren-Nayar, uniform-hemisphere sampled), GLOSSY (the GGX
+specular lobe alone), EMISSIVE and PRINCIPLED (Burley diffuse with sheen,
+GGX specular, GTR1 clearcoat and GGX refraction, with the Cycles-style
+lobe weights).  A node type pins the lobe
 weights of the principled superset; evaluation is arithmetic and selects.
 As in ``ray_tpu``, the set of node types in the scene is static
 (:class:`MatFeatures`) and lobe families no material can reach are traced
-away; a scene with GLOSSY, REFRACTIVE, MIX or TRANSPARENT nodes raises
+away; a scene with REFRACTIVE, MIX or TRANSPARENT nodes raises
 (ROADMAP Queue 1 item 29).  ``ray_tpu``'s one-hot matmul material reads
 become ``index_select`` reads with the same values.
 """
@@ -33,8 +34,8 @@ RAY_TYPE_SPECULAR = 2
 RAY_TYPE_REFR = 3
 RAY_TYPE_SHADOW = 4
 
-_PORTED_NODES = frozenset({ShadingNode.DIFFUSE, ShadingNode.EMISSIVE,
-                           ShadingNode.PRINCIPLED})
+_PORTED_NODES = frozenset({ShadingNode.DIFFUSE, ShadingNode.GLOSSY,
+                           ShadingNode.EMISSIVE, ShadingNode.PRINCIPLED})
 MAX_CONE_SPREAD_INCREMENT = 0.05  # reference Constants.inl:108
 
 
@@ -45,6 +46,7 @@ class MatFeatures:
 
     principled: bool = True
     diffuse: bool = True      # a plain DIFFUSE node exists
+    glossy: bool = True       # a GLOSSY node exists
 
     @property
     def any_diffuse(self) -> bool:
@@ -52,7 +54,7 @@ class MatFeatures:
 
     @property
     def any_spec(self) -> bool:
-        return self.principled
+        return self.principled or self.glossy
 
     @property
     def any_refr(self) -> bool:
@@ -73,7 +75,8 @@ def mat_features(mat_types) -> MatFeatures:
                        if not k.startswith("_") and v in missing)
         raise not_ported(f"material node types {names}", "Queue 1 item 29")
     return MatFeatures(principled=ShadingNode.PRINCIPLED in s,
-                       diffuse=ShadingNode.DIFFUSE in s)
+                       diffuse=ShadingNode.DIFFUSE in s,
+                       glossy=ShadingNode.GLOSSY in s)
 
 
 class UberParams(NamedTuple):
@@ -200,6 +203,7 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
 
     is_principled = mtype == ShadingNode.PRINCIPLED
     is_diffuse_node = mtype == ShadingNode.DIFFUSE
+    is_glossy = mtype == ShadingNode.GLOSSY
     is_emissive = mtype == ShadingNode.EMISSIVE
     is_transparent = mtype == ShadingNode.TRANSPARENT
 
@@ -260,7 +264,7 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
 
     # ---- node-type overrides ----
     w_diffuse = torch.where(is_diffuse_node, one, zero)
-    w_specular = zero
+    w_specular = torch.where(is_glossy, one, zero) if feats.glossy else zero
     w_clearcoat = zero
     w_refraction = zero
     if feats.principled:
@@ -275,12 +279,19 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
                                          torch.tensor(0.5))))
         g_spec_F0 = fresnel_dielectric_cos(torch.ones_like(g_spec_ior),
                                            g_spec_ior)
-        spec_ior = torch.where(is_principled, p_spec_ior, g_spec_ior)
-        spec_F0 = torch.where(is_principled, p_spec_F0, g_spec_F0)
-        spec_col = torch.where(is_principled[:, None], p_spec_col, base_color)
-        spec_col_90 = torch.where(
-            is_principled[:, None], torch.ones_like(base_color), base_color
-        )
+        if feats.principled:
+            spec_ior = torch.where(is_principled, p_spec_ior, g_spec_ior)
+            spec_F0 = torch.where(is_principled, p_spec_F0, g_spec_F0)
+            spec_col = torch.where(is_principled[:, None], p_spec_col,
+                                   base_color)
+            spec_col_90 = torch.where(
+                is_principled[:, None], torch.ones_like(base_color),
+                base_color)
+        else:
+            spec_ior = g_spec_ior
+            spec_F0 = g_spec_F0
+            spec_col = base_color
+            spec_col_90 = base_color
         spec_alpha = calc_alpha(roughness, anisotropic, regularize_alpha)
     else:
         spec_ior = one

@@ -416,3 +416,125 @@ def test_flatten_colonnade_tile_launches_only_the_tlas_kernel():
     assert not any(counts.get(f"{k}_{m}")
                    for k in ("trace_brute", "trace_bvh", "trace_binned")
                    for m in ("closest", "anyhit")), counts
+
+
+def _gather_case(n_out, seed, shape=(1024,)):
+    """A float32 table with NaNs (payloads included), -0 and infinities,
+    and int32 indices covering it."""
+    r = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    bits = r.normal(size=n).astype(np.float32).view(np.uint32)
+    bits[::7] = 0x7FC00000 | r.integers(0, 1 << 22, bits[::7].shape,
+                                        dtype=np.uint32)
+    bits[1::13] = 0x80000000
+    bits[5::19] = 0xFF800000
+    table = torch.from_numpy(bits.view(np.float32).reshape(shape)).cuda()
+    idx = torch.from_numpy(r.integers(0, n, n_out).astype(np.int32)).cuda()
+    return table, idx
+
+
+@pytest.mark.parametrize("n_out,shape", [
+    ((8, 128), (1024,)), ((8, 128), (1, 1024)),
+    ((1080, 1920), (1024,)), ((3, 1_000_003), (1 << 20,))])
+def test_gather_table_kernel_bit_exact(n_out, shape):
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops.gather_probe import gather_table, gather_table_plain
+
+    table, idx = _gather_case(int(np.prod(n_out)), len(shape), shape)
+    idx = idx.reshape(n_out)
+    before = cuda_build.launch_counts["gather_table"]
+    k = gather_table(table, idx)
+    p = gather_table_plain(table, idx)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["gather_table"] == before + 1
+    assert k.shape == idx.shape
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+def test_gather_table_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops.gather_probe import gather_table
+
+    table, idx = _gather_case(1024, 0)
+    with pytest.raises(TypeError):
+        gather_table(table.double(), idx)
+    with pytest.raises(TypeError):
+        gather_table(table, idx.long())
+    with pytest.raises(ValueError):
+        gather_table(table.reshape(2, 512), idx)
+    with pytest.raises(ValueError):
+        gather_table(table, idx.cpu())
+    with pytest.raises(ValueError):
+        gather_table(table, idx.reshape(32, 32).t())
+    for bad in (-1, 1024):
+        worse = idx.clone()
+        worse[17] = bad
+        with pytest.raises(IndexError):
+            gather_table(table, worse)
+
+
+@pytest.mark.parametrize("save_trace", [True, False])
+def test_remat_tile_launch_counts(save_trace):
+    """A 256x128 colonnade fwd+bwd tile at bench.py's big settings with
+    remat: the forward launches 6 + 6 trace_tlas kernels; the backward none
+    with ``remat_save_trace``, the same 6 + 6 again without it."""
+    _need_cuda()
+    import dataclasses
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils.test_scenes import colonnade_scene
+
+    sc, cam = colonnade_scene()
+    scene = sc.finalize()
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in scene.materials.items() if v.is_floating_point()}
+    scene = dataclasses.replace(scene,
+                                materials={**scene.materials, **params})
+    cuda_build.reset_launch_counts()
+    out = render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                      height=1080, tile_w=256, tile_h=128,
+                      settings=PassSettings(max_total_depth=5,
+                                            min_total_depth=2,
+                                            compact_after=2,
+                                            compact_factor=4, remat=True,
+                                            remat_save_trace=save_trace),
+                      use_filter_table=False)
+    fwd = dict(cuda_build.launch_counts)
+    (out["color"] ** 2).sum().backward()
+    torch.cuda.synchronize()
+    total = dict(cuda_build.launch_counts)
+    assert fwd == {"trace_tlas_closest": 6, "trace_tlas_anyhit": 6}, fwd
+    assert total == {k: v * (1 if save_trace else 2)
+                     for k, v in fwd.items()}, total
+    g = params["base_color"].grad
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+
+
+def test_renderer_sample_on_the_card():
+    """``create_renderer`` puts the renderer on the card; one flagship
+    sample launches 6 + 6 trace_brute kernels and lands in the buffers."""
+    _need_cuda()
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    sc, cam = cornell_scene()
+    scene = sc.finalize()
+    r = ray_tpu.create_renderer(
+        ray_tpu.RenderSettings(width=320, height=180),
+        ray_tpu.PassSettings(max_total_depth=5, min_total_depth=2))
+    assert r.device.type == "cuda" and r.device == scene.device
+    cuda_build.reset_launch_counts()
+    img = r.render(scene, cam, 1)
+    px = r.pixels(cam, ray_tpu.ViewTransform.AGX)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launch_counts)
+    assert counts == {"trace_brute_closest": 6, "trace_brute_anyhit": 6}, \
+        counts
+    assert img.device.type == px.device.type == "cuda"
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+    assert bool(((px >= 0) & (px <= 1)).all())
+    with pytest.raises(ValueError, match="renderer"):
+        r.render(sc.finalize(device="cpu"), cam, 1)

@@ -12,6 +12,12 @@ ulps), so the gradients agree to float32 rounding: measured within 1.3e-5
 relative to the column's largest entry.  Each column is held to
 ``rtol=1e-3, atol=1e-3·max|g_jax|``.  Columns that no ported node type
 reads get no gradient in the port (``None``) and an all-zero one from JAX.
+
+Path replay (``remat=True``, with ``remat_save_dots`` and without
+``remat_save_trace``) is held to the same ``jax.grad`` values, computed
+once per scene for the module, and the port's policies to each other at
+``tests/test_grad.py::test_grad_checkpoint_policies_agree``'s gate
+(rtol 1e-5, atol 1e-7).
 """
 
 import dataclasses
@@ -55,7 +61,49 @@ def _jax_grads(scene, cam, x0, y0):
     return float(loss), grads
 
 
-def _port_grads(scene, cam, x0, y0):
+# tile origins: the flagship's light quad's lower edge (emission strength
+# gets a gradient), cornell_sphere's sphere (roughness 0.5 drives the
+# Oren-Nayar term)
+ORIGIN = {"flagship": (952, 116), "cornell_sphere": (740, 860)}
+REMAT = {"remat": dict(remat=True),
+         "remat_save_dots": dict(remat=True, remat_save_dots=True),
+         "remat_no_save_trace": dict(remat=True, remat_save_trace=False)}
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """scene name → (ray_tpu's loss and gradients, the port's CPU scene and
+    camera, the port's stored-residual loss and gradients), each computed
+    once for the module."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            if name == "flagship":
+                (jsc, jcam), (tsc, tcam) = j_cornell(), t_cornell()
+            else:
+                (jsc, jcam), (tsc, tcam) = (cornell_sphere(port, rings=8)
+                                            for port in (False, True))
+            scene = tsc.finalize(device="cpu")
+            cache[name] = (_jax_grads(jsc.finalize(), jcam, *ORIGIN[name]),
+                           scene, tcam,
+                           _port_grads(scene, tcam, *ORIGIN[name]))
+        return cache[name]
+    return get
+
+
+def _assert_matches_jax(t_loss, t_g, j_loss, j_g):
+    np.testing.assert_allclose(t_loss, j_loss, rtol=1e-4)
+    assert set(t_g) == set(j_g)
+    for k, gj in j_g.items():
+        gt = np.zeros_like(gj) if t_g[k] is None else t_g[k]
+        assert np.isfinite(gt).all(), k
+        scale = float(np.abs(gj).max())
+        np.testing.assert_allclose(gt, gj, rtol=1e-3, atol=1e-3 * scale,
+                                   err_msg=k)
+
+
+def _port_grads(scene, cam, x0, y0, **settings):
     params = {k: v.clone().requires_grad_(True)
               for k, v in scene.materials.items() if v.is_floating_point()}
     env = scene.env_col.clone().requires_grad_(True)
@@ -63,7 +111,8 @@ def _port_grads(scene, cam, x0, y0):
     merged.update(params)
     sc = dataclasses.replace(scene, materials=merged, env_col=env)
     out = render_tile(sc, cam, None, x0, y0, 1, 0, width=W, height=H,
-                      tile_w=RES, tile_h=RES, settings=PassSettings(**DEPTH),
+                      tile_w=RES, tile_h=RES,
+                      settings=PassSettings(**DEPTH, **settings),
                       use_filter_table=False)
     loss = (out["color"] ** 2).sum() / (H * W * 3)
     loss.backward()
@@ -73,38 +122,47 @@ def _port_grads(scene, cam, x0, y0):
 
 
 @pytest.mark.parametrize("scene_name,x0,y0,nonzero", [
-    # the light quad's lower edge: emission strength gets a gradient
     ("flagship", 952, 116, ("base_color", "strength", "env_col")),
-    # on the sphere: its roughness 0.5 drives the Oren-Nayar term
     ("cornell_sphere", 740, 860, ("base_color", "roughness", "env_col")),
 ])
-def test_bench_loss_gradients_match_jax(scene_name, x0, y0, nonzero):
-    if scene_name == "flagship":
-        (jsc, jcam), (tsc, tcam) = j_cornell(), t_cornell()
-    else:
-        (jsc, jcam), (tsc, tcam) = (cornell_sphere(port, rings=8)
-                                    for port in (False, True))
-    j_loss, j_g = _jax_grads(jsc.finalize(), jcam, x0, y0)
-    t_loss, t_g = _port_grads(tsc.finalize(device="cpu"), tcam, x0, y0)
+def test_bench_loss_gradients_match_jax(reference, scene_name, x0, y0,
+                                        nonzero):
+    assert (x0, y0) == ORIGIN[scene_name]
+    (j_loss, j_g), _, _, (t_loss, t_g) = reference(scene_name)
     assert j_loss > 0.0
-    np.testing.assert_allclose(t_loss, j_loss, rtol=1e-4)
-    assert set(t_g) == set(j_g)
-    for k, gj in j_g.items():
-        gt = np.zeros_like(gj) if t_g[k] is None else t_g[k]
-        assert np.isfinite(gt).all(), k
-        scale = float(np.abs(gj).max())
-        np.testing.assert_allclose(gt, gj, rtol=1e-3, atol=1e-3 * scale,
-                                   err_msg=k)
+    _assert_matches_jax(t_loss, t_g, j_loss, j_g)
     for k in nonzero:
         assert np.abs(j_g[k]).max() > 0.0, k
 
 
+@pytest.mark.parametrize("policy", sorted(REMAT))
+@pytest.mark.parametrize("scene_name", sorted(ORIGIN))
+def test_remat_gradients_match_jax(reference, scene_name, policy):
+    """Each path-replay policy gives ``jax.grad``'s gradients (ray_tpu
+    without remat: its policies agree, tests/test_grad.py) and the port's
+    own stored-residual gradients within the policy gate."""
+    (j_loss, j_g), scene, cam, (s_loss, s_g) = reference(scene_name)
+    t_loss, t_g = _port_grads(scene, cam, *ORIGIN[scene_name],
+                              **REMAT[policy])
+    _assert_matches_jax(t_loss, t_g, j_loss, j_g)
+    assert t_loss == s_loss
+    for k, g in s_g.items():
+        if g is None:
+            assert t_g[k] is None, k
+            continue
+        np.testing.assert_allclose(t_g[k], g, rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+
+
 def test_remat_still_raises():
-    """Path-replay backprop (``remat=True``) is not ported: ROADMAP
-    Queue 1 item 10 stays open for it."""
+    """``remat=True`` raised here until path replay was ported (ROADMAP
+    Queue 1 item 10); now it renders, and without gradients a tile is
+    the one ``remat=False`` renders, bit for bit."""
     sc, cam = t_cornell()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        render_tile(sc.finalize(device="cpu"), cam, None, 0, 0, 1, 0,
-                    width=W, height=H, tile_w=8, tile_h=8,
-                    settings=PassSettings(remat=True),
-                    use_filter_table=False)
+    scene = sc.finalize(device="cpu")
+    outs = [render_tile(scene, cam, None, 0, 0, 1, 0, width=W, height=H,
+                        tile_w=8, tile_h=8,
+                        settings=PassSettings(remat=remat),
+                        use_filter_table=False) for remat in (False, True)]
+    for k in outs[0]:
+        assert torch.equal(outs[0][k], outs[1][k]), k

@@ -1,10 +1,13 @@
 """ray_tpu_torch stands alone: no JAX, no ray_tpu, CUDA by default.
 
-(a) A fresh interpreter imports ray_tpu_torch and renders a tiny CPU tile;
-    afterwards neither ``jax`` nor any ``ray_tpu`` module is loaded.
+(a) A fresh interpreter imports ray_tpu_torch, renders a tiny CPU tile and
+    a CPU renderer's frame through the user's entry point
+    (``create_renderer`` → ``render`` → ``pixels``); afterwards neither
+    ``jax`` nor any ``ray_tpu`` module is loaded.
 (b) No file under ``ray_tpu_torch/`` imports ``jax`` or ``ray_tpu``.
 (c) On a machine without CUDA, ``finalize()`` with no device raises
-    ``RuntimeError`` instead of falling back to the CPU.
+    ``RuntimeError`` instead of falling back to the CPU; so do
+    ``create_renderer()`` and ``Renderer()`` with no device.
 """
 
 import ast
@@ -30,6 +33,12 @@ out = render_tile(sc.finalize(device="cpu"), cam, None, 0, 0, 1, 0,
                   settings=PassSettings(max_total_depth=2),
                   use_filter_table=False)
 assert out["color"].shape == (192, 3)
+import ray_tpu_torch as ray_tpu
+r = ray_tpu.create_renderer(ray_tpu.RenderSettings(width=8, height=6),
+                            ray_tpu.PassSettings(max_total_depth=2),
+                            enabled_types=("cpu",))
+r.render(sc.finalize(device="cpu"), cam, 2)
+assert r.pixels(cam, ray_tpu.ViewTransform.AGX).shape == (6, 8, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
 print("LOADED", bad)
@@ -75,6 +84,32 @@ def test_finalize_without_cuda_raises():
     sc, _ = cornell_scene()
     with pytest.raises(RuntimeError, match="CUDA"):
         sc.finalize()
+
+
+def test_create_renderer_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the renderer would use it")
+    from ray_tpu_torch.api import create_renderer
+    from ray_tpu_torch.render.renderer import Renderer, RenderSettings
+
+    with pytest.raises(RuntimeError):
+        create_renderer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(RenderSettings(width=4, height=4))
+
+
+def test_gather_wrapper_never_falls_back():
+    """The gather probe's wrapper: a non-CPU, non-CUDA device or inputs
+    split across devices raise rather than running the plain version."""
+    from ray_tpu_torch.ops.gather_probe import gather_table
+
+    m = torch.device("meta")
+    with pytest.raises(ValueError):
+        gather_table(torch.empty(1024, device=m),
+                     torch.empty((8, 128), dtype=torch.int32, device=m))
+    with pytest.raises(ValueError):
+        gather_table(torch.zeros(1024),
+                     torch.empty((8, 128), dtype=torch.int32, device=m))
 
 
 def test_kernel_wrapper_never_falls_back():

@@ -275,6 +275,42 @@ def test_env_color_constant():
     _close(tls.env_color(ts, _t(L)), jls.env_color(js, jnp.asarray(L)))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_glossy_uber_matches_ray_tpu(flagship, seed):
+    """A GLOSSY node (the GGX specular lobe alone, anisotropic here): the
+    Cornell scene with a glossy box in each package, on the flagship's hits
+    (the geometry is the same) with numpy-drawn material ids, directions
+    and random numbers; ``gather_uber_params``, ``eval_uber`` and
+    ``sample_uber`` within the default tolerance."""
+    from ray_tpu.scene.materials import MaterialDesc as JMaterialDesc
+
+    glossy = dict(type=ShadingNode.GLOSSY, base_color=(0.8, 0.6, 0.3),
+                  roughness=0.3, anisotropic=0.5)
+    f = dict(flagship, js=j_cornell(box_material=JMaterialDesc(**glossy))[0]
+             .finalize(),
+             ts=t_cornell(box_material=MaterialDesc(**glossy))[0]
+             .finalize(device="cpu"))
+    js_, ts_, L, rand2, mix, mat_j = _shade_inputs(f, seed)
+    jf, tf, jp, tp = _params(f, js_, ts_, mat_j)
+    assert tf.glossy and tf.diffuse and not tf.principled
+    for name in tp._fields:
+        _close(getattr(tp, name), getattr(jp, name))
+    assert bool((tp.w_specular == 1.0).any())
+    jfc, jpdf = juber.eval_uber(jp, js_.T, js_.B, js_.N, f["jr"].rd,
+                                jnp.asarray(L), feats=jf)
+    tfc, tpdf = tuber.eval_uber(tp, ts_.T, ts_.B, ts_.N, _t(f["jr"].rd),
+                                _t(L), feats=tf)
+    _close(tfc, jfc)
+    _close(tpdf, jpdf)
+    jb = juber.sample_uber(jp, js_.T, js_.B, js_.N, f["jr"].rd,
+                           jnp.asarray(rand2), jnp.asarray(mix), feats=jf)
+    tb = tuber.sample_uber(tp, ts_.T, ts_.B, ts_.N, _t(f["jr"].rd),
+                           _t(rand2), _t(mix), feats=tf)
+    for name in tb._fields:
+        _close(getattr(tb, name), getattr(jb, name))
+    assert bool((tb.ray_type == tuber.RAY_TYPE_SPECULAR).any())
+
+
 def _render_small(sc, cam):
     return render_tile(sc.finalize(device="cpu"), cam, None, 0, 0, 1, 0,
                        width=8, height=8, tile_w=8, tile_h=8,
@@ -288,7 +324,7 @@ def test_unported_light_kinds_raise(kind):
         _render_small(sc, cam)
 
 
-@pytest.mark.parametrize("node", [ShadingNode.GLOSSY, ShadingNode.REFRACTIVE,
+@pytest.mark.parametrize("node", [ShadingNode.REFRACTIVE,
                                   ShadingNode.TRANSPARENT, ShadingNode.MIX])
 def test_unported_node_types_raise(node):
     sc, cam = t_cornell(box_material=MaterialDesc(type=node))
@@ -299,7 +335,7 @@ def test_unported_node_types_raise(node):
 def test_unported_render_options_raise():
     sc, cam = t_cornell()
     scene = sc.finalize(device="cpu")
-    for opt in (dict(remat=True), dict(output_sh=True)):
+    for opt in (dict(output_sh=True),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
                         tile_w=8, tile_h=8, settings=PassSettings(**opt),
