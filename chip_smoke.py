@@ -39,18 +39,24 @@ Phases:
    traversal tests' generator scenes (at 2M rays brute 8/24/40 triangles,
    BVH 100/300/500, TLAS 6 and 64 instances of one mesh and a 12,600-row
    table of five meshes, one run with a ray mask; at 300,000 rays binned
-   clouds of 20,000 and 120,000 triangles, with the sort key), in both
-   modes, and on the inputs of all 12 launches of one frame of the
-   flagship and ``cornell_sphere`` and of one 960x540 tile of each
-   colonnade;
+   clouds of 20,000 and 120,000 triangles, with the sort key), on inputs
+   that stress exactness (``stress_cases``: a binned grid cloud whose
+   subtree boxes share faces under axis-aligned rays, so that the sid
+   tie-break decides, and its stack cut below the need; trace_tlas on
+   width-56 and width-88 tables with a ray mask and a short stack; rays
+   inside boxes, zero and NaN direction components, NaN origins, t_min >
+   0), in both modes, and on the inputs of all 12 launches of one frame of
+   the flagship and ``cornell_sphere`` and of one 960x540 tile of each
+   colonnade (the binned tile's sort keys too);
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
    terrain and floor);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
-   others; a colonnade frame is 4 tiles): Mray/s, frame ms and spread,
-   peak memory; and one more instanced colonnade line at grid 1x1;
+   others, and one binned sort key a ``trace_binned`` launch; a colonnade
+   frame is 4 tiles): Mray/s, frame ms and spread, peak memory; and one
+   more instanced colonnade line at grid 1x1;
 6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each Cornell scene, the
    bench loss differentiated w.r.t. the float material columns and
    ``env_col`` (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms
@@ -80,7 +86,8 @@ Phases:
    at the probe's size and a frame's beside its plain version and
    ``index_select``, and ``trace_tlas`` over the binned scene's ``wrows``
    on the binned tile's rays (the wide route that scene takes without
-   ``pallas_binned``), and prints one ``kernels`` JSON line, the card
+   ``pallas_binned``), and the binned tile's sort keys (kernel, plain,
+   bound), and prints one ``kernels`` JSON line (10 entries), the card
    line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
@@ -117,11 +124,17 @@ KERNELS = {
 GATHER_TABLE = 1024
 GATHER = dict(source="ray_tpu_torch/csrc/gather_table.cu",
               replaces="scripts/test_pallas_gather.py:31")
+# trace_binned's sort-key kernel: the first-subtree pre-pass of
+# trace_flat_binned (XLA in ray_tpu, beside its pallas_call)
+SORTKEY = dict(source="ray_tpu_torch/csrc/trace_binned.cu",
+               replaces="ray_tpu/ops/traverse_pallas.py:1255")
 # the binned scene: the largest colonnade whose subtree partition fits in
 # 512 slabs (S = 469)
 BINNED_COLS = 5
 # the binned generator clouds (tests/test_traverse_pallas.py:196-246)
 BINNED_CLOUDS = (20_000, 120_000)
+# rays of each exactness stress case (stress_cases)
+STRESS_RAYS = 100_000
 # the colonnade's instance layout (colonnade_scene): columns, terrain, floor
 COLONNADE_COLUMNS, COLONNADE_TERRAIN = 64, 16
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
@@ -136,7 +149,8 @@ OPS_PER_NODE_STEP = 2 * 13
 # origin (18 ops) and the direction (15) and takes 3 reciprocals
 OPS_PER_WIDE_NODE_STEP = 8 * 13
 OPS_PER_INST_ENTRY = 36
-# the binned walk tests one subtree box (13 ops) per box scanned
+# the binned walk tests one subtree box (13 ops) per subtree it walks:
+# what these inputs need, whatever finds the subtree
 OPS_PER_BOX_TEST = 13
 # every lane reads t_max, active (5 B) and writes t, u, v, prim, backface
 # (17 B); an active lane also reads ro, rd, t_min (28 B).  trace_tlas also
@@ -144,6 +158,14 @@ OPS_PER_BOX_TEST = 13
 BYTES_PER_LANE = 22
 BYTES_PER_ACTIVE_LANE = 28
 TLAS_EXTRA_BYTES_PER_LANE = 4
+# the sort key: every lane reads active and writes its key (5 B), an
+# active lane reads ro, rd, t_min, t_max (32 B); the boxes are read once
+SORTKEY_BYTES_PER_LANE = 5
+SORTKEY_BYTES_PER_ACTIVE_LANE = 32
+# zeroed ray counters a timed closure cycles through (trace_binned's
+# persistent warps take their rays from one; the wrapper zeroes a fresh
+# one a launch)
+COUNTER_POOL = 256
 
 
 def fail(msg: str) -> None:
@@ -289,6 +311,108 @@ def generator_case(kernel, n_tris, n_rays, seed, device):
     return ((t(pack_bvh_soa(bvh)["packed"]),
              t(v[idx[bvh.prim_indices]].reshape(n_tris, 9)))
             + rays + (max_leaf, bvh_depth(bvh) + 4))
+
+
+def stress_rays(n_rays, lo, hi, seed, device):
+    """Rays that stress exactness over the box [lo, hi]: a third axis-aligned
+    (+-x, +-y, +-z) from outside with the other two coordinates on the
+    half-integer lattice (entries tie on shared faces), a quarter starting
+    inside the box, a sixth with one zero direction component, 1% a NaN
+    direction component, 1% a NaN origin; t_min > 0 on 30%, a finite t_max
+    on 20%, every 11th lane inactive.  (ro, rd, t_min, t_max, active)."""
+    import numpy as np
+    import torch
+
+    r = np.random.RandomState(seed)
+    span = hi - lo
+    ro = (lo + r.rand(n_rays, 3) * span).astype(np.float32)
+    rd = r.normal(size=(n_rays, 3)).astype(np.float32)
+    kind = r.rand(n_rays)
+    axis_al = kind < 1 / 3
+    axis = r.randint(0, 3, n_rays)
+    sign = np.where(r.rand(n_rays) < 0.5, -1.0, 1.0).astype(np.float32)
+    lattice = (np.floor(lo) + r.randint(0, 2 * int(span) + 1, (n_rays, 3))
+               / 2.0).astype(np.float32)
+    ro[axis_al] = lattice[axis_al]
+    rd[axis_al] = 0.0
+    rows = np.nonzero(axis_al)[0]
+    ro[rows, axis[rows]] = np.where(sign[rows] > 0, lo - 2.0, hi + 2.0)
+    rd[rows, axis[rows]] = sign[rows]
+    zero = (kind >= 1 / 3) & (kind < 1 / 2)
+    rd[zero, axis[zero]] = 0.0
+    rd[~axis_al] /= np.linalg.norm(rd[~axis_al], axis=1, keepdims=True)
+    rd[(kind >= 0.98) & (kind < 0.99), 1] = np.nan
+    ro[kind >= 0.99, 0] = np.nan
+    t_min = np.where(r.rand(n_rays) < 0.3, r.rand(n_rays) * 3.0, 0.0)
+    t_max = np.where(r.rand(n_rays) < 0.8, 1e30, r.rand(n_rays) * span * 2)
+    active = np.ones(n_rays, bool)
+    active[::11] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (t(ro), t(rd), t(t_min.astype(np.float32)),
+            t(t_max.astype(np.float32)), t(active))
+
+
+def grid_cloud(n, fill, seed):
+    """Unit cubes (12 triangles each) on a random ``fill`` share of the
+    cells of an n^3 integer lattice: neighbouring cubes share faces, and so
+    do the subtree boxes of its partition.  (T, 3, 3) f32."""
+    import numpy as np
+
+    corners = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                        [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]],
+                       np.float32)
+    faces = np.array([(0, 1, 2), (0, 2, 3), (4, 6, 5), (4, 7, 6), (0, 4, 5),
+                      (0, 5, 1), (3, 2, 6), (3, 6, 7), (0, 3, 7), (0, 7, 4),
+                      (1, 5, 6), (1, 6, 2)])
+    cells = np.stack(np.meshgrid(*(np.arange(n),) * 3, indexing="ij"),
+                     -1).reshape(-1, 3).astype(np.float32)
+    cells = cells[np.random.RandomState(seed).rand(len(cells)) < fill]
+    return (cells[:, None, None, :] + corners[faces][None]).reshape(-1, 3, 3)
+
+
+def stress_cases(n_rays, device):
+    """{label: (kernel, args)} of the exactness stress inputs: a binned grid
+    cloud (ties in t_enter), its stack cut below the partition's need (the
+    overflow path), and trace_tlas on a width-56 two-level table (with a
+    ray mask) and a width-88 flatten table, all with ``stress_rays``."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.scene.binned import pack_binned_scene
+    from ray_tpu_torch.scene.bvh import build_bvh2, pack_tri_soa, tri_bounds
+    from ray_tpu_torch.utils.test_scenes import instanced_scene
+
+    n = 14
+    tris = grid_cloud(n, 0.35, 5)
+    v = tris.reshape(-1, 3)
+    idx = np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+    bvh = build_bvh2(*tri_bounds(v, idx), max_leaf=4)
+    tab = pack_binned_scene(bvh, pack_tri_soa(v, idx[bvh.prim_indices]))
+    binned = {k: torch.from_numpy(a).to(device) for k, a in tab.items()}
+    rays = stress_rays(n_rays, 0.0, float(n), 11, device)
+    shallow = dict(binned, stack_arr=binned["stack_arr"][:3])
+    cases = {
+        f"grid cloud {tris.shape[0]} tris": ("trace_binned",
+                                             (binned, *rays, 4)),
+        "grid cloud, stack 3": ("trace_binned", (shallow, *rays, 4)),
+    }
+    tl = instanced_scene(n_inst=64).finalize(device=device)
+    fl = instanced_scene(n_inst=6).finalize(device=device,
+                                            instancing="flatten")
+    rays = stress_rays(n_rays, -4.0, 4.0, 12, device)
+    R = n_rays
+    mask = torch.where(torch.arange(R, device=device) % 3 == 0, 1 << 5,
+                       0x7fffffff).to(torch.int32)
+    soa = tl.bvh_soa
+    cases["tlas width 56, ray mask"] = ("trace_tlas", (
+        soa["wrows_tlas"], int(soa["winst_base"]), *rays, mask, tl.max_leaf,
+        tl.stack_size))
+    cases["tlas width 56, stack 4"] = ("trace_tlas", (
+        soa["wrows_tlas"], int(soa["winst_base"]), *rays, None, tl.max_leaf,
+        4))
+    cases[f"wide width {fl.bvh_soa['wrows'].shape[1]}"] = ("trace_tlas", (
+        fl.bvh_soa["wrows"], 0, *rays, None, fl.max_leaf, fl.stack_size))
+    return cases
 
 
 def check_parity(kernel, args, modes, label, errs):
@@ -446,7 +570,9 @@ def launch_bound(kernel, args, any_hit):
         work = {}
         plain_fn(*args, any_hit=any_hit, work=work)
         tests, node_steps = work["tri_tests"], work["node_steps"]
-        box_tests = work["box_tests"]
+        # one subtree box a subtree walked (the plain walk's S-box scans
+        # are that design's cost, not the work)
+        box_tests = work["rounds"]
         ops = (OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
                + OPS_PER_BOX_TEST * box_tests)
         tables = binned_arrays(tables[0])[0]
@@ -481,6 +607,24 @@ def launch_bound(kernel, args, any_hit):
             "ops_ms": ops / PEAK_F32_FLOPS * 1e3}
 
 
+def counter_pool(device):
+    """A function giving the address of a zeroed int32 ray counter at each
+    call: one of ``COUNTER_POOL``, all zeroed again when they run out (a
+    timed closure makes at most 51 launches, so never while timing)."""
+    import torch
+
+    pool = torch.zeros(COUNTER_POOL, dtype=torch.int32, device=device)
+    state = {"next": 0}
+
+    def take(_alive=pool):
+        if state["next"] == COUNTER_POOL:
+            pool.zero_()
+            state["next"] = 0
+        state["next"] += 1
+        return pool.data_ptr() + 4 * (state["next"] - 1)
+    return take
+
+
 def raw_launch(kernel, args, any_hit):
     """A closure that launches the kernel's C entry point on captured
     inputs into fresh outputs, uncounted (timing only)."""
@@ -489,6 +633,7 @@ def raw_launch(kernel, args, any_hit):
     from ray_tpu_torch.ops import traverse
 
     tables, rays, extra = split_args(kernel, args)
+    counter = counter_pool(rays[0].device)
     if kernel == "trace_binned":
         rays = sorted_rays(tables[0], rays)
     ro, rd, t_min, t_max, active = rays
@@ -505,30 +650,85 @@ def raw_launch(kernel, args, any_hit):
     if kernel == "trace_tlas":
         (rows,), (mask, max_leaf, stack_size) = tables, extra
         fn = traverse._tlas_fn()
-        launch_args = (rows.data_ptr(), rows.shape[0], rows.shape[1],
-                       *ray_ptrs, None if mask is None else mask.data_ptr(),
-                       R, *out_ptrs, int(max_leaf), int(stack_size),
-                       int(any_hit), stream)
+        head = (rows.data_ptr(), rows.shape[0], rows.shape[1],
+                *ray_ptrs, None if mask is None else mask.data_ptr(),
+                R, *out_ptrs, int(max_leaf), int(stack_size), int(any_hit),
+                stream)
+        tail = None
     elif kernel == "trace_binned":
-        arrays, S = binned_arrays(tables[0])
+        kt = traverse._binned_kernel_tables(tables[0])
+        S = binned_arrays(tables[0])[1]
         fn = traverse._binned_fn()
-        launch_args = (*(a.data_ptr() for a in arrays), S, *ray_ptrs, R,
-                       *out_ptrs, *extra,
-                       tables[0]["stack_arr"].shape[0], int(any_hit), stream)
+        head = (*(a.data_ptr() for a in kt), S, *ray_ptrs, R, *out_ptrs,
+                *extra, tables[0]["stack_arr"].shape[0])
+        tail = (int(any_hit), stream)
+        tables = (tables, kt)
     else:
         fn = (traverse._brute_fn() if kernel == "trace_brute"
               else traverse._bvh_fn())
         ptrs = []
         for tab in tables:
             ptrs += [tab.data_ptr(), tab.shape[0]]
-        launch_args = (*ptrs, *ray_ptrs, R, *out_ptrs, *extra, int(any_hit),
-                       stream)
+        head = (*ptrs, *ray_ptrs, R, *out_ptrs, *extra, int(any_hit), stream)
+        tail = None
 
     def launch(_alive=(tables, rays, outs)):
         # the default argument keeps the tensors behind the pointers alive
+        launch_args = head if tail is None else (*head, counter(), *tail)
         if fn(*launch_args) != 0:
             fail(f"{kernel} launch failed while timing")
     return launch
+
+
+def raw_sortkey_launch(binned, rays):
+    """A closure that launches the sort-key kernel on captured rays (in the
+    order trace_binned gets them) into a fresh key, uncounted."""
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    tree = traverse._binned_kernel_tables(binned)[2]
+    S = binned_arrays(binned)[1]
+    ro, rd, t_min, t_max, active = rays
+    key = torch.empty(ro.shape[0], dtype=torch.int32, device=ro.device)
+    fn = traverse._binned_key_fn()
+    launch_args = (tree.data_ptr(), S, ro.data_ptr(), rd.data_ptr(),
+                   t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(),
+                   ro.shape[0], key.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+
+    def launch(_alive=(tree, rays, key)):
+        if fn(*launch_args) != 0:
+            fail("the sort-key launch failed while timing")
+    return launch
+
+
+def sortkey_timings(calls):
+    """The sort key of each captured trace_binned launch (the rays as the
+    wrapper gets them): kernel ms, its bound (bytes: ``SORTKEY_BYTES_*``
+    and the boxes once), and the plain version's ms on the first launch of
+    each mode."""
+    from ray_tpu_torch.ops import traverse
+
+    rows = []
+    timed_plain = set()
+    for _, args, any_hit in calls:
+        binned, rays = args[0], args[1:6]
+        n_active = int(rays[4].sum())
+        S = binned_arrays(binned)[1]
+        nbytes = (SORTKEY_BYTES_PER_LANE * rays[0].shape[0]
+                  + SORTKEY_BYTES_PER_ACTIVE_LANE * n_active + S * 6 * 4)
+        row = {"any_hit": bool(any_hit), "rays": rays[0].shape[0],
+               "active": n_active,
+               "ms": time_launches(raw_sortkey_launch(binned, rays), 50),
+               "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "plain_ms": None}
+        if any_hit not in timed_plain:
+            timed_plain.add(any_hit)
+            row["plain_ms"] = time_launches(
+                lambda: traverse.binned_sort_key_plain(
+                    binned["sub_lo"], binned["sub_hi"], *rays), 1)
+        rows.append(row)
+    return rows
 
 
 def kernel_timings(calls):
@@ -632,7 +832,7 @@ def spread(frame_s):
             f"{(max(frame_s) - min(frame_s)) / statistics.fmean(frame_s):.3f}")
 
 
-def check_sort_key(args, label):
+def check_sort_key(args, label, errs):
     """The binned sort-key kernel against its plain version: equal keys."""
     import torch
 
@@ -642,6 +842,8 @@ def check_sort_key(args, label):
     key = traverse.binned_sort_key(binned, *rays)
     plain = traverse.binned_sort_key_plain(binned["sub_lo"], binned["sub_hi"],
                                            *rays)
+    errs["trace_binned_sortkey"] = max(errs.get("trace_binned_sortkey", 0.0),
+                                       max_abs_err(key, plain))
     if not torch.equal(key, plain):
         fail(f"the binned sort key differs from its plain version on {label} "
              f"on {int((key != plain).sum())} rays")
@@ -1225,10 +1427,16 @@ def main() -> int:
         _, S = binned_arrays(case[0])
         print(f"  generator binned {n_tris} tris: {S} subtrees, stack "
               f"{case[0]['stack_arr'].shape[0]}")
-        check_sort_key(case, f"generator {n_tris} tris")
+        check_sort_key(case, f"generator {n_tris} tris", errs)
         check_parity("trace_binned", case, (False, True),
                      f"generator {n_tris} tris", errs)
         del case
+    # exactness under stress: ties, rays inside boxes, NaN and zero
+    # direction components, t_min > 0, stack overflow, both table widths
+    for label, (kernel, case) in stress_cases(STRESS_RAYS, device).items():
+        if kernel == "trace_binned":
+            check_sort_key(case, label, errs)
+        check_parity(kernel, case, (False, True), label, errs)
 
     phase("the scenes", t_start)
     # ---- the scenes; a warm-up frame (a colonnade tile) captures every
@@ -1279,6 +1487,8 @@ def main() -> int:
         if label == "colonnade" and not n_compact:
             fail(f"no {label} launch ran compacted")
         for i, (k, args, any_hit) in enumerate(calls):
+            if k == "trace_binned":
+                check_sort_key(args, f"{label} launch {i}", errs)
             check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
         scenes[label] = (scene, cam, kernel, calls, st, grid)
 
@@ -1307,6 +1517,15 @@ def main() -> int:
         for mode in ("closest", "anyhit"):
             name = f"{kernel}_{mode}"
             launches[name] = launches.get(name, 0) + counts[name]
+        if kernel == "trace_binned":
+            # one sort key a trace_binned launch (sort_rays)
+            n_key = counts.get("trace_binned_sortkey", 0)
+            if n_key != counts["trace_binned_closest"] + counts[
+                    "trace_binned_anyhit"]:
+                fail(f"{label}: {n_key} sort-key launches for "
+                     f"{counts['trace_binned_closest']} + "
+                     f"{counts['trace_binned_anyhit']} trace_binned launches")
+            launches["trace_binned_sortkey"] = n_key
     scene, cam = scenes["colonnade"][:2]
     # each tile issues the whole op sequence: the 2x2 frame pays host
     # dispatch four times; the 1x1 frame shows what that costs
@@ -1376,7 +1595,7 @@ def main() -> int:
             print(f"  {r['kernel']} {'anyhit ' if r['any_hit'] else 'closest'} "
                   f"active {r['active']:>8}/{r['rays']} node steps "
                   f"{r['node_steps']:>10} inst entries {r['inst_entries']:>8} "
-                  f"box tests {r['box_tests']:>11} tests {r['tests']:>10}: "
+                  f"subtrees walked {r['box_tests']:>9} tests {r['tests']:>10}: "
                   f"kernel {r['ms']:.4f} ms, plain {plain}, bound "
                   f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms "
                   f"(bytes {r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
@@ -1397,6 +1616,15 @@ def main() -> int:
               f"{statistics.fmean(w for w, _ in sel):.4f} ms, trace_binned "
               f"{statistics.fmean(b for _, b in sel):.4f} ms a launch (mean "
               f"of {len(sel)}) [{CARD}]")
+    key_rows = sortkey_timings(calls)
+    for r in key_rows:
+        plain = "-" if r["plain_ms"] is None else f"{r['plain_ms']:.3f} ms"
+        print(f"  trace_binned_sortkey for the {'anyhit ' if r['any_hit'] else 'closest'} "
+              f"launch, active {r['active']:>8}/{r['rays']}: kernel "
+              f"{r['ms']:.4f} ms, plain {plain}, bound {r['bytes_ms']:.4f} "
+              f"ms (bytes)")
+    print(f"binned tile sort key: {statistics.fmean(r['ms'] for r in key_rows):.4f} "
+          f"ms a launch (mean of {len(key_rows)}) [{CARD}]")
     rows = [r for label in scenes for r in scenes[label][-1]]
     kernels = []
     for kernel, info in KERNELS.items():
@@ -1419,6 +1647,16 @@ def main() -> int:
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "library_ms": None,
             })
+    kernels.append({
+        "name": "trace_binned_sortkey", "route": "cuda", **SORTKEY,
+        "launches": launches["trace_binned_sortkey"],
+        "max_abs_err": errs["trace_binned_sortkey"],
+        "ms": statistics.fmean(r["ms"] for r in key_rows),
+        "plain_ms": statistics.fmean(
+            r["plain_ms"] for r in key_rows if r["plain_ms"] is not None),
+        "bound_ms": statistics.fmean(r["bytes_ms"] for r in key_rows),
+        "bound_by": "bytes", "library_ms": None,
+    })
     g = gather_rows["frame 2,073,600 lanes"]
     kernels.append({
         "name": "gather_table", "route": "cuda", **GATHER,

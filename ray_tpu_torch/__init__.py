@@ -1,8 +1,9 @@
 """ray_tpu_torch — the PyTorch + CUDA port of ``ray_tpu``, for NVIDIA Hopper.
 
 The package mirrors ``ray_tpu``'s layout module for module and exports
-what ``ray_tpu`` exports (except ``load_scene`` / ``save_scene``), so that
-``import ray_tpu_torch as ray_tpu`` runs ``ray_tpu``'s quickstart.  It
+what ``ray_tpu`` exports with the same signatures (``load_scene`` /
+``save_scene`` raise: not ported yet), so that ``import ray_tpu_torch as
+ray_tpu`` runs ``ray_tpu``'s quickstart.  It
 imports torch, numpy and the standard library only — never JAX and never
 ``ray_tpu``.  Entry points run on the CUDA device unless the caller names
 another (``Scene.finalize(device="cpu")``, ``create_renderer(
@@ -20,6 +21,7 @@ from ray_tpu_torch.scene.lights import LightDesc  # noqa: E402
 from ray_tpu_torch.render.renderer import Renderer, RenderSettings, RegionContext  # noqa: E402
 from ray_tpu_torch.render.integrator import PassSettings  # noqa: E402
 from ray_tpu_torch.render.tonemap import ViewTransform  # noqa: E402
+from ray_tpu_torch.scene.scene_io import load_scene, save_scene  # noqa: E402
 from ray_tpu_torch.api import (  # noqa: E402
     DeviceInfo,
     ILog,
@@ -55,5 +57,7 @@ __all__ = [
     "match_device_names",
     "query_available_devices",
     "version",
+    "save_scene",
+    "load_scene",
     "__version__",
 ]

@@ -39,13 +39,22 @@ hit attributes from the scene tables.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import torch
 
 from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops import cuda_build
-from ray_tpu_torch.scene.binned import CF, CI, MAX_SUBTREES, SUB_ROWS
+from ray_tpu_torch.scene.binned import (
+    CF,
+    CI,
+    MAX_SUBTREES,
+    PICK_STACK,
+    SUB_ROWS,
+    SUB_SEGS,
+    subtree_tree,
+)
 from ray_tpu_torch.scene.bvh import (
     LEAF_COUNT_BITS,
     LEAF_COUNT_MASK,
@@ -663,6 +672,20 @@ def _bvh_fn():
     return fn
 
 
+def check_tlas_rows(rows) -> None:
+    """What the ``trace_tlas`` kernel needs of its table beyond the shape
+    :func:`trace_tlas` checks: it reads rows as 16-byte loads, so the width
+    must be a multiple of 4 floats and the base 16-byte aligned (the
+    default ``max_leaf`` of both modes gives widths 56 and 88; ``max_leaf``
+    6, 7, 9-11 and 13-15 give other widths).  Raises ``ValueError``."""
+    if rows.shape[1] % 4 != 0:
+        raise ValueError(f"trace_tlas reads 16-byte rows: width "
+                         f"{rows.shape[1]} is not a multiple of 4")
+    if rows.data_ptr() % 16 != 0:
+        raise ValueError("trace_tlas reads 16-byte rows: the table's base "
+                         "is not 16-byte aligned")
+
+
 def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
                max_leaf, stack_size, any_hit=False) -> HitInst:
     """Two-level trace over the unified table ``wrows_tlas``: (N, W) f32
@@ -671,7 +694,8 @@ def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
     rays as for :func:`trace_brute`, an optional (R,) i32 ``ray_mask``, the
     scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  CPU tensors run
     :func:`trace_tlas_plain`; CUDA tensors launch the kernel on the current
-    stream.  ``inst`` comes back rebased by ``winst_base`` (-1 on a miss)."""
+    stream, which also needs :func:`check_tlas_rows`.  ``inst`` comes back
+    rebased by ``winst_base`` (-1 on a miss)."""
     tables = (("rows", rows, tlas_width(max_leaf)),)
     if ray_mask is not None and ray_mask.device != ro.device:
         raise ValueError(f"ray_mask is on {ray_mask.device}, ro on {ro.device}")
@@ -691,6 +715,7 @@ def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
     if not 1 <= stack_size <= MAX_STACK_SIZE:
         raise ValueError(f"stack_size {stack_size} outside "
                          f"[1, {MAX_STACK_SIZE}]")
+    check_tlas_rows(rows)
     out = [torch.empty((R,), dtype=d, device=device)
            for d in (torch.float32, torch.int32, torch.float32, torch.float32,
                      torch.bool, torch.int32)]
@@ -924,9 +949,62 @@ def _binned_inputs(binned, ro, rd, t_min, t_max, active):
     return (slab_f, slab_i, sub_lo, sub_hi, S, stack_size), device, R
 
 
+def binned_rows(slab_f, slab_i):
+    """The row-major copy of the subtree slabs that the binned kernel reads
+    (one transpose and one copy each; the same bits as the slabs):
+
+    - ``node_rows`` (S·512, 16) f32, one 64-byte record a node entry: its
+      twelve child-box floats (lo0 xyz, hi0 xyz, lo1 xyz, hi1 xyz), its two
+      child codes as int bits, two zero words;
+    - ``tri_rows`` (S·512, 12) f32, one 48-byte record a triangle entry:
+      its nine vertex floats (p0 p1 p2), its global prim as int bits, two
+      zero words.
+
+    Entry ``idx`` of subtree ``s`` is row ``s·512 + idx`` of each."""
+    S = slab_i.shape[0] // CI
+    cols_f = slab_f.reshape(S, CF // SUB_SEGS, SUB_ROWS).transpose(1, 2)
+    cols_i = slab_i.reshape(S, CI // SUB_SEGS, SUB_ROWS).transpose(1, 2)
+    node = torch.zeros((S, SUB_ROWS, 16), dtype=torch.float32,
+                       device=slab_f.device)
+    node[:, :, 0:12] = cols_f[:, :, 0:12]
+    node.view(torch.int32)[:, :, 12:14] = cols_i[:, :, 0:2]
+    tri = torch.zeros((S, SUB_ROWS, 12), dtype=torch.float32,
+                      device=slab_f.device)
+    tri[:, :, 0:9] = cols_f[:, :, 12:21]
+    tri.view(torch.int32)[:, :, 9] = cols_i[:, :, 2]
+    return node.reshape(S * SUB_ROWS, 16), tri.reshape(S * SUB_ROWS, 12)
+
+
+# the binned kernel's own tables, built once per scene: id(slab_f) ->
+# (weak references to the four source tables, (node_rows, tri_rows, tree))
+_BINNED_KERNEL_TABLES: dict = {}
+
+
+def _binned_kernel_tables(binned):
+    """(node_rows, tri_rows, tree) of :func:`binned_rows` and
+    :func:`ray_tpu_torch.scene.binned.subtree_tree` on the tables' device,
+    built at the first launch on a scene's tables and kept while they
+    live.  Raises ``ValueError`` when the tree is deeper than the kernel's
+    search stack."""
+    src = tuple(binned[k] for k in ("slab_f", "slab_i", "sub_lo", "sub_hi"))
+    hit = _BINNED_KERNEL_TABLES.get(id(src[0]))
+    if hit is not None and all(r() is t for r, t in zip(hit[0], src)):
+        return hit[1]
+    slab_f, slab_i, sub_lo, sub_hi = (t.contiguous() for t in src)
+    tree, _ = subtree_tree(sub_lo.cpu().numpy(), sub_hi.cpu().numpy(),
+                           PICK_STACK)
+    tables = (*binned_rows(slab_f, slab_i),
+              torch.from_numpy(tree).to(slab_f.device))
+    _BINNED_KERNEL_TABLES[id(src[0])] = (tuple(map(weakref.ref, src)),
+                                         tables)
+    weakref.finalize(src[0], _BINNED_KERNEL_TABLES.pop, id(src[0]), None)
+    return tables
+
+
 def binned_sort_key(binned, ro, rd, t_min, t_max, active) -> torch.Tensor:
     """:func:`binned_sort_key_plain` on a CPU tensor; on a CUDA tensor the
-    ``trace_binned.cu`` key kernel (one thread per ray), counted under
+    ``trace_binned.cu`` key kernel (one thread per ray, the first subtree
+    found by a search of the subtree tree), counted under
     ``trace_binned_sortkey``."""
     (_, _, sub_lo, sub_hi, S, _), device, R = _binned_inputs(
         binned, ro, rd, t_min, t_max, active)
@@ -936,10 +1014,11 @@ def binned_sort_key(binned, ro, rd, t_min, t_max, active) -> torch.Tensor:
     key = torch.empty((R,), dtype=torch.int32, device=device)
     if R == 0:
         return key
+    tree = _binned_kernel_tables(binned)[2]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _binned_key_fn()(
-            sub_lo.data_ptr(), sub_hi.data_ptr(), S, ro.data_ptr(),
+            tree.data_ptr(), S, ro.data_ptr(),
             rd.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             active.data_ptr(), R, key.data_ptr(), stream)
     if err != 0:
@@ -959,9 +1038,10 @@ def trace_binned(binned, ro, rd, t_min, t_max, active, max_leaf,
     their first subtree (:func:`binned_sort_key`, a stable sort) and the
     hits scattered back, which changes no result.  CPU tensors run
     :func:`trace_binned_plain`; CUDA tensors launch the kernel on the
-    current stream."""
-    (slab_f, slab_i, sub_lo, sub_hi, S, stack_size), device, R = (
-        _binned_inputs(binned, ro, rd, t_min, t_max, active))
+    current stream, on the scene's row-major slab copy and subtree tree
+    (:func:`_binned_kernel_tables`, built at the first launch)."""
+    (*_, S, stack_size), device, R = _binned_inputs(binned, ro, rd, t_min,
+                                                    t_max, active)
     if device.type == "cuda" and not 1 <= max_leaf <= LEAF_COUNT_MASK:
         raise ValueError(f"max_leaf {max_leaf} outside [1, {LEAF_COUNT_MASK}]")
     perm = None
@@ -974,11 +1054,14 @@ def trace_binned(binned, ro, rd, t_min, t_max, active, max_leaf,
         out = trace_binned_plain(binned, ro, rd, t_min, t_max, active,
                                  max_leaf, any_hit)
     else:
+        node_rows, tri_rows, tree = _binned_kernel_tables(binned)
+        # the persistent warps' ray counter
+        counter = torch.zeros((1,), dtype=torch.int32, device=device)
         out = _launch("trace_binned", _binned_fn(), device, R,
-                      (slab_f.data_ptr(), slab_i.data_ptr(),
-                       sub_lo.data_ptr(), sub_hi.data_ptr(), S),
+                      (node_rows.data_ptr(), tri_rows.data_ptr(),
+                       tree.data_ptr(), S),
                       ro, rd, t_min, t_max, active, any_hit, int(max_leaf),
-                      stack_size)
+                      stack_size, counter.data_ptr())
     if perm is None:
         return out
     back = torch.empty_like(perm)
@@ -992,8 +1075,8 @@ def _binned_fn():
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, p, p, p, p, ctypes.c_int64,
-                       p, p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, i, p, p, p, p, p, ctypes.c_int64,
+                       p, p, p, p, p, i, i, p, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -1003,7 +1086,7 @@ def _binned_key_fn():
     fn = lib.binned_sort_key_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_int, p, p, p, p, p, ctypes.c_int64, p, p]
+        fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, ctypes.c_int64, p, p]
         fn.restype = ctypes.c_int
     return fn
 

@@ -102,6 +102,11 @@ class PassSettings:
     lighting_only: bool = False
     no_background: bool = False
     output_sh: bool = False
+    # ray_tpu's per-renderer opt-out of its Pallas kernels (XLA walks
+    # instead).  Accepted and inert here: the device picks the path — a
+    # CUDA tensor launches the hand-written kernels, a CPU tensor runs
+    # their plain versions — so there is nothing to opt out of.
+    force_xla: bool = False
     tex_filter: str = "stochastic"
     # count non-finite live-lane state per bounce → out["nonfinite"]
     nan_check: bool = False

@@ -96,7 +96,8 @@ class Renderer:
                    "sample_counts", "active_px")
 
     def __init__(self, settings: RenderSettings,
-                 pass_settings: PassSettings = PassSettings(), device=None):
+                 pass_settings: PassSettings = PassSettings(), *,
+                 device=None):
         self.settings = settings
         self.pass_settings = pass_settings
         # a tensor's device: CUDA carries its index, as a scene's does

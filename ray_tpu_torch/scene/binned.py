@@ -18,6 +18,11 @@ four 128-lane segments:
 Entry ``idx`` of column ``c`` of subtree ``s`` is
 ``slab.reshape(-1)[(s·CF + c·SUB_SEGS)·128 + idx]`` (CI for ``slab_i``).
 The tables equal ``ray_tpu``'s, so ``SceneFlat.from_numpy`` carries them.
+
+:func:`subtree_tree` derives, from ``sub_lo`` / ``sub_hi`` alone, the small
+tree over the subtree boxes that the binned kernel searches for each ray's
+next subtree (``ray_tpu_torch/csrc/trace_binned.cu``); it is no table of
+``ray_tpu``'s.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ CF = _ceil_to((12 + 9) * SUB_SEGS, 8)   # f32 rows: node bounds + tri verts
 CI = _ceil_to(3 * SUB_SEGS, 8)          # i32 rows: codes + tri id map
 # the most subtrees a binned scene may have (ray_tpu's _maybe_pack_binned)
 MAX_SUBTREES = 512
+# the most levels below the root of a subtree tree: the binned kernel's
+# search stack (csrc/trace_binned.cu kPickStack) holds one entry a level
+PICK_STACK = 16
 
 
 def pack_binned_scene(bvh, tri_soa, max_rows=SUB_ROWS):
@@ -104,3 +112,74 @@ def pack_binned_scene(bvh, tri_soa, max_rows=SUB_ROWS):
         "sub_hi": sub_hi,
         "stack_arr": np.zeros(int(part["depth"]) + 2, np.int8),
     }
+
+
+def _area(lo, hi):
+    """Surface area of boxes (..., 3); an empty extent counts as 0, a NaN
+    or infinite one as infinite."""
+    d = np.maximum(hi.astype(np.float64) - lo.astype(np.float64), 0.0)
+    sa = 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                + d[..., 2] * d[..., 0])
+    return np.where(np.isfinite(sa), sa, np.inf)
+
+
+def subtree_tree(sub_lo, sub_hi, max_depth=PICK_STACK):
+    """The binary tree over the S subtree boxes that the binned kernel
+    searches instead of scanning all S: node ``[a, b)`` holds the sids
+    ``a .. b-1`` (the partition's cut roots in depth-first order, so a range
+    is a run of neighbouring subtrees) and splits at the ``m`` that
+    minimises the surface-area cost ``area([a, m)) (m - a) + area([m, b))
+    (b - m)`` of its two halves' boxes, among the splits that keep every
+    leaf within ``max_depth`` levels of the root.
+
+    Returns ``(tree, depth)``: ``tree`` (2S-1, 8) f32 in depth-first
+    preorder — node ``k`` over ``[a, b)`` has its children at ``k+1``
+    (``[a, m)``) and ``k + 2(m-a)`` (``[m, b)``) — each row a box (lo xyz,
+    hi xyz), then ``m`` as int bits (0 for a leaf) and a zero pad word;
+    ``depth`` the edges from the root to the deepest leaf.  A leaf (one
+    sid) is that subtree's box, bit for bit; an inner node's box is the
+    componentwise ``min(min(lo, hi))`` / ``max(max(lo, hi))`` of its
+    members (NaN-ignoring, exact in float32), so every member's slab
+    interval lies inside the node's for any ray.  Raises ``ValueError`` when
+    ``max_depth`` levels cannot hold S leaves."""
+    sub_lo = np.asarray(sub_lo, np.float32).reshape(-1, 3)
+    sub_hi = np.asarray(sub_hi, np.float32).reshape(-1, 3)
+    S = sub_lo.shape[0]
+    if S < 1 or sub_hi.shape != sub_lo.shape:
+        raise ValueError(f"subtree boxes of shapes {sub_lo.shape} and "
+                         f"{sub_hi.shape}")
+    need = int(np.ceil(np.log2(S))) if S > 1 else 0
+    if need > max_depth:
+        raise ValueError(f"a tree over {S} subtree boxes is at least {need} "
+                         f"deep; the binned kernel's search stack holds "
+                         f"{max_depth}")
+    lo = np.fmin(sub_lo, sub_hi)
+    hi = np.fmax(sub_lo, sub_hi)
+    tree = np.zeros((2 * S - 1, 8), np.float32)
+    split = tree.view(np.int32)[:, 6]
+    depth = 0
+    todo = [(0, 0, S, 0)]
+    while todo:
+        k, a, b, d = todo.pop()
+        depth = max(depth, d)
+        if b - a == 1:
+            tree[k, 0:3] = sub_lo[a]
+            tree[k, 3:6] = sub_hi[a]
+            continue
+        tree[k, 0:3] = np.fmin.reduce(lo[a:b], axis=0)
+        tree[k, 3:6] = np.fmax.reduce(hi[a:b], axis=0)
+        # the boxes of [a, m) and [m, b) for every m in (a, b)
+        left = (np.fmin.accumulate(lo[a:b - 1]), np.fmax.accumulate(hi[a:b - 1]))
+        right = (np.fmin.accumulate(lo[b - 1:a:-1])[::-1],
+                 np.fmax.accumulate(hi[b - 1:a:-1])[::-1])
+        n_left = np.arange(1, b - a)
+        cost = _area(*left) * n_left + _area(*right) * (b - a - n_left)
+        # both halves must fit in the levels left below this node
+        room = 1 << (max_depth - d - 1)
+        fits = (n_left <= room) & (b - a - n_left <= room)
+        best = np.flatnonzero(fits & (cost == cost[fits].min()))
+        # among equal costs the split nearest the middle
+        m = a + int(best[np.argmin(np.abs(2 * n_left[best] - (b - a)))]) + 1
+        split[k] = m
+        todo += [(k + 1, a, m, d + 1), (k + 2 * (m - a), m, b, d + 1)]
+    return tree, depth

@@ -314,13 +314,32 @@ class Scene:
     def set_camera(self, cam: Camera):
         self.camera = cam
 
+    def set_physical_sky(
+        self,
+        params=None,
+        sun_direction=(0.3, 0.9, 0.2),
+        sun_color=(20.0, 20.0, 20.0),
+        env_res=(256, 128),
+        add_sun_light: bool = True,
+        sun_angle: float = 0.53,
+        full_sky: bool = False,
+        **sky_features,
+    ):
+        """``ray_tpu``'s physical sky: bakes the atmosphere into an
+        environment map and adds the sun as a directional light.  Not
+        ported yet (it needs env maps and directional lights first)."""
+        raise not_ported("the physical sky (Scene.set_physical_sky)",
+                         "Queue 1 item 23")
+
     # -- finalize ----------------------------------------------------------
-    def finalize(self, device=None, max_leaf: int | None = None,
+    def finalize(self, max_leaf: int | None = None,
                  light_tree_min_lights: int = 2,
                  instancing: str = "auto",
+                 fast_build: bool = False,
                  spatial_splits: bool = False,
-                 pallas_binned: bool = False) -> SceneFlat:
-        """Compile to a :class:`SceneFlat` on ``device`` (default: CUDA;
+                 pallas_binned: bool = False, *, device=None) -> SceneFlat:
+        """Compile to a :class:`SceneFlat` on ``device`` (keyword-only, after
+        ``ray_tpu``'s parameters in ``ray_tpu``'s order; default: CUDA;
         raises ``RuntimeError`` when there is none and no device is given).
 
         ``instancing``: 'flatten' pre-transforms every instance to world
@@ -330,7 +349,11 @@ class Scene:
         in ``ray_tpu``.  ``pallas_binned``: a flatten scene past 512 node or
         triangle rows also carries the subtree slabs that route its traces
         to the binned kernel (``ray_tpu``'s opt-in of the same name).
-        ``spatial_splits`` (SBVH) is not ported yet."""
+        ``fast_build`` (the HLBVH builder) and ``spatial_splits`` (SBVH)
+        are not ported yet."""
+        if fast_build:
+            raise not_ported("the HLBVH builder (fast_build=True)",
+                             "Queue 1 item 15")
         if spatial_splits:
             raise not_ported("the SBVH builder (spatial_splits=True)",
                              "Queue 1 item 18")

@@ -349,6 +349,68 @@ def test_trace_binned_kernel_bit_exact(n_tris, stack, any_hit):
             == before["trace_binned_sortkey"] + 1)
 
 
+def _bit_exact(k, p, label):
+    for f in k._fields:
+        a, b = getattr(k, f), getattr(p, f)
+        assert a.device == b.device and a.dtype == b.dtype, (label, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (label, f)
+
+
+@pytest.fixture(scope="module")
+def stress():
+    """chip_smoke.py's exactness stress inputs at 100,000 rays: a binned
+    grid cloud whose subtree boxes share faces, hit by axis-aligned rays
+    on the lattice (the sid tie-break decides), its stack cut to 3 (the
+    overflow path), and trace_tlas on width-56 (ray mask; stack 4) and
+    width-88 tables; every case with rays starting inside boxes, zero and
+    NaN direction components, NaN origins and t_min > 0."""
+    _need_cuda()
+    import chip_smoke
+
+    return chip_smoke.stress_cases(100_000, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("label", [
+    "grid cloud", "grid cloud, stack 3", "tlas width 56, ray mask",
+    "tlas width 56, stack 4", "wide width 88"])
+def test_kernels_bit_exact_under_stress(stress, label, any_hit):
+    from ray_tpu_torch.ops import cuda_build, traverse
+
+    (kernel, case), = [v for k, v in stress.items() if k.startswith(label)
+                       and (label != "grid cloud" or "stack" not in k)]
+    if kernel == "trace_binned":
+        key = traverse.binned_sort_key(*case[:6])
+        assert torch.equal(key, traverse.binned_sort_key_plain(
+            case[0]["sub_lo"], case[0]["sub_hi"], *case[1:6]))
+    name = f"{kernel}_{'anyhit' if any_hit else 'closest'}"
+    before = cuda_build.launch_counts[name]
+    k = getattr(traverse, kernel)(*case, any_hit=any_hit)
+    p = getattr(traverse, f"{kernel}_plain")(*case, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts[name] == before + 1
+    assert 0 < int((p.prim >= 0).sum()) < p.prim.shape[0]
+    _bit_exact(k, p, label)
+
+
+def test_trace_tlas_rejects_rows_it_cannot_read_as_float4():
+    _need_cuda()
+    from ray_tpu_torch.ops.traverse import tlas_width, trace_tlas
+
+    rows, base, ro, rd, tmin, tmax, act, _, ml, ss = _tlas_case(6, 64, 0)
+    rays = (ro, rd, tmin, tmax, act)
+    with pytest.raises(ValueError):   # width 66 (max_leaf 6)
+        trace_tlas(torch.zeros((rows.shape[0], tlas_width(6)),
+                               device="cuda"), base, *rays, None, 6, ss)
+    shifted = torch.zeros(rows.numel() + 1, device="cuda")[1:].view(
+        rows.shape)
+    shifted.copy_(rows)
+    with pytest.raises(ValueError):   # base not 16-byte aligned
+        trace_tlas(shifted, base, *rays, None, ml, ss)
+
+
 def test_trace_binned_rejects_bad_inputs():
     _need_cuda()
     from ray_tpu_torch.ops.traverse import trace_binned
