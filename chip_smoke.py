@@ -37,10 +37,16 @@ Phases:
    gather probe's ``gather_table`` on the probe's own inputs, on a table
    with NaNs and -0 and on 2,073,600 random lanes; the traces on the
    traversal tests' generator scenes (at 2M rays brute 8/24/40 triangles,
-   BVH 100/300/500, TLAS 6 and 64 instances of one mesh and a 12,600-row
+   BVH 100/300/500 and 512 in leaves of one (511 nodes, the largest
+   tables), TLAS 6 and 64 instances of one mesh and a 12,600-row
    table of five meshes, one run with a ray mask; at 300,000 rays binned
    clouds of 20,000 and 120,000 triangles, with the sort key), on inputs
-   that stress exactness (``stress_cases``: a binned grid cloud whose
+   that stress exactness (``stress_cases``: the triangle test's edge
+   cases for ``trace_brute`` and ``trace_bvh`` — det exactly 0 and
+   subnormal, U and V whose products round to -0, rays through vertices
+   and along edges, t exactly at t_min and t_max, t_min < 0, equal t, inf
+   and NaN components, a stack of 2, max_leaf 15, all lanes inactive —
+   ``edge_cases``; a binned grid cloud whose
    subtree boxes share faces under axis-aligned rays, so that the sid
    tie-break decides, and its stack cut below the need; trace_tlas on
    width-56 and width-88 tables with a ray mask and a short stack; rays
@@ -77,9 +83,10 @@ Phases:
    a 64x48 adaptive renderer on the card against the CPU; the README
    quickstart at 512x512, 16 samples;
 9. profiles one forward and one fwd+bwd flagship frame and one forward
-   frame of the instanced and of the binned colonnade with
-   ``torch.profiler``: device time, its share of the unprofiled frame, the
-   RNG's cost; op tables in ``chiprun_out/``;
+   960x540 tile (the top-right one) of the instanced and of the binned
+   colonnade with ``torch.profiler``: device time, its share of the
+   unprofiled frame (of a quarter of the 2x2 frame for a tile), the RNG's
+   cost; op tables in ``OUT_DIR``;
 10. times each kernel (CUDA events) at its frame's (a colonnade: its
    tile's) launch shapes beside its plain version (``trace_binned``'s on
    one launch of each mode: it takes seconds) and its bound, ``gather_table``
@@ -250,11 +257,12 @@ TLAS_CASES = {
 }
 
 
-def generator_case(kernel, n_tris, n_rays, seed, device):
+def generator_case(kernel, n_tris, n_rays, seed, device, max_leaf=None):
     """The traversal tests' random scene and rays (tests/test_traverse_pallas.py
     ``_scene`` / ``_rays``): the arguments of ``trace_brute`` (packed
     (T, 9) triangles) or of ``trace_bvh`` (a BVH2 with max_leaf 4 or 8 and
-    the scene's stack size, depth + 4); for ``trace_tlas`` ``n_tris`` is a
+    the scene's stack size, depth + 4; ``max_leaf`` overrides the leaf
+    size); for ``trace_tlas`` ``n_tris`` is a
     ``TLAS_CASES`` entry and the rays are tests/test_traverse_tlas_pallas.py's
     (origins in a cube around the instances, every 17th lane inactive); for
     ``trace_binned`` the slab tables of the BVH2 (max_leaf 4) and the rays
@@ -306,7 +314,8 @@ def generator_case(kernel, n_tris, n_rays, seed, device):
         bvh = build_bvh2(lo, hi, max_leaf=4)
         binned = pack_binned_scene(bvh, pack_tri_soa(v, idx[bvh.prim_indices]))
         return ({k: t(a) for k, a in binned.items()},) + rays + (4,)
-    max_leaf = 4 if n_tris <= 100 else 8
+    if max_leaf is None:
+        max_leaf = 4 if n_tris <= 100 else 8
     bvh = build_bvh2(lo, hi, max_leaf=max_leaf)
     return ((t(pack_bvh_soa(bvh)["packed"]),
              t(v[idx[bvh.prim_indices]].reshape(n_tris, 9)))
@@ -370,11 +379,170 @@ def grid_cloud(n, fill, seed):
     return (cells[:, None, None, :] + corners[faces][None]).reshape(-1, 3, 3)
 
 
+# the edge-case triangles (edge_tris): the huge one's legs and the tiny
+# one's size, as powers of two
+EDGE_HUGE = (62, 58)
+EDGE_TINY = -68
+
+
+def edge_tris(n_random, seed):
+    """(T, 9) f32 triangles for the Möller–Trumbore edge cases, and the
+    number of special ones leading the table: two degenerate ones (p1 = p0,
+    and p2 on the line of p0 p1: det is exactly 0), a huge one at the
+    origin (legs 2^62 and 2^58: det near 2^120, so a ray starting 2^-90
+    from its p0 has U, V whose products with 1 / det round to +-0), a tiny
+    one (2^-68: det subnormal, 1 / det = +-inf), a copy of the first random
+    triangle (equal t: the lower index must win) and that triangle wound
+    the other way; then ``n_random`` of the traversal tests' random
+    triangles, the first two of them sharing an edge."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    rnd = ((r.rand(n_random, 1, 3) - 0.5) * 8.0
+           + (r.rand(n_random, 3, 3) - 0.5) * 3.0)
+    rnd[1] = rnd[0][[2, 1, 0]]
+    rnd[1, 1] = 2 * rnd[0, 0] - rnd[0, 1]
+    hx, hy = 2.0 ** EDGE_HUGE[0], 2.0 ** EDGE_HUGE[1]
+    s = 2.0 ** EDGE_TINY
+    special = np.array([
+        [[1.0, 2.0, 0.5], [1.0, 2.0, 0.5], [2.0, -1.0, 0.0]],
+        [[-1.0, 0.0, 1.0], [1.0, 1.0, 1.0], [5.0, 3.0, 1.0]],
+        [[0.0, 0.0, 0.0], [hx, 0.0, 0.0], [0.0, hy, 0.0]],
+        [[0.0, 0.0, 0.0], [s, 0.0, s], [0.0, s, 0.5 * s]],
+        rnd[0],
+        rnd[0][[0, 2, 1]],
+    ])
+    tris = np.concatenate([special, rnd]).astype(np.float32)
+    return tris.reshape(-1, 9), len(special)
+
+
+def edge_rays(tris, special, n_rays, seed, device):
+    """Rays aimed at the triangles of ``edge_tris`` to meet the test's edge
+    cases.  Each lane picks a triangle (half the lanes one of the rows
+    ``special``: edge_tris's special triangles, in whatever order the
+    table holds them) and a point on it by barycentrics: a vertex, an edge
+    (u + v = 1 among them), the centre, just outside an edge, or anywhere.
+    It starts at that point, or 1 or 3 before it along a random direction
+    (a sixth axis-aligned, a sixth with a zero component), or 1 past it (t
+    = -1); a tenth of the lanes aimed at the huge triangle start 2^-90 from
+    its p0 instead.  Then t_min = t (the plain arithmetic's own t of the
+    aimed triangle) on 10% of the lanes, t_max = t on 10%, t_min < 0 on
+    15%, and t_min = -4 with t_max one step above t on 10%; 2% get an inf
+    and 2% a NaN direction component, 1% a NaN origin; every 13th lane is
+    inactive.  (ro, rd, t_min, t_max, active) on ``device``."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import traverse
+
+    r = np.random.RandomState(seed)
+    T = tris.shape[0]
+    p = tris.reshape(T, 3, 3).astype(np.float64)
+    special = np.asarray(special)
+    k = np.where(r.rand(n_rays) < 0.5,
+                 special[r.randint(0, len(special), n_rays)],
+                 r.randint(0, T, n_rays))
+    bary = np.array([[0, 0], [1, 0], [0, 1], [0.5, 0.5], [0.25, 0.75],
+                     [0.5, 0], [0, 0.5], [1 / 3, 1 / 3], [-1e-6, 0.5],
+                     [0.5, 0.5 + 1e-6]], np.float64)
+    pick = r.randint(0, len(bary) + 2, n_rays)
+    b = np.empty((n_rays, 2))
+    known = pick < len(bary)
+    b[known] = bary[pick[known]]
+    anywhere = pick == len(bary)
+    b[anywhere] = r.uniform(-0.2, 1.2, (int(anywhere.sum()), 2))
+    edge = pick == len(bary) + 1
+    b[edge, 0] = r.rand(int(edge.sum()))
+    b[edge, 1] = 1.0 - b[edge, 0]
+    p0 = p[k, 0]
+    target = p0 + b[:, :1] * (p[k, 1] - p0) + b[:, 1:] * (p[k, 2] - p0)
+    d = r.normal(size=(n_rays, 3))
+    kind = r.rand(n_rays)
+    axis = r.randint(0, 3, n_rays)
+    al = kind < 1 / 6
+    d[al] = 0.0
+    d[al, axis[al]] = np.where(r.rand(int(al.sum())) < 0.5, -1.0, 1.0)
+    zero = (kind >= 1 / 6) & (kind < 1 / 3)
+    d[zero, axis[zero]] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = np.choose(r.randint(0, 4, n_rays), [0.0, 1.0, 3.0, -1.0])
+    o = target - dist[:, None] * d
+    near_p0 = (k == special[2]) & (r.rand(n_rays) < 0.1)
+    o[near_p0] = (r.choice([-1.0, 1.0], (int(near_p0.sum()), 3))
+                  * 2.0 ** -90 * r.rand(int(near_p0.sum()), 3))
+    ro = torch.from_numpy(o.astype(np.float32))
+    rd = torch.from_numpy(d.astype(np.float32))
+    # the plain arithmetic's t of the aimed triangle
+    t_tris = torch.from_numpy(tris)[torch.from_numpy(k)]
+    inf = torch.full((n_rays,), float("inf"))
+    _, t_aim, _, _, _ = traverse._tri_c(*ro.unbind(1), *rd.unbind(1), t_tris,
+                                        torch.zeros(n_rays), inf)
+    t_min = torch.zeros(n_rays)
+    t_max = torch.full((n_rays,), 1e30)
+    u = torch.from_numpy(r.rand(n_rays))
+    at_min, at_max = u < 0.1, (u >= 0.1) & (u < 0.2)
+    neg, above = (u >= 0.2) & (u < 0.35), (u >= 0.35) & (u < 0.45)
+    t_min[at_min] = t_aim[at_min]
+    t_max[at_max] = t_aim[at_max]
+    t_min[neg] = -torch.from_numpy(r.rand(n_rays).astype(np.float32))[neg]
+    # t_max one step above t (below 0 for the rays that start past it)
+    t_min[above] = -4.0
+    t_max[above] = torch.nextafter(t_aim[above],
+                                   torch.tensor(float("inf")))
+    odd = torch.from_numpy(r.rand(n_rays))
+    rd[odd < 0.02, 0] = float("inf")
+    rd[(odd >= 0.02) & (odd < 0.04), 1] = float("nan")
+    ro[(odd >= 0.04) & (odd < 0.05), 2] = float("nan")
+    active = torch.ones(n_rays, dtype=torch.bool)
+    active[::13] = False
+    return tuple(a.contiguous().to(device)
+                 for a in (ro, rd, t_min, t_max, active))
+
+
+def edge_cases(n_rays, device):
+    """{label: (kernel, args)} of the triangle test's edge cases
+    (``edge_tris`` / ``edge_rays``): ``trace_brute`` on the 6 special
+    triangles and 26 random ones, ``trace_bvh`` on the 6 and 196 random
+    ones in a BVH2 of max_leaf 15, with the scene's stack and with a stack
+    of 2 (overflow), and an all-inactive launch of each."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.scene.bvh import (
+        build_bvh2, bvh_depth, pack_bvh_soa, tri_bounds)
+
+    tris, n_special = edge_tris(26, 3)
+    rays = edge_rays(tris, np.arange(n_special), n_rays, 4, device)
+    off = rays[:4] + (torch.zeros_like(rays[4]),)
+    t_dev = torch.from_numpy(tris).to(device)
+    cases = {"brute edge triangles": ("trace_brute", (t_dev, *rays)),
+             "brute all inactive": ("trace_brute", (t_dev, *off))}
+    big, n_special = edge_tris(196, 3)
+    v = big.reshape(-1, 3)
+    idx = np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+    bvh = build_bvh2(*tri_bounds(v, idx), max_leaf=15)
+    leaf = np.ascontiguousarray(v[idx[bvh.prim_indices]].reshape(-1, 9))
+    nodes = torch.from_numpy(pack_bvh_soa(bvh)["packed"]).to(device)
+    # the special triangles' rows in leaf order
+    special = np.argsort(bvh.prim_indices)[:n_special]
+    rays = edge_rays(leaf, special, n_rays, 5, device)
+    off = rays[:4] + (torch.zeros_like(rays[4]),)
+    leaf = torch.from_numpy(leaf).to(device)
+    stack = bvh_depth(bvh) + 4
+    cases["bvh edge triangles, max_leaf 15"] = ("trace_bvh", (
+        nodes, leaf, *rays, 15, stack))
+    cases["bvh edge triangles, stack 2"] = ("trace_bvh", (
+        nodes, leaf, *rays, 15, 2))
+    cases["bvh all inactive"] = ("trace_bvh", (nodes, leaf, *off, 15, stack))
+    return cases
+
+
 def stress_cases(n_rays, device):
-    """{label: (kernel, args)} of the exactness stress inputs: a binned grid
-    cloud (ties in t_enter), its stack cut below the partition's need (the
-    overflow path), and trace_tlas on a width-56 two-level table (with a
-    ray mask) and a width-88 flatten table, all with ``stress_rays``."""
+    """{label: (kernel, args)} of the exactness stress inputs: the triangle
+    test's edge cases (``edge_cases``), a binned grid cloud (ties in
+    t_enter), its stack cut below the partition's need (the overflow
+    path), and trace_tlas on a width-56 two-level table (with a ray mask)
+    and a width-88 flatten table, all with ``stress_rays``."""
     import numpy as np
     import torch
 
@@ -391,11 +559,10 @@ def stress_cases(n_rays, device):
     binned = {k: torch.from_numpy(a).to(device) for k, a in tab.items()}
     rays = stress_rays(n_rays, 0.0, float(n), 11, device)
     shallow = dict(binned, stack_arr=binned["stack_arr"][:3])
-    cases = {
-        f"grid cloud {tris.shape[0]} tris": ("trace_binned",
-                                             (binned, *rays, 4)),
-        "grid cloud, stack 3": ("trace_binned", (shallow, *rays, 4)),
-    }
+    cases = edge_cases(n_rays, device)
+    cases[f"grid cloud {tris.shape[0]} tris"] = ("trace_binned",
+                                                 (binned, *rays, 4))
+    cases["grid cloud, stack 3"] = ("trace_binned", (shallow, *rays, 4))
     tl = instanced_scene(n_inst=64).finalize(device=device)
     fl = instanced_scene(n_inst=6).finalize(device=device,
                                             instancing="flatten")
@@ -625,9 +792,27 @@ def counter_pool(device):
     return take
 
 
-def raw_launch(kernel, args, any_hit):
-    """A closure that launches the kernel's C entry point on captured
-    inputs into fresh outputs, uncounted (timing only)."""
+def kernel_arrays(kernel, tables):
+    """The tensors a kernel's C entry point reads for its captured tables:
+    trace_brute's and trace_bvh's cached rows (``tri_rows``,
+    ``node_rows``), trace_binned's row-major slabs and subtree tree,
+    trace_tlas's rows as they are."""
+    from ray_tpu_torch.ops import traverse
+
+    if kernel == "trace_brute":
+        return traverse._brute_kernel_tables(*tables)
+    if kernel == "trace_bvh":
+        return traverse._bvh_kernel_tables(*tables)
+    if kernel == "trace_binned":
+        return traverse._binned_kernel_tables(tables[0])
+    return tables
+
+
+def raw_launch(kernel, args, any_hit, fn=None, arrays=None):
+    """(closure, outputs): the closure launches the kernel's C entry point
+    on captured inputs into ``outputs``, uncounted (timing only).  ``fn``
+    (default: this tree's entry point) takes the arguments this tree's
+    does, on ``arrays`` (default: ``kernel_arrays``)."""
     import torch
 
     from ray_tpu_torch.ops import traverse
@@ -636,6 +821,12 @@ def raw_launch(kernel, args, any_hit):
     counter = counter_pool(rays[0].device)
     if kernel == "trace_binned":
         rays = sorted_rays(tables[0], rays)
+    if arrays is None:
+        arrays = kernel_arrays(kernel, tables)
+    if fn is None:
+        fn = {"trace_brute": traverse._brute_fn, "trace_bvh": traverse._bvh_fn,
+              "trace_tlas": traverse._tlas_fn,
+              "trace_binned": traverse._binned_fn}[kernel]()
     ro, rd, t_min, t_max, active = rays
     R = ro.shape[0]
     dtypes = [torch.float32, torch.int32, torch.float32, torch.float32,
@@ -647,37 +838,30 @@ def raw_launch(kernel, args, any_hit):
     stream = torch.cuda.current_stream().cuda_stream
     ray_ptrs = [ro.data_ptr(), rd.data_ptr(), t_min.data_ptr(),
                 t_max.data_ptr(), active.data_ptr()]
+    tail = None
     if kernel == "trace_tlas":
-        (rows,), (mask, max_leaf, stack_size) = tables, extra
-        fn = traverse._tlas_fn()
+        (rows,), (mask, max_leaf, stack_size) = arrays, extra
         head = (rows.data_ptr(), rows.shape[0], rows.shape[1],
                 *ray_ptrs, None if mask is None else mask.data_ptr(),
                 R, *out_ptrs, int(max_leaf), int(stack_size), int(any_hit),
                 stream)
-        tail = None
     elif kernel == "trace_binned":
-        kt = traverse._binned_kernel_tables(tables[0])
         S = binned_arrays(tables[0])[1]
-        fn = traverse._binned_fn()
-        head = (*(a.data_ptr() for a in kt), S, *ray_ptrs, R, *out_ptrs,
+        head = (*(a.data_ptr() for a in arrays), S, *ray_ptrs, R, *out_ptrs,
                 *extra, tables[0]["stack_arr"].shape[0])
         tail = (int(any_hit), stream)
-        tables = (tables, kt)
     else:
-        fn = (traverse._brute_fn() if kernel == "trace_brute"
-              else traverse._bvh_fn())
         ptrs = []
-        for tab in tables:
+        for tab in arrays:
             ptrs += [tab.data_ptr(), tab.shape[0]]
         head = (*ptrs, *ray_ptrs, R, *out_ptrs, *extra, int(any_hit), stream)
-        tail = None
 
-    def launch(_alive=(tables, rays, outs)):
+    def launch(_alive=(tables, arrays, rays, outs)):
         # the default argument keeps the tensors behind the pointers alive
         launch_args = head if tail is None else (*head, counter(), *tail)
         if fn(*launch_args) != 0:
             fail(f"{kernel} launch failed while timing")
-    return launch
+    return launch, outs
 
 
 def raw_sortkey_launch(binned, rays):
@@ -745,7 +929,7 @@ def kernel_timings(calls):
     for kernel, args, any_hit in calls:
         plain_fn = getattr(traverse, f"{kernel}_plain")
         row = launch_bound(kernel, args, any_hit)
-        row["ms"] = time_launches(raw_launch(kernel, args, any_hit), 50)
+        row["ms"] = time_launches(raw_launch(kernel, args, any_hit)[0], 50)
         row["plain_ms"] = None
         if kernel != "trace_binned":
             row["plain_ms"] = time_launches(
@@ -784,7 +968,8 @@ def wide_route_timings(scene, calls):
         if n_diff > 1e-3 * differ.numel():
             fail(f"the wide route and trace_binned disagree on {n_diff} of "
                  f"{differ.numel()} lanes of the binned tile")
-        out.append((time_launches(raw_launch("trace_tlas", wide, any_hit), 50),
+        out.append((time_launches(raw_launch("trace_tlas", wide, any_hit)[0],
+                                  50),
                     n_diff, int((w.prim != b.prim).sum())))
     return out
 
@@ -1105,9 +1290,10 @@ def colonnade_coverage(scene, cam, x0, y0, tw, th):
 
 
 def profile_frames(cases):
-    """Each (label, unprofiled frame ms, run) under torch.profiler: the
-    device's kernel time and its share of the unprofiled frame, and the op
-    table in ``chiprun_out/``."""
+    """Each (label, unprofiled ms, run) under torch.profiler: the device's
+    kernel time and its share of the unprofiled run (a frame, or a tile
+    against a quarter of its 2x2 frame), and the op table in
+    ``OUT_DIR``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1128,9 +1314,9 @@ def profile_frames(cases):
         with open(path, "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=40))
-        print(f"profile {label} frame: {len(kernels)} kernels, "
+        print(f"profile {label}: {len(kernels)} kernels, "
               f"{kern_ms:.1f} ms device time ({kern_ms / ref_ms:.3f} of the "
-              f"{ref_ms:.1f} ms unprofiled frame); trace kernels "
+              f"{ref_ms:.1f} ms unprofiled run); trace kernels "
               f"{trace_ms:.2f} ms; table in {path} [{CARD}]")
 
 
@@ -1407,6 +1593,12 @@ def main() -> int:
             check_parity(kernel, case, (False, True),
                          f"generator {n_tris} tris", errs)
             del case
+    # the largest tables trace_bvh takes: 512 triangles in leaves of one,
+    # 511 node rows
+    case = generator_case("trace_bvh", 512, 2_000_000, 1512, device, 1)
+    check_parity("trace_bvh", case, (False, True),
+                 f"generator 512 tris, {case[0].shape[0]} nodes", errs)
+    del case
     for label, spec in TLAS_CASES.items():
         case = generator_case("trace_tlas", spec, 2_000_000, 7, device)
         print(f"  generator {label}: wrows_tlas {tuple(case[0].shape)}, stack "
@@ -1566,19 +1758,22 @@ def main() -> int:
     phase("profiles", t_start)
     flag = scenes["flagship"]
 
-    def colonnade_frame(label):
+    def colonnade_tile(label):
+        # one 960x540 tile, the top-right one, against a quarter of the
+        # unprofiled 2x2 frame: a profiled 2x2 frame cost ~2 minutes of the
+        # script; the flattened one's wide route is the instanced one's walk
         scene, cam = scenes[label][:2]
-        return (f"forward {label}", frame_ms[label],
-                lambda: render_frame(scene, cam, settings_big, 99, GRID))
+        tw, th = WIDTH // GRID[0], HEIGHT // GRID[1]
+        return (f"forward {label} tile {tw}x{th}", frame_ms[label] / 4,
+                lambda: render(scene, cam, settings_big, 99, WIDTH - tw, 0,
+                               tw, th))
 
     profile_frames((
         ("forward flagship", frame_ms["flagship"],
          lambda: render_frame(flag[0], flag[1], settings, 99, (1, 1))),
         ("fwd+bwd flagship", bwd_ms["flagship"],
          lambda: fwd_bwd(flag[0], flag[1], settings, 99)),
-        # (a profiled colonnade frame costs ~2 minutes of the script; the
-        # flattened one's wide route is the instanced one's walk)
-        *(colonnade_frame(label) for label in
+        *(colonnade_tile(label) for label in
           ("colonnade", "colonnade binned")),
     ))
     rng_cost(settings)

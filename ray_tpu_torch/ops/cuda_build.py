@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
 Every kernel is one ``ray_tpu_torch/csrc/<name>.cu`` file with a plain C
-entry point.  At its first :func:`load` (or in :func:`build`, which starts
-one ``nvcc`` per source at once) it is compiled with ``nvcc`` for
-``sm_90a`` into ``build/ray_tpu_torch/lib<name>-<hash>.so`` at the
-repository root and loaded with ``ctypes``; the file name carries a hash of
-the source and the flags, so an edited source is rebuilt.  Nothing is
-compiled or loaded when this module is imported.
+entry point (and the ``csrc/*.cuh`` headers it includes).  At its first
+:func:`load` (or in :func:`build`, which starts one ``nvcc`` per source at
+once) it is compiled with ``nvcc`` for ``sm_90a`` into
+``build/ray_tpu_torch/lib<name>-<hash>.so`` at the repository root and
+loaded with ``ctypes``; the file name carries a hash of the source, of
+every ``csrc/*.cuh`` header and of the flags, so an edited source or
+header is rebuilt.  Nothing is compiled or loaded when this module is
+imported.
 
 Flags: IEEE float32 everywhere (``-fmad=false -prec-div=true
 -prec-sqrt=true``, never ``--use_fast_math``) — what makes each kernel
@@ -55,10 +57,18 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def source_hash(csrc: pathlib.Path, name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every header in ``csrc`` and the flags:
+    an edited source or header gives a new library name."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{source_hash(CSRC, name)}.so"
 
 
 def build(names) -> None:

@@ -607,7 +607,8 @@ def trace_brute(tris, ro, rd, t_min, t_max, active, any_hit=False) -> Hit:
     """Brute-force trace: (T, 9) f32 packed triangles, (R, 3) f32 ``ro`` /
     ``rd``, (R,) f32 ``t_min`` / ``t_max``, (R,) bool ``active``, all
     contiguous on one device.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel on the current stream."""
+    tensors launch the kernel on the current stream, on the triangles'
+    cached :func:`tri_rows` (built at the first launch on them)."""
     device, R, rows = _cuda_inputs("trace_brute", (("tris", tris, 9),),
                                    ro, rd, t_min, t_max, active)
     if device.type == "cpu":
@@ -616,8 +617,9 @@ def trace_brute(tris, ro, rd, t_min, t_max, active, any_hit=False) -> Hit:
     if T > BRUTE_MAX_TRIS:
         raise ValueError(f"trace_brute takes at most {BRUTE_MAX_TRIS} "
                          f"triangles, got {T}")
+    (trows,) = _brute_kernel_tables(tris)
     return _launch("trace_brute", _brute_fn(), device, R,
-                   (tris.data_ptr(), T), ro, rd, t_min, t_max, active,
+                   (trows.data_ptr(), T), ro, rd, t_min, t_max, active,
                    any_hit)
 
 
@@ -627,7 +629,8 @@ def trace_bvh(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
     triangles (N, T ≤ 512), the rays as for :func:`trace_brute`, the
     scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  CPU tensors run
     :func:`trace_bvh_plain`; CUDA tensors launch the kernel on the current
-    stream."""
+    stream, on the tables' cached :func:`node_rows` and :func:`tri_rows`
+    (built at the first launch on them)."""
     device, R, rows = _cuda_inputs(
         "trace_bvh", (("nodes", nodes, 14), ("tris", tris, 9)),
         ro, rd, t_min, t_max, active)
@@ -643,10 +646,109 @@ def trace_bvh(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
     if not 1 <= stack_size <= MAX_STACK_SIZE:
         raise ValueError(f"stack_size {stack_size} outside "
                          f"[1, {MAX_STACK_SIZE}]")
+    nrows, trows = _bvh_kernel_tables(nodes, tris)
     return _launch("trace_bvh", _bvh_fn(), device, R,
-                   (nodes.data_ptr(), N, tris.data_ptr(), T),
+                   (nrows.data_ptr(), N, trows.data_ptr(), T),
                    ro, rd, t_min, t_max, active, any_hit,
                    int(max_leaf), int(stack_size))
+
+
+def tri_rows(tris):
+    """The (T, 12) f32 triangle rows the brute and BVH kernels read as
+    three 16-byte loads: p0, e1 = p1 - p0, e2 = p2 - p0 (the plain
+    versions' own float32 subtractions, so the same bits) and three zero
+    words, from the (T, 9) packed rows p0 p1 p2."""
+    rows = torch.zeros((tris.shape[0], 12), dtype=torch.float32,
+                       device=tris.device)
+    rows[:, 0:3] = tris[:, 0:3]
+    rows[:, 3:6] = tris[:, 3:6] - tris[:, 0:3]
+    rows[:, 6:9] = tris[:, 6:9] - tris[:, 0:3]
+    return rows
+
+
+def node_rows(nodes):
+    """The (N, 16) f32 node rows the BVH kernel reads as four 16-byte
+    loads: the (N, 14) packed rows (lo0 hi0 lo1 hi1, the child codes as int
+    bits) and two zero words."""
+    rows = torch.zeros((nodes.shape[0], 16), dtype=torch.float32,
+                       device=nodes.device)
+    rows[:, 0:14] = nodes
+    return rows
+
+
+# the kernels' own copies of their tables, built once per source table:
+# (kernel, id(first source)) -> (weak references to the sources, their
+# versions, the copies)
+_KERNEL_TABLES: dict = {}
+
+
+def _kernel_tables(kernel, src, build):
+    """``build(*src)``, made at the first launch on the tables ``src`` and
+    kept while they live and are not modified in place."""
+    key = (kernel, id(src[0]))
+    versions = tuple(t._version for t in src)
+    hit = _KERNEL_TABLES.get(key)
+    if (hit is not None and all(r() is t for r, t in zip(hit[0], src))
+            and hit[1] == versions):
+        return hit[2]
+    tables = build(*src)
+    _KERNEL_TABLES[key] = (tuple(map(weakref.ref, src)), versions, tables)
+    weakref.finalize(src[0], _KERNEL_TABLES.pop, key, None)
+    return tables
+
+
+def _brute_kernel_tables(tris):
+    """(tri_rows,) of the brute kernel, cached per triangle table."""
+    return _kernel_tables("trace_brute", (tris,),
+                          lambda t: (tri_rows(t.contiguous()),))
+
+
+def _bvh_kernel_tables(nodes, tris):
+    """(node_rows, tri_rows) of the BVH kernel, cached per scene."""
+    return _kernel_tables(
+        "trace_bvh", (nodes, tris),
+        lambda n, t: (node_rows(n.contiguous()), tri_rows(t.contiguous())))
+
+
+def _flip_sign(x, s):
+    """x with its sign flipped where s's sign bit is set."""
+    bits = x.view(torch.int32) ^ (s.view(torch.int32) & -0x80000000)
+    return bits.view(torch.float32)
+
+
+# tri_test.cuh's pre-test constants
+PRETEST_TINY = 2.0 ** -60
+PRETEST_SLACK = 1.0 + 2.0 ** -10
+
+
+def tri_pretest_plain(rows, ro, rd, t_min, upper):
+    """The divide-free pre-test of the brute and BVH kernels
+    (``csrc/tri_test.cuh``, whose comment gives the argument), lane by
+    lane: (R, 12) :func:`tri_rows`, (R, 3) ``ro`` / ``rd``, (R,) ``t_min``
+    and ``upper`` (t_best, or t_max for any hit).  Returns (R,) bool: False
+    where a rule rejects the pair, which must only happen where the full
+    test (``trace_brute_plain``'s) fails.  Used by no path: the kernels run
+    it, the tests hold it against the full test."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = rows[:, 0:9].unbind(1)
+    dx, dy, dz = rd.unbind(1)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    tvx, tvy, tvz = ro[:, 0] - p0x, ro[:, 1] - p0y, ro[:, 2] - p0z
+    U = tvx * pvx + tvy * pvy + tvz * pvz
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    V = dx * qvx + dy * qvy + dz * qvz
+    T = e2x * qvx + e2y * qvy + e2z * qvz
+    a = torch.abs(det)
+    tiny = a * PRETEST_TINY
+    Us, Vs, Ts = (_flip_sign(x, det) for x in (U, V, T))
+    far = torch.fmax(upper * a * PRETEST_SLACK, torch.zeros_like(a))
+    reject = ((Us < -tiny) | (Vs < -tiny) | (Us + Vs > a * PRETEST_SLACK)
+              | ((t_min >= 0.0) & (Ts < -tiny)) | (Ts > far))
+    return ~reject
 
 
 def _brute_fn():
@@ -975,30 +1077,21 @@ def binned_rows(slab_f, slab_i):
     return node.reshape(S * SUB_ROWS, 16), tri.reshape(S * SUB_ROWS, 12)
 
 
-# the binned kernel's own tables, built once per scene: id(slab_f) ->
-# (weak references to the four source tables, (node_rows, tri_rows, tree))
-_BINNED_KERNEL_TABLES: dict = {}
-
-
 def _binned_kernel_tables(binned):
     """(node_rows, tri_rows, tree) of :func:`binned_rows` and
     :func:`ray_tpu_torch.scene.binned.subtree_tree` on the tables' device,
     built at the first launch on a scene's tables and kept while they
-    live.  Raises ``ValueError`` when the tree is deeper than the kernel's
-    search stack."""
-    src = tuple(binned[k] for k in ("slab_f", "slab_i", "sub_lo", "sub_hi"))
-    hit = _BINNED_KERNEL_TABLES.get(id(src[0]))
-    if hit is not None and all(r() is t for r, t in zip(hit[0], src)):
-        return hit[1]
-    slab_f, slab_i, sub_lo, sub_hi = (t.contiguous() for t in src)
-    tree, _ = subtree_tree(sub_lo.cpu().numpy(), sub_hi.cpu().numpy(),
-                           PICK_STACK)
-    tables = (*binned_rows(slab_f, slab_i),
-              torch.from_numpy(tree).to(slab_f.device))
-    _BINNED_KERNEL_TABLES[id(src[0])] = (tuple(map(weakref.ref, src)),
-                                         tables)
-    weakref.finalize(src[0], _BINNED_KERNEL_TABLES.pop, id(src[0]), None)
-    return tables
+    live (:func:`_kernel_tables`).  Raises ``ValueError`` when the tree is
+    deeper than the kernel's search stack."""
+    def build(slab_f, slab_i, sub_lo, sub_hi):
+        tree, _ = subtree_tree(sub_lo.cpu().numpy(), sub_hi.cpu().numpy(),
+                               PICK_STACK)
+        return (*binned_rows(slab_f.contiguous(), slab_i.contiguous()),
+                torch.from_numpy(tree).to(slab_f.device))
+    return _kernel_tables(
+        "trace_binned",
+        tuple(binned[k] for k in ("slab_f", "slab_i", "sub_lo", "sub_hi")),
+        build)
 
 
 def binned_sort_key(binned, ro, rd, t_min, t_max, active) -> torch.Tensor:

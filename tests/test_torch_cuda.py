@@ -120,6 +120,7 @@ def _bvh_case(n_tris, n_rays, seed, max_leaf):
 @pytest.mark.parametrize("n_tris,max_leaf,stack", [
     (41, 4, None), (100, 4, None), (300, 8, None), (512, 8, None),
     (512, 4, 2),   # a stack shallower than the tree: overflow semantics
+    (512, 1, None),  # 511 node rows: the largest tables
 ])
 def test_trace_bvh_kernel_bit_exact(n_tris, max_leaf, stack, any_hit):
     _need_cuda()
@@ -360,12 +361,17 @@ def _bit_exact(k, p, label):
 
 @pytest.fixture(scope="module")
 def stress():
-    """chip_smoke.py's exactness stress inputs at 100,000 rays: a binned
-    grid cloud whose subtree boxes share faces, hit by axis-aligned rays
-    on the lattice (the sid tie-break decides), its stack cut to 3 (the
-    overflow path), and trace_tlas on width-56 (ray mask; stack 4) and
-    width-88 tables; every case with rays starting inside boxes, zero and
-    NaN direction components, NaN origins and t_min > 0."""
+    """chip_smoke.py's exactness stress inputs at 100,000 rays: the
+    triangle test's edge cases for trace_brute and trace_bvh (det exactly
+    0 and subnormal, U and V whose products round to -0, rays through
+    vertices and along edges, t exactly at t_min and t_max, t_min < 0,
+    equal t, inf and NaN components; trace_bvh at max_leaf 15 and with a
+    stack of 2; all lanes inactive), a binned grid cloud whose subtree
+    boxes share faces, hit by axis-aligned rays on the lattice (the sid
+    tie-break decides), its stack cut to 3 (the overflow path), and
+    trace_tlas on width-56 (ray mask; stack 4) and width-88 tables; the
+    last three with rays starting inside boxes, zero and NaN direction
+    components, NaN origins and t_min > 0."""
     _need_cuda()
     import chip_smoke
 
@@ -374,8 +380,10 @@ def stress():
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("label", [
-    "grid cloud", "grid cloud, stack 3", "tlas width 56, ray mask",
-    "tlas width 56, stack 4", "wide width 88"])
+    "brute edge triangles", "brute all inactive",
+    "bvh edge triangles, max_leaf 15", "bvh edge triangles, stack 2",
+    "bvh all inactive", "grid cloud", "grid cloud, stack 3",
+    "tlas width 56, ray mask", "tlas width 56, stack 4", "wide width 88"])
 def test_kernels_bit_exact_under_stress(stress, label, any_hit):
     from ray_tpu_torch.ops import cuda_build, traverse
 
@@ -391,7 +399,11 @@ def test_kernels_bit_exact_under_stress(stress, label, any_hit):
     p = getattr(traverse, f"{kernel}_plain")(*case, any_hit=any_hit)
     torch.cuda.synchronize()
     assert cuda_build.launch_counts[name] == before + 1
-    assert 0 < int((p.prim >= 0).sum()) < p.prim.shape[0]
+    hits = int((p.prim >= 0).sum())
+    if "inactive" in label:
+        assert hits == 0
+    else:
+        assert 0 < hits < p.prim.shape[0]
     _bit_exact(k, p, label)
 
 

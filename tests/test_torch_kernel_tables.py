@@ -21,6 +21,8 @@ given is built here, and these tests hold it:
   ``slab_f`` / ``slab_i``; the wrapper builds it once per scene.
 * ``check_tlas_rows``: ``trace_tlas``'s wrapper refuses a width that is
   not a multiple of 4 floats or a base that is not 16-byte aligned.
+* ``cuda_build.source_hash``: a kernel library's name covers its source
+  and every ``csrc/*.cuh`` header, so an edited header is rebuilt.
 """
 
 import numpy as np
@@ -224,3 +226,22 @@ def test_check_tlas_rows_wants_float4_rows():
     shifted = torch.zeros(16 * 56 + 1)[1:].view(16, 56)
     with pytest.raises(ValueError, match="aligned"):
         tt.check_tlas_rows(shifted)
+
+
+def test_source_hash_covers_headers(tmp_path):
+    """A kernel's library name changes with its source, with any header in
+    ``csrc`` (the brute and BVH kernels share ``tri_test.cuh``) and with
+    nothing else there."""
+    from ray_tpu_torch.ops import cuda_build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("a")
+    first = cuda_build.source_hash(tmp_path, "k")
+    (tmp_path / "notes.txt").write_text("b")
+    assert cuda_build.source_hash(tmp_path, "k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = cuda_build.source_hash(tmp_path, "k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert cuda_build.source_hash(tmp_path, "k") not in (first, second)

@@ -1,40 +1,46 @@
 #!/usr/bin/env python3
-"""Time this tree's trace_binned / trace_tlas kernels and frames against an
-earlier checkout's on one CUDA card, in one run.
+"""Time this tree's trace kernels and frames against an earlier checkout's
+on one CUDA card, in one run.
 
     python3 tools/ab_parent.py PARENT_DIR [--kernels-only]
         [--frames-only] [--scenes LABEL,...] [--pairs N]
 
 PARENT_DIR is a checkout of an earlier commit (``git archive HEAD~1 | tar
--x -C DIR``) whose ``trace_binned.cu`` and ``trace_tlas.cu`` have the
-earlier C entry points: ``trace_binned_launch`` on the slab tables
-(slab_f, slab_i, sub_lo, sub_hi), ``binned_sort_key_launch`` on the boxes,
-``trace_tlas_launch``, none of them with a ray counter.
+-x -C DIR``) whose C entry points take the arguments this tree's do.  Its
+``trace_brute`` / ``trace_bvh`` read the raw (T, 9) / (N, 14) tables when
+its ``ops/traverse.py`` has no ``tri_rows`` (before the cached rows), this
+tree's cached rows otherwise.
 
-1. Kernels: builds the parent's two sources with this tree's nvcc flags,
-   captures every trace launch of ``chip_smoke.py``'s phase-10 tiles (the
-   top-right 960x540 tile of the instanced, flattened and binned
-   colonnades), holds the parent's outputs bit-equal to the plain version
-   on each launch (and its binned sort keys equal to this tree's; this
-   tree's kernels are held by chip_smoke.py), then times each launch (CUDA
-   events, 50 launches) parent, this tree, this tree, parent, and prints
-   the mean per scene and mode of each tree's two runs.
+1. Kernels: builds the parent's sources of the kernels of the chosen
+   scenes with this tree's nvcc flags, captures every trace launch of
+   ``chip_smoke.py``'s frames (the flagship's and ``cornell_sphere``'s
+   1920x1080 frame: ``trace_brute`` and ``trace_bvh``; the top-right
+   960x540 tile of the instanced, flattened and binned colonnades:
+   ``trace_tlas`` and ``trace_binned``), holds the parent's outputs
+   bit-equal to the plain version on each launch (and its binned sort keys
+   equal to this tree's; this tree's kernels are held by chip_smoke.py),
+   then times each launch (CUDA events, 50 launches) parent, this tree,
+   this tree, parent, and prints the mean per scene and mode of each
+   tree's two runs.
 2. Frames (unless ``--kernels-only``): runs ``--frames`` workers, one
    process per tree, in the order parent, this tree, this tree, parent
    (``--pairs N`` such pairs, alternating: 2 by default); each renders
    chip_smoke.py's forward frames (the flagship and ``cornell_sphere`` 1x1,
-   each colonnade 2x2, 10 frames after a warm-up) and 3 colonnade fwd+bwd
-   2x2 frames with remat (bench.py's ``settings_big``), or only the
-   ``--scenes`` named, and prints its frame ms.  ``--frames-only`` skips
-   step 1.
+   each colonnade 2x2, 10 frames after a warm-up), the two Cornell scenes'
+   fwd+bwd frames (5), 3 colonnade fwd+bwd 2x2 frames with remat
+   (bench.py's ``settings_big``) and 8 samples of the flagship renderer
+   (``create_renderer``), or only the ``--scenes`` named, and prints its
+   frame ms.  ``--frames-only`` skips step 1.
 
-Writes ``chiprun_out/ab_parent.json`` and prints the card's name and power
-limit beside the numbers.
+``--scenes`` names the scenes of both steps (default: all).  Writes
+``ab_parent.json`` in chip_smoke.py's ``OUT_DIR`` and prints the card's
+name and power limit beside the numbers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -43,100 +49,93 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FRAME_SCENES = ("flagship", "cornell_sphere", "colonnade",
+FRAME_SCENES = ("flagship", "cornell_sphere", "flagship fwd+bwd",
+                "cornell_sphere fwd+bwd", "renderer", "colonnade",
                 "colonnade fwd+bwd remat", "colonnade flatten",
                 "colonnade binned")
-KERNEL_SCENES = ("colonnade", "colonnade flatten", "colonnade binned")
+KERNEL_SCENES = ("flagship", "cornell_sphere", "colonnade",
+                 "colonnade flatten", "colonnade binned")
 REPS = 50
 
 
-def parent_libs(parent: pathlib.Path):
-    """The parent's trace_binned and trace_tlas libraries, built with this
-    tree's flags into build/ab_parent/."""
-    from ray_tpu_torch.ops import cuda_build
+def _chip_smoke():
+    """This tree's chip_smoke.py, whichever ray_tpu_torch is on the path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_fns(parent: pathlib.Path, kernels):
+    """The parent's C entry points of ``kernels``, built with this tree's
+    flags into build/ab_parent/, bound with this tree's argument types."""
+    from ray_tpu_torch.ops import cuda_build, traverse
 
     out = ROOT / "build" / "ab_parent"
     out.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name in ("trace_binned", "trace_tlas"):
-        target = out / f"parent_{name}.so"
+    csrc = parent / "ray_tpu_torch" / "csrc"
+    for name in kernels:
+        target = out / f"parent_{name}-{cuda_build.source_hash(csrc, name)}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(target),
-               str(parent / "ray_tpu_torch" / "csrc" / f"{name}.cu")]
+               str(csrc / f"{name}.cu")]
         jobs.append((name, target, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
+    ours = {"trace_brute": traverse._brute_fn, "trace_bvh": traverse._bvh_fn,
+            "trace_tlas": traverse._tlas_fn,
+            "trace_binned": traverse._binned_fn}
+    fns = {}
     for name, target, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{log}")
-        libs[name] = ctypes.CDLL(str(target))
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    libs["trace_binned"].trace_binned_launch.argtypes = [
-        p, p, p, p, i, p, p, p, p, p, i64, p, p, p, p, p, i, i, i, p]
-    libs["trace_binned"].binned_sort_key_launch.argtypes = [
-        p, p, i, p, p, p, p, p, i64, p, p]
-    libs["trace_tlas"].trace_tlas_launch.argtypes = [
-        p, i, i, p, p, p, p, p, p, i64, p, p, p, p, p, p, i, i, i, p]
-    return libs
+        lib = ctypes.CDLL(str(target))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ours[name]().argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+        if name == "trace_binned":
+            key = lib.binned_sort_key_launch
+            key.argtypes = traverse._binned_key_fn().argtypes
+            key.restype = ctypes.c_int
+            fns["binned_sort_key"] = key
+    return fns
 
 
-def parent_launch(libs, kernel, args, any_hit):
-    """(closure, outputs) launching the parent's kernel on captured inputs
-    (trace_binned on the rays as its wrapper sorts them)."""
+def parent_arrays(parent: pathlib.Path, kernel, tables):
+    """The tables the parent's entry point reads (``raw_launch``'s
+    ``arrays``): the raw ones for a trace_brute / trace_bvh before the
+    cached rows, else this tree's."""
+    import chip_smoke as cs
+
+    text = (parent / "ray_tpu_torch" / "ops" / "traverse.py").read_text()
+    if kernel in ("trace_brute", "trace_bvh") and "def tri_rows" not in text:
+        return tables
+    return cs.kernel_arrays(kernel, tables)
+
+
+def parent_sortkey(fns, binned, rays):
     import torch
 
     import chip_smoke as cs
 
-    tables, rays, extra = cs.split_args(kernel, args)
-    if kernel == "trace_binned":
-        rays = cs.sorted_rays(tables[0], rays)
-    ro, rd, t_min, t_max, active = rays
-    R = ro.shape[0]
-    dtypes = [torch.float32, torch.int32, torch.float32, torch.float32,
-              torch.bool] + ([torch.int32] if kernel == "trace_tlas" else [])
-    outs = [torch.empty(R, dtype=d, device=ro.device) for d in dtypes]
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [a.data_ptr() for a in rays]
-    if kernel == "trace_tlas":
-        (rows,), (mask, max_leaf, stack_size) = tables, extra
-        fn = libs["trace_tlas"].trace_tlas_launch
-        a = (rows.data_ptr(), rows.shape[0], rows.shape[1], *ptrs,
-             None if mask is None else mask.data_ptr(), R,
-             *(o.data_ptr() for o in outs), int(max_leaf), int(stack_size),
-             int(any_hit), stream)
-    else:
-        arrays, S = cs.binned_arrays(tables[0])
-        fn = libs["trace_binned"].trace_binned_launch
-        a = (*(t.data_ptr() for t in arrays), S, *ptrs, R,
-             *(o.data_ptr() for o in outs), *extra,
-             tables[0]["stack_arr"].shape[0], int(any_hit), stream)
-
-    def launch(_alive=(tables, rays, outs)):
-        if fn(*a) != 0:
-            cs.fail(f"the parent's {kernel} launch failed")
-    return launch, rays, outs
-
-
-def parent_sortkey(libs, binned, rays):
-    import torch
-
-    import chip_smoke as cs
-
-    arrays, S = cs.binned_arrays(binned)
+    tree = cs.kernel_arrays("trace_binned", (binned,))[2]
+    S = cs.binned_arrays(binned)[1]
     key = torch.empty(rays[0].shape[0], dtype=torch.int32,
                       device=rays[0].device)
-    a = (arrays[2].data_ptr(), arrays[3].data_ptr(), S,
-         *(t.data_ptr() for t in rays), rays[0].shape[0], key.data_ptr(),
-         torch.cuda.current_stream().cuda_stream)
-    fn = libs["trace_binned"].binned_sort_key_launch
+    a = (tree.data_ptr(), S, *(t.data_ptr() for t in rays), rays[0].shape[0],
+         key.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    fn = fns["binned_sort_key"]
 
-    def launch(_alive=(binned, rays, key)):
+    def launch(_alive=(binned, tree, rays, key)):
         if fn(*a) != 0:
             cs.fail("the parent's sort-key launch failed")
     return launch, key
 
 
-def kernel_ab(parent: pathlib.Path):
+def kernel_ab(parent: pathlib.Path, scenes):
     """Per scene and mode: the parent's and this tree's kernel ms."""
     import torch
 
@@ -144,32 +143,47 @@ def kernel_ab(parent: pathlib.Path):
     from ray_tpu_torch.ops import cuda_build, traverse
     from ray_tpu_torch.render.integrator import PassSettings
 
-    cuda_build.build(["trace_binned", "trace_tlas"])
-    libs = parent_libs(parent)
-    st = PassSettings(max_total_depth=5, min_total_depth=2, compact_after=2,
-                      compact_factor=4)
-    makers = {"colonnade": cs.colonnade, "colonnade flatten": cs.colonnade,
+    kernel_of = {"flagship": "trace_brute", "cornell_sphere": "trace_bvh",
+                 "colonnade": "trace_tlas", "colonnade flatten": "trace_tlas",
+                 "colonnade binned": "trace_binned"}
+    scenes = [s for s in KERNEL_SCENES if s in scenes]
+    kernels = sorted({kernel_of[s] for s in scenes})
+    cuda_build.build(kernels)
+    fns = parent_fns(parent, kernels)
+    st = PassSettings(max_total_depth=5, min_total_depth=2)
+    big = PassSettings(max_total_depth=5, min_total_depth=2, compact_after=2,
+                       compact_factor=4)
+    makers = {"flagship": cs.flagship, "cornell_sphere": cs.cornell_sphere,
+              "colonnade": cs.colonnade, "colonnade flatten": cs.colonnade,
               "colonnade binned": cs.colonnade_binned}
     result = {}
-    for label in KERNEL_SCENES:
+    for label in scenes:
         sc, cam = makers[label]()
         scene = sc.finalize(**cs.FINALIZE.get(label, {}))
-        tw, th = cs.WIDTH // 2, cs.HEIGHT // 2
-        _, calls = cs.capture_frame(scene, cam, st, 1, cs.WIDTH - tw, 0, tw,
-                                    th)
+        if label.startswith("colonnade"):
+            tw, th = cs.WIDTH // 2, cs.HEIGHT // 2
+            _, calls = cs.capture_frame(scene, cam, big, 1, cs.WIDTH - tw, 0,
+                                        tw, th)
+        else:
+            _, calls = cs.capture_frame(scene, cam, st, 1)
         rows = []
         for kernel, args, any_hit in calls:
-            new = cs.raw_launch(kernel, args, any_hit)
-            old, rays, old_out = parent_launch(libs, kernel, args, any_hit)
-            # the parent's outputs against the wrapper's (the same sorted
-            # rays for trace_binned: compare through the plain version)
+            new, _ = cs.raw_launch(kernel, args, any_hit)
+            tables = cs.split_args(kernel, args)[0]
+            old, old_out = cs.raw_launch(
+                kernel, args, any_hit, fn=fns[kernel],
+                arrays=parent_arrays(parent, kernel, tables))
+            # the parent's outputs against the plain version (on the rays
+            # as trace_binned's wrapper sorts them)
             old()
             torch.cuda.synchronize()
             plain = getattr(traverse, f"{kernel}_plain")
             if kernel == "trace_binned":
+                rays = cs.sorted_rays(args[0], args[1:6])
                 ref = plain(args[0], *rays, *args[6:], any_hit=any_hit)
             else:
                 ref = plain(*args, any_hit=any_hit)
+            if kernel == "trace_tlas":
                 ref = ref._replace(inst=torch.where(
                     ref.prim >= 0, ref.inst + int(args[1]), -1).to(
                         torch.int32))
@@ -179,12 +193,15 @@ def kernel_ab(parent: pathlib.Path):
                             f"the plain version")
             times = [cs.time_launches(f, REPS) for f in (old, new, new, old)]
             row = {"kernel": kernel, "any_hit": bool(any_hit),
-                   "rays": rays[0].shape[0],
+                   "rays": args[cs.RAY_ARG.get(kernel, 2)].shape[0],
                    "parent_ms": statistics.fmean(times[0::3]),
                    "ms": statistics.fmean(times[1:3]), "runs": times}
+            if kernel != "trace_binned":
+                b = cs.launch_bound(kernel, args, any_hit)
+                row["bound_ms"] = max(b["bytes_ms"], b["ops_ms"])
             if kernel == "trace_binned":
                 urays = args[1:6]
-                pk, pkey = parent_sortkey(libs, args[0], urays)
+                pk, pkey = parent_sortkey(fns, args[0], urays)
                 pk()
                 torch.cuda.synchronize()
                 if not torch.equal(pkey, traverse.binned_sort_key(args[0],
@@ -206,64 +223,80 @@ def kernel_ab(parent: pathlib.Path):
                     f"this tree {statistics.fmean(r['ms'] for r in sel):.5f} "
                     f"ms a launch (mean of {len(sel)} launches, each "
                     f"parent/this: {each})")
+            if "bound_ms" in sel[0]:
+                b = statistics.fmean(r["bound_ms"] for r in sel)
+                line += (f"; bound {b:.5f} ms, {b / statistics.fmean(r['ms'] for r in sel):.3f}"
+                         f" of it reached (parent "
+                         f"{b / statistics.fmean(r['parent_ms'] for r in sel):.3f})")
             if "sortkey_ms" in sel[0]:
                 line += (f"; sort key parent "
                          f"{statistics.fmean(r['sortkey_parent_ms'] for r in sel):.5f}"
                          f" ms, this tree "
                          f"{statistics.fmean(r['sortkey_ms'] for r in sel):.5f} ms")
-            print(line, flush=True)
+            print(f"{line} [{cs.CARD}]", flush=True)
         del scene, calls
         torch.cuda.empty_cache()
     return result
 
 
 def frames_worker(tree: pathlib.Path, scenes) -> int:
-    """Render the frames of ``scenes`` with ``tree``'s ray_tpu_torch; print
-    one JSON line of frame seconds by scene."""
-    sys.path.insert(0, str(ROOT))
+    """Render the frames of ``scenes`` with ``tree``'s ray_tpu_torch (and
+    this tree's chip_smoke.py); print one JSON line of frame seconds by
+    scene (a renderer sample's seconds for ``renderer``)."""
     sys.path.insert(0, str(tree))
     import dataclasses
 
     import torch
 
-    import chip_smoke as cs
     import ray_tpu_torch
     from ray_tpu_torch.render.integrator import PassSettings
 
+    cs = _chip_smoke()
     assert pathlib.Path(ray_tpu_torch.__file__).resolve().is_relative_to(tree)
     st = PassSettings(max_total_depth=5, min_total_depth=2)
     big = dataclasses.replace(st, compact_after=2, compact_factor=4)
     makers = {"flagship": cs.flagship, "cornell_sphere": cs.cornell_sphere,
               "colonnade": cs.colonnade, "colonnade flatten": cs.colonnade,
               "colonnade binned": cs.colonnade_binned,
-              "colonnade fwd+bwd remat": cs.colonnade}
+              "renderer": cs.flagship}
     out = {}
     for label in scenes:
-        sc, cam = makers[label]()
+        sc, cam = makers[label.split(" fwd+bwd")[0]]()
         scene = sc.finalize(**cs.FINALIZE.get(label, {}))
-        if label == "colonnade fwd+bwd remat":
-            remat = dataclasses.replace(big, remat=True)
-            tiles = cs.grid_tiles(cs.GRID)
-            cs.fwd_bwd(scene, cam, remat, 1, tiles)
+        if label == "renderer":
+            r = ray_tpu_torch.create_renderer(
+                ray_tpu_torch.RenderSettings(width=cs.WIDTH,
+                                             height=cs.HEIGHT), st)
+            r.render(scene, cam, 1)
             torch.cuda.synchronize()
-            bwd = []
-            for f in range(cs.COLONNADE_BWD_FRAMES):
-                _, _, _, tf, tb = cs.fwd_bwd(scene, cam, remat, 2 + f, tiles)
-                bwd.append(tf + tb)
-            out[label] = bwd
-            del scene
-            torch.cuda.empty_cache()
-            continue
-        grid = (1, 1) if label in ("flagship", "cornell_sphere") else cs.GRID
-        s = big if label.startswith("colonnade") else st
-        cs.render_frame(scene, cam, s, 1, grid)
-        torch.cuda.synchronize()
-        frame_s = []
-        for f in range(cs.FRAMES):
-            t0 = time.perf_counter()
-            cs.render_frame(scene, cam, s, 2 + f, grid)
+            frame_s = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                r.render(scene, cam, 1)
+                torch.cuda.synchronize()
+                frame_s.append(time.perf_counter() - t0)
+        elif "fwd+bwd" in label:
+            remat = label.endswith("remat")
+            s = dataclasses.replace(big, remat=True) if remat else st
+            tiles = cs.grid_tiles(cs.GRID if remat else (1, 1))
+            n = cs.COLONNADE_BWD_FRAMES if remat else cs.BWD_FRAMES
+            cs.fwd_bwd(scene, cam, s, 1, tiles)
             torch.cuda.synchronize()
-            frame_s.append(time.perf_counter() - t0)
+            frame_s = []
+            for f in range(n):
+                _, _, _, tf, tb = cs.fwd_bwd(scene, cam, s, 2 + f, tiles)
+                frame_s.append(tf + tb)
+        else:
+            grid = (1, 1) if label in ("flagship", "cornell_sphere") else cs.GRID
+            s = big if label.startswith("colonnade") else st
+            cs.render_frame(scene, cam, s, 1, grid)
+            torch.cuda.synchronize()
+            frame_s = []
+            for f in range(cs.FRAMES):
+                t0 = time.perf_counter()
+                cs.render_frame(scene, cam, s, 2 + f, grid)
+                torch.cuda.synchronize()
+                frame_s.append(time.perf_counter() - t0)
         out[label] = frame_s
         del scene
         torch.cuda.empty_cache()
@@ -284,7 +317,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    import chip_smoke as cs
+    cs = _chip_smoke()
 
     if not torch.cuda.is_available():
         cs.fail("needs a CUDA card")
@@ -293,18 +326,17 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = None
     if "--frames-only" not in sys.argv:
-        kernels = kernel_ab(parent)
+        kernels = kernel_ab(parent, scenes)
         print(f"kernel A/B done in {time.perf_counter() - t0:.1f} s",
               flush=True)
     frames = {"parent": [], "this": []}
     if "--kernels-only" in sys.argv:
-        print(cs.CARD)
-        return 0
+        scenes = []
     order = []
     for i in range(pairs):
         pair = [("parent", parent), ("this", ROOT)]
         order += pair if i % 2 == 0 else pair[::-1]
-    for who, tree in order:
+    for who, tree in order if scenes else ():
         r = subprocess.run([sys.executable, __file__, "--frames", str(tree),
                             "--scenes", ",".join(scenes)],
                            capture_output=True, text=True, timeout=1200)
@@ -314,7 +346,7 @@ def main() -> int:
         print(f"frames worker ({who}) done at "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     summary = {}
-    for label in frames["this"][0]:
+    for label in frames["this"][0] if scenes else ():
         ms = {who: [1e3 * statistics.fmean(run[label]) for run in runs]
               for who, runs in frames.items()}
         summary[label] = ms

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Print what ``ptxas -v`` says of the port's trace kernels.
+"""Print what ``ptxas -v`` says of the port's trace kernels, and count the
+SASS instructions of their loops.
 
     python3 tools/ptxas_report.py [REPO_DIR ...]
 
 For each repository checkout given (default: this one), compiles its
-``ray_tpu_torch/csrc/trace_binned.cu`` and ``trace_tlas.cu`` with the
-port's own nvcc flags (``ray_tpu_torch/ops/cuda_build.py`` NVCC_FLAGS) plus
+``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,binned}.cu`` with the port's own
+nvcc flags (``ray_tpu_torch/ops/cuda_build.py`` NVCC_FLAGS) plus
 ``-Xptxas -v`` into ``build/ptxas_report/`` and prints, per kernel entry,
-its registers, stack frame, spill stores / loads and shared memory.  Needs
-``nvcc`` (the CUDA toolkit).
+its registers, stack frame, spill stores / loads and shared memory.  Then,
+from ``cuobjdump -sass`` of ``trace_brute`` and ``trace_bvh``, each loop of
+each kernel entry (a backward branch and the instructions from its target
+to it): its instruction count, its float instructions (F*: FADD, FMUL,
+FSETP, FMNMX, ...), its loads, and the instructions from its head to its
+first conditional branch (for the new triangle test, the path of a pair
+that the pre-test rejects on U).  Needs ``nvcc`` and ``cuobjdump`` (the
+CUDA toolkit).
 """
 
 from __future__ import annotations
@@ -21,42 +28,90 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("trace_binned", "trace_tlas")
+SOURCES = ("trace_brute", "trace_bvh", "trace_binned", "trace_tlas")
+# the sources whose loops are counted
+SASS_SOURCES = ("trace_brute", "trace_bvh")
+# one SASS line: /*address*/ [@predicate] OPCODE operands ;
+INSN = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def report(repo: pathlib.Path, out_dir: pathlib.Path) -> list[str]:
+def _kind(entry: str, name: str) -> str:
+    return ("binned_sort_key" if "sort_key" in entry
+            else f"{name} any-hit" if "ILb1E" in entry
+            else f"{name} closest" if "ILb0E" in entry
+            else entry)
+
+
+def build(repo: pathlib.Path, out_dir: pathlib.Path):
+    """{name: (ptxas log, library path)} of ``repo``'s sources."""
     from ray_tpu_torch.ops import cuda_build
 
-    lines = []
     jobs = []
     for name in SOURCES:
         src = repo / "ray_tpu_torch" / "csrc" / f"{name}.cu"
         target = out_dir / f"{repo.name}-{name}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-o", str(target), str(src)]
-        jobs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True)))
-    for name, proc in jobs:
+        jobs.append((name, target, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built = {}
+    for name, target, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {repo}/{name}.cu:\n{out}")
-        entry = None
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                entry = m.group(1)
+        built[name] = (out, target)
+    return built
+
+
+def ptxas_lines(repo, name, log) -> list[str]:
+    lines = []
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry and ("stack frame" in line or "Used" in line):
+            lines.append(f"{repo}: {_kind(entry, name)}: {line.strip()}")
+    return lines
+
+
+def sass_loops(repo, name, lib) -> list[str]:
+    """One line a loop of each kernel entry of ``lib``'s SASS."""
+    from ray_tpu_torch.ops import cuda_build
+
+    cuobjdump = pathlib.Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    lines = []
+    for block in sass.split("Function : ")[1:]:
+        entry = block.split()[0]
+        if "kernel" not in entry:
+            continue
+        insns = [(int(m.group(1), 16), m.group(2) or "", m.group(3),
+                  m.group(4)) for m in INSN.finditer(block)]
+        addr = [a for a, *_ in insns]
+        for i, (a, pred, op, rest) in enumerate(insns):
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if not (op.startswith("BRA") and t):
                 continue
-            m = re.search(r"Function properties for (\w+)", line)
-            if m:
-                entry = m.group(1)
+            target = int(t.group(1), 16)
+            if target > a or target not in addr:
                 continue
-            if entry and ("stack frame" in line or "Used" in line):
-                kind = ("binned_sort_key" if "sort_key" in entry
-                        else f"{name} any-hit" if "ILb1E" in entry
-                        else f"{name} closest" if "ILb0E" in entry
-                        else entry)
-                lines.append(f"{repo}: {kind}: {line.strip()}")
+            body = insns[addr.index(target):i + 1]
+            first = next((j for j, (_, p, o, _) in enumerate(body)
+                          if p and o.startswith("BRA")), len(body) - 1)
+            lines.append(
+                f"{repo}: {_kind(entry, name)}: loop {target:#06x}-{a:#06x}: "
+                f"{len(body)} instructions, "
+                f"{sum(o.startswith('F') for _, _, o, _ in body)} float, "
+                f"{sum(o.startswith(('LD', 'ULD')) for _, _, o, _ in body)} "
+                f"loads; {first + 1} to its first conditional branch")
     return lines
 
 
@@ -65,8 +120,13 @@ def main() -> int:
     out_dir = ROOT / "build" / "ptxas_report"
     out_dir.mkdir(parents=True, exist_ok=True)
     for repo in repos:
-        for line in report(repo, out_dir):
-            print(line)
+        built = build(repo, out_dir)
+        for name, (log, _) in built.items():
+            for line in ptxas_lines(repo, name, log):
+                print(line)
+        for name in SASS_SOURCES:
+            for line in sass_loops(repo, name, built[name][1]):
+                print(line)
     return 0
 
 
