@@ -25,7 +25,16 @@ scenes:
   route, ``trace_wide``), at the same settings and grid;
 * ``colonnade_scene(n_cols=5)`` finalized with ``instancing="flatten",
   pallas_binned=True`` (169,890 triangles in 469 subtree slabs): every
-  trace goes to ``trace_binned``, at the same settings and grid.
+  trace goes to ``trace_binned``, at the same settings and grid;
+
+and the shading slice's five: the scenes of ``ray_tpu``'s CPU goldens
+(``tests/goldens_cpu``; ``ray_tpu_torch.utils.test_scenes.GOLDEN_SCENES``)
+— ``rect_disk`` (rect and disk lights), ``sphere_spot_line`` (sphere,
+spot and line lights), ``dir_env`` (a directional light and a constant
+environment over 2,210 triangles: the wide route), ``tri_glass`` (an
+emissive quad and a REFRACTIVE box) — and ``alpha_box`` (a rect-lit
+Cornell box whose tall box has principled alpha 0.5: Mix(Transparent,
+principled), both transparency marches).
 
 Phases:
 
@@ -53,16 +62,28 @@ Phases:
    inside boxes, zero and NaN direction components, NaN origins, t_min >
    0), in both modes, and on the inputs of all 12 launches of one frame of
    the flagship and ``cornell_sphere`` and of one 960x540 tile of each
-   colonnade (the binned tile's sort keys too);
+   colonnade (the binned tile's sort keys too), and every launch of one
+   frame of ``tri_glass``, ``dir_env`` and ``alpha_box`` (the marches'
+   traces included);
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
-   terrain and floor);
+   terrain and floor; the alpha box's lies on the box, which stands in the
+   floor's plane, and the same box lifted 2 mm is held beside it);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
    others, and one binned sort key a ``trace_binned`` launch; a colonnade
    frame is 4 tiles): Mray/s, frame ms and spread, peak memory; and one
-   more instanced colonnade line at grid 1x1;
+   more instanced colonnade line at grid 1x1; ``SHADING_FRAMES`` frames of
+   each shading scene (6 closest-hit and 6 any-hit launches a frame, and
+   one closest-hit launch a march trace; a scene with transparency
+   launches no any-hit trace), with the launches a frame split into
+   closest-hit, any-hit and march, and the marches' host syncs a frame;
+   then the goldens: each golden scene through ``create_renderer`` at the
+   golden's 64x64, pass settings and 400 samples, through ``pixels`` to
+   uint8, against the committed ``.npz``: ≥ 28 dB PSNR, ≤ 40 fireflies
+   (``tests/test_cpu_goldens.py``'s gate), dB, fireflies and seconds
+   printed;
 6. the fwd+bwd paths: ``BWD_FRAMES`` frames of each Cornell scene, the
    bench loss differentiated w.r.t. the float material columns and
    ``env_col`` (leaf tensors, as ``bench.py`` sets them): Mray/s, frame ms
@@ -70,7 +91,14 @@ Phases:
    finite and non-zero for ``base_color`` and ``env_col``; a 64x48 fwd+bwd
    tile of ``cornell_sphere`` on the card against the CPU path's
    gradients; the flagship frame with remat against stored residuals (loss
-   bit-identical, gradients within 1e-4 of each column's scale);
+   bit-identical, gradients within 1e-4 of each column's scale); a
+   ``tri_glass`` (1x1) and an ``alpha_box`` (2x2) fwd+bwd 1080p frame each
+   with stored residuals and with remat (loss bit-identical, gradients
+   finite and non-zero for ``base_color`` and ``env_col``, each launching
+   its forward's traces, marches included, and none in backward), and the
+   two policies' gradient columns within ``REMAT_NOISE_MULT`` times the
+   gap between two stored-residual runs at 1080p (or 1e-4) and within 1e-4
+   on a 480x270 tile with deterministic reductions;
 7. the colonnade's fwd+bwd: ``COLONNADE_BWD_FRAMES`` 2x2 frames with remat
    (each tile its own backward, the gradients summed; 24 + 24
    ``trace_tlas`` launches a frame, none in backward), one frame with
@@ -109,6 +137,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 10
@@ -1229,7 +1258,8 @@ def check_tile_against_cpu(make_scene, label, x0, y0, settings):
           f"|diff| {dn.max():.3e}, {int(strict.sum())} pixels past atol "
           f"1e-6), mean rel diff {mean_rel:.2e}, rays "
           f"{int(g['rays_traced'])} vs {int(c['rays_traced'])}")
-    if not (close.mean() >= 0.99 and aux.mean() >= 0.999 and mean_rel < 1e-3
+    if not (close.mean() >= 0.99 and aux.mean() >= 0.999
+            and mean_rel < 1e-3
             and rays_rel < 5e-3 and np.isfinite(g["color"]).all()):
         fail(f"the card's 64x48 {label} tile disagrees with the CPU path")
 
@@ -1287,6 +1317,316 @@ def colonnade_coverage(scene, cam, x0, y0, tw, th):
     return (int((inst < COLONNADE_COLUMNS).sum()),
             int(((inst >= COLONNADE_COLUMNS) & (inst < terrain_end)).sum()),
             int((inst >= terrain_end).sum()))
+
+
+# ---- the shading slice: the four CPU goldens' scenes and the alpha box ---
+# the kernel each scene's traces take (dir_env's 2,210 triangles: the wide
+# route over its 8-wide rows; the others are brute-force sized)
+SHADING = {
+    "rect_disk": "trace_brute",
+    "sphere_spot_line": "trace_brute",
+    "dir_env": "trace_tlas",
+    "tri_glass": "trace_brute",
+    "alpha_box": "trace_brute",
+}
+SHADING_FRAMES = 3
+# the fwd+bwd frames and their grids: the alpha box's principled lobes
+# store more than the card holds for one 1080p tile (stored residuals ran
+# out of its 80 GB), so it is 2x2 tiles, each its own backward, as
+# bench.py renders the colonnade
+SHADING_BWD = {"tri_glass": (1, 1), "alpha_box": GRID}
+# the tile on which remat and stored residuals are compared with
+# deterministic reductions: (x0, y0, w, h), over the Cornell box's tall box
+REMAT_TILE = (960, 540, 480, 270)
+# the 1080p remat gradients may differ from the stored ones by this many
+# times the gap between two stored-residual runs (atomic summation order)
+REMAT_NOISE_MULT = 4.0
+# the scenes whose every launch of one frame phase 3 holds against the
+# plain version (the alpha box's march traces included)
+SHADING_PARITY = ("tri_glass", "dir_env", "alpha_box")
+# 64x48 card-vs-CPU tiles on each scene's content (the alpha box's wholly
+# on the box)
+SHADING_TILES = {"rect_disk": (928, 516), "sphere_spot_line": (928, 516),
+                 "dir_env": (928, 600), "tri_glass": (1000, 700),
+                 "alpha_box": (1040, 760)}
+# the alpha box stands on the floor: its bottom face lies in the floor's
+# plane, and a ray from inside the transparent box meets both at one t, so
+# the last ulp of the ray picks the material (tests/test_torch_transparency.py
+# measured 1.6% of a tile's pixels apart between ray_tpu and the port on
+# the CPU).  The same box lifted 2 mm (ALPHA_LIFT) is held beside it.
+ALPHA_LIFT = 0.002
+GOLDEN_DIR = pathlib.Path(__file__).resolve().parent / "tests" / "goldens_cpu"
+# tests/test_cpu_goldens.py's gate
+PSNR_FLOOR = 28.0
+FIREFLY_BUDGET = 40  # pixels with a channel off by more than 32/255
+GOLDEN_TIMEOUT = 600  # seconds a golden worker may take
+
+
+def shading_scene(name, lift=0.0):
+    from ray_tpu_torch.utils import test_scenes
+
+    if name == "alpha_box":
+        return test_scenes.alpha_box(lift)
+    return test_scenes.GOLDEN_SCENES[name]()
+
+
+def psnr_fireflies(a, b):
+    """tests/test_cpu_goldens.py's measure of two uint8 images."""
+    import numpy as np
+
+    diff = np.abs(a.astype(np.float32) - b.astype(np.float32))
+    mse = float((diff ** 2).mean())
+    psnr = -10.0 * np.log10(max(mse, 1e-12) / 255.0 ** 2)
+    return psnr, int((diff > 32).any(axis=-1).sum())
+
+
+def golden_render(name):
+    """One golden scene through ``create_renderer`` at the golden's own
+    resolution (64x64), pass settings and sample count (400), to uint8
+    through ``pixels(cam)``, against the committed ``.npz``.  Returns
+    (dB, fireflies, seconds)."""
+    import numpy as np
+
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.render.integrator import PassSettings
+    from ray_tpu_torch.utils.test_scenes import (
+        GOLDEN_DEPTH, GOLDEN_RES, GOLDEN_SCENES, GOLDEN_SPP)
+
+    golden = np.load(GOLDEN_DIR / f"{name}.npz")["image_u8"]
+    sc, cam = GOLDEN_SCENES[name]()
+    t0 = time.perf_counter()
+    scene = sc.finalize()
+    r = ray_tpu.create_renderer(
+        ray_tpu.RenderSettings(width=GOLDEN_RES, height=GOLDEN_RES),
+        PassSettings(**GOLDEN_DEPTH))
+    r.render(scene, cam, GOLDEN_SPP)
+    px = r.pixels(cam).cpu().numpy()
+    secs = time.perf_counter() - t0
+    out = np.clip(px * 255.0, 0, 255).astype(np.uint8)
+    return (*psnr_fireflies(out, golden), secs)
+
+
+def golden_gate():
+    """The four goldens at once, one worker process each (``chip_smoke.py
+    --golden NAME``) on the same card: a golden's 400 samples of 4,096
+    lanes are host dispatch, ~260-340 ms a sample on one core, so the four
+    share the card's host cores instead of queueing.  Each is gated at >=
+    28 dB PSNR and <= 40 fireflies; returns {scene: (dB, fireflies,
+    seconds)}."""
+    from ray_tpu_torch.utils.test_scenes import GOLDEN_SCENES, GOLDEN_SPP
+
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--golden",
+         name], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in GOLDEN_SCENES}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=GOLDEN_TIMEOUT)
+            if p.returncode != 0:
+                fail(f"golden {name}: the worker exited {p.returncode}: "
+                     f"{err.strip()[-2000:]}")
+            outs[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = {}
+    for name, o in outs.items():
+        psnr, ff, secs = o["psnr"], o["fireflies"], o["seconds"]
+        rows[name] = (psnr, ff, secs)
+        print(f"golden {name} 64x64, {GOLDEN_SPP} samples on the card: "
+              f"{psnr:.2f} dB, {ff} fireflies (gate >= {PSNR_FLOOR} dB, <= "
+              f"{FIREFLY_BUDGET}); {secs:.3f} s ({secs / GOLDEN_SPP * 1e3:.2f}"
+              f" ms a sample; four workers at once) [{CARD}]")
+        if not (psnr >= PSNR_FLOOR and ff <= FIREFLY_BUDGET):
+            fail(f"golden {name}: {psnr:.2f} dB, {ff} fireflies")
+    print(f"goldens: {time.perf_counter() - t0:.1f} s for the four")
+    return rows
+
+
+def golden_worker(name) -> int:
+    """``chip_smoke.py --golden NAME``: one golden's render, its numbers as
+    the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    psnr, ff, secs = golden_render(name)
+    print(json.dumps({"psnr": psnr, "fireflies": ff, "seconds": secs}))
+    return 0
+
+
+def shading_counts_ok(label, counts, marches, kernel, frames, transparent):
+    """A frame of a shading scene: 6 closest-hit launches of ``kernel``
+    (one a bounce) plus one a march trace, and 6 any-hit ones — none where
+    the scene has transparency (its shadow rays march closest hits); none
+    of the other kernels."""
+    n_march = marches.get("through", 0) + marches.get("transmittance", 0)
+    want = {f"{kernel}_closest": 6 * frames + n_march,
+            f"{kernel}_anyhit": 0 if transparent else 6 * frames}
+    for name in KERNELS:
+        for mode in ("closest", "anyhit"):
+            key = f"{name}_{mode}"
+            if counts.get(key, 0) != want.get(key, 0):
+                fail(f"{label}: {key} launched {counts.get(key, 0)} times, "
+                     f"expected {want.get(key, 0)} ({marches})")
+
+
+def shading_forward(label, scene, cam, settings, kernel,
+                    frames=SHADING_FRAMES):
+    """``frames`` timed 1080p forward frames after a warm-up frame, the
+    launch and march counts set to 0 just before and read just after."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render import integrator
+
+    render_frame(scene, cam, settings, 1, (1, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    integrator.march_counts.clear()
+    rays, frame_s = 0, []
+    t_all = time.perf_counter()
+    for f in range(frames):
+        t_f = time.perf_counter()
+        n, mean = render_frame(scene, cam, settings, 2 + f, (1, 1))
+        rays += n
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t_f)
+    wall = time.perf_counter() - t_all
+    counts = dict(cuda_build.launch_counts)
+    marches = dict(integrator.march_counts)
+    peak = torch.cuda.max_memory_allocated()
+    shading_counts_ok(label, counts, marches, kernel, frames,
+                      scene.has_transparency)
+    frame_ms = wall / frames * 1e3
+    n_march = marches.get("through", 0) + marches.get("transmittance", 0)
+    print(f"{label} fwd 1920x1080 1spp depth5: {rays / wall / 1e6:.3f} Mray/s"
+          f" over {frames} frames ({rays / frames:.0f} rays/frame), frame "
+          f"{frame_ms:.1f} ms (window / frames); {spread(frame_s)}; peak "
+          f"memory {peak / 2**30:.3f} GiB, mean radiance {mean:.6f} [{CARD}]")
+    print(f"  trace launches a frame: closest-hit "
+          f"{(counts.get(f'{kernel}_closest', 0) - n_march) / frames:.1f}, "
+          f"any-hit {counts.get(f'{kernel}_anyhit', 0) / frames:.1f}, march "
+          f"{n_march / frames:.1f} (closest-hit march "
+          f"{marches.get('through', 0) / frames:.1f}, shadow march "
+          f"{marches.get('transmittance', 0) / frames:.1f}); march host syncs"
+          f" a frame {marches.get('syncs', 0) / frames:.1f}")
+    print(f"  frame ms: {', '.join(f'{s * 1e3:.1f}' for s in frame_s)}")
+    return counts, frame_ms, marches
+
+
+def grad_diff(g_a, g_b, label):
+    """The worst column's max |diff| / max |g| between two gradient sets;
+    fails where one set has a gradient the other lacks."""
+    worst = 0.0
+    for k, g in g_b.items():
+        if g is None or g_a[k] is None:
+            if (g is None) != (g_a[k] is None):
+                fail(f"{label}: {k} has a gradient with one policy")
+            continue
+        scale = float(g.abs().max())
+        rel = float((g_a[k] - g).abs().max()) / scale if scale > 0 else 0.0
+        worst = max(worst, rel)
+    return worst
+
+
+def shading_fwd_bwd(label, scene, cam, settings, kernel, grid=(1, 1)):
+    """The 1080p fwd+bwd frame (a ``grid`` of tiles, each its own
+    backward, as bench.py renders the colonnade) with stored residuals and
+    with remat, each timed after a warm-up: gradients finite
+    (base_color's and env_col's non-zero), each policy launching the
+    forward's traces (the same number, marches included) and none in
+    backward, the loss bit-identical.  The material gradients' index_add_
+    sums millions of terms a row with atomics, in any order, which alone
+    moves a 1080p tri_glass column by ~1e-4 of its scale, so at 1080p the
+    remat gradients are held against the stored ones within
+    ``REMAT_NOISE_MULT`` times the gap between two stored-residual runs of
+    the same frame (the noise floor, measured here), or 1e-4 where that is
+    larger.  On ``REMAT_TILE`` with deterministic reductions they are held
+    within 1e-4 (the deterministic kernels are ~20x slower: ~9 minutes for
+    the alpha box's two 2x2 frames on a card run, too slow for whole
+    frames)."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render import integrator
+
+    tiles = grid_tiles(grid)
+    cuda_build.reset_launch_counts()
+    integrator.march_counts.clear()
+    with torch.no_grad():
+        for tile in tiles:
+            render(scene, cam, settings, 2, *tile)
+    fwd_counts = dict(cuda_build.launch_counts)
+    marches = dict(integrator.march_counts)
+    shading_counts_ok(f"{label} forward", fwd_counts, marches, kernel,
+                      len(tiles), scene.has_transparency)
+    policies = (("stored residuals", settings),
+                ("remat", dataclasses.replace(settings, remat=True)))
+    res = {}
+    for policy, st in policies:
+        fwd_bwd(scene, cam, st, 1, tiles)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launch_counts()
+        loss, rays, grads, tf, tb = fwd_bwd(scene, cam, st, 2, tiles)
+        counts = dict(cuda_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        check_grads(f"{label} fwd+bwd ({policy})", grads)
+        if counts != fwd_counts:
+            fail(f"{label} fwd+bwd ({policy}) launched {counts}, the forward "
+                 f"{fwd_counts}")
+        res[policy] = (loss, grads)
+        print(f"{label} fwd+bwd 1920x1080 1spp depth5 (grid {grid[0]}x"
+              f"{grid[1]}, {policy}): frame "
+              f"{(tf + tb) * 1e3:.1f} ms (forward {tf * 1e3:.1f} + backward "
+              f"{tb * 1e3:.1f}), {rays / (tf + tb) / 1e6:.3f} Mray/s; peak "
+              f"memory {peak / 2**30:.3f} GiB; loss {loss:.9e}; |grad "
+              f"base_color| max {float(grads['base_color'].abs().max()):.3e},"
+              f" |grad env_col| max {float(grads['env_col'].abs().max()):.3e};"
+              f" launches {counts} (the forward's) [{CARD}]")
+    (loss_s, g_s), (loss_r, g_r) = res["stored residuals"], res["remat"]
+    if loss_r != loss_s:
+        fail(f"{label} remat loss {loss_r!r} differs from the stored-residual"
+             f" loss {loss_s!r}")
+    loss_s2, _, g_s2, _, _ = fwd_bwd(scene, cam, settings, 2, tiles)
+    if loss_s2 != loss_s:
+        fail(f"{label} a second stored-residual loss {loss_s2!r} differs from"
+             f" the first {loss_s!r}")
+    noise = grad_diff(g_s2, g_s, f"{label} stored again")
+    spread = grad_diff(g_r, g_s, f"{label} remat")
+    limit = max(REMAT_NOISE_MULT * noise, 1e-4)
+    det = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for policy, st in policies:
+                det[policy] = fwd_bwd(scene, cam, st, 2, [REMAT_TILE])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    if det["remat"][0] != det["stored residuals"][0]:
+        fail(f"{label} remat tile loss differs from the stored-residual one")
+    worst = grad_diff(det["remat"][2], det["stored residuals"][2],
+                      f"{label} remat tile")
+    print(f"{label} fwd+bwd remat vs stored residuals: loss bit-identical at "
+          f"1080p ({loss_r:.9e}); worst column max |diff| / max |g| "
+          f"{spread:.2e} at 1080p with atomic reductions (stored vs stored "
+          f"again {noise:.2e}; limit {limit:.2e}), {worst:.2e} on the "
+          f"{REMAT_TILE[2]}x{REMAT_TILE[3]} tile at {REMAT_TILE[:2]} with "
+          f"deterministic ones (limit 1e-4)")
+    if spread > limit:
+        fail(f"{label} remat: a 1080p gradient column differs from stored "
+             f"residuals by {spread:.3e} of its largest entry, past "
+             f"{REMAT_NOISE_MULT} times the atomic noise floor {noise:.3e}")
+    if worst > 1e-4:
+        fail(f"{label} remat: a gradient column differs from stored residuals "
+             f"by {worst:.3e} of its largest entry")
 
 
 def profile_frames(cases):
@@ -1683,6 +2023,32 @@ def main() -> int:
                 check_sort_key(args, f"{label} launch {i}", errs)
             check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
         scenes[label] = (scene, cam, kernel, calls, st, grid)
+    # the shading slice's scenes: every launch of one 1080p frame, the
+    # alpha box's march traces included
+    shading = {}
+    for name, kernel in SHADING.items():
+        sc, cam = shading_scene(name)
+        scene = sc.finalize()
+        shading[name] = (scene, cam, kernel)
+        soa = scene.bvh_soa
+        print(f"scene {name}: {scene.num_tris} tris, {soa['code0'].shape[0]} "
+              f"BVH2 nodes{', wrows ' + str(tuple(soa['wrows'].shape)) if 'wrows' in soa else ''}, "
+              f"{scene.num_lights} lights {sorted({k for k, *_ in scene.light_kinds})}, "
+              f"node types {scene.mat_types}, transparency "
+              f"{scene.has_transparency}, light tree depth "
+              f"{scene.light_tree_depth}")
+        if name not in SHADING_PARITY:
+            continue
+        _, calls = capture_frame(scene, cam, settings, 1)
+        torch.cuda.synchronize()
+        if any(c[0] != kernel for c in calls):
+            fail(f"a {name} frame made {[c[0] for c in calls]}, expected "
+                 f"{kernel} calls only")
+        print(f"  {name} frame: {len(calls)} {kernel} launches "
+              f"({sum(c[2] for c in calls)} any-hit)")
+        for i, (k, args, any_hit) in enumerate(calls):
+            check_parity(k, args, (any_hit,), f"{name} launch {i}", errs)
+        del calls
 
     phase("card vs CPU tiles", t_start)
     # ---- small tiles: card vs the port's plain CPU path ---------------
@@ -1699,6 +2065,12 @@ def main() -> int:
                            settings_big)
     check_tile_against_cpu(colonnade_binned, "colonnade binned", 912, 500,
                            settings_big)
+    for name, (x0, y0) in SHADING_TILES.items():
+        check_tile_against_cpu(lambda n=name: shading_scene(n), name, x0, y0,
+                               settings)
+    check_tile_against_cpu(lambda: shading_scene("alpha_box", ALPHA_LIFT),
+                           "alpha_box lifted 2 mm", *SHADING_TILES["alpha_box"],
+                           settings)
 
     phase("forward paths", t_start)
     # ---- the forward main paths ---------------------------------------
@@ -1723,6 +2095,15 @@ def main() -> int:
     # dispatch four times; the 1x1 frame shows what that costs
     forward_path("colonnade", scene, cam, settings_big, "trace_tlas", (1, 1),
                  FRAMES_1X1)
+    for name, (scene, cam, kernel) in shading.items():
+        counts, frame_ms[name], _ = shading_forward(name, scene, cam,
+                                                    settings, kernel)
+        for mode in ("closest", "anyhit"):
+            key = f"{kernel}_{mode}"
+            launches[key] = launches.get(key, 0) + counts.get(key, 0)
+
+    phase("goldens", t_start)
+    golden_gate()
 
     phase("fwd+bwd", t_start)
     # ---- fwd+bwd --------------------------------------------------------
@@ -1733,6 +2114,9 @@ def main() -> int:
     check_grad_tile_against_cpu(cornell_sphere, "cornell_sphere", 900, 840,
                                 settings)
     check_remat_against_stored(*scenes["flagship"][:2], settings)
+    for name, grid in SHADING_BWD.items():
+        scene, cam, kernel = shading[name]
+        shading_fwd_bwd(name, scene, cam, settings, kernel, grid)
 
     phase("colonnade fwd+bwd", t_start)
     # ---- the colonnade's fwd+bwd frame: bench.py's settings_big (remat),
@@ -1872,4 +2256,6 @@ def main() -> int:
 CARD = ""
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--golden":
+        sys.exit(golden_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,9 +1,8 @@
 """ray_tpu_torch — the PyTorch + CUDA port of ``ray_tpu``, for NVIDIA Hopper.
 
 The package mirrors ``ray_tpu``'s layout module for module and exports
-what ``ray_tpu`` exports with the same signatures (``load_scene`` /
-``save_scene`` raise: not ported yet), so that ``import ray_tpu_torch as
-ray_tpu`` runs ``ray_tpu``'s quickstart.  It
+what ``ray_tpu`` exports with the same signatures, so that ``import
+ray_tpu_torch as ray_tpu`` runs ``ray_tpu``'s quickstart.  It
 imports torch, numpy and the standard library only — never JAX and never
 ``ray_tpu``.  Entry points run on the CUDA device unless the caller names
 another (``Scene.finalize(device="cpu")``, ``create_renderer(

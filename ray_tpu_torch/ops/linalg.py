@@ -63,10 +63,39 @@ def lum(c):
     return 0.212671 * c[..., 0] + 0.715160 * c[..., 1] + 0.072169 * c[..., 2]
 
 
+class _PowerHeuristic(torch.autograd.Function):
+    """t / (b² + t), t = a², with its partial derivatives taken on the
+    operands scaled by max(|a|, |b|): the plain quotient's backward
+    over- or underflows (b² of a miss's infinite light pdf, den² of two
+    tiny pdfs) into inf/inf or 0/0, which times the zero gradient of a lane
+    the caller selects away is NaN.  Lanes with a zero or non-finite scale
+    get no gradient.  The value is the plain quotient's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        t = a * a
+        return t / (b * b + t)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        s = torch.maximum(torch.abs(a), torch.abs(b))
+        ok = (s > 0.0) & torch.isfinite(s)
+        s = torch.where(ok, s, 1.0)
+        ah, bh = a / s, b / s
+        d = ah * ah + bh * bh
+        d2s = torch.where(ok, d * d * s, 1.0)
+        ga = torch.where(ok, 2.0 * ah * bh * bh / d2s, 0.0) * g
+        gb = torch.where(ok, -2.0 * bh * ah * ah / d2s, 0.0) * g
+        return ga, gb
+
+
 def power_heuristic(a, b):
-    """MIS power heuristic β=2."""
-    t = a * a
-    return t / (b * b + t)
+    """MIS power heuristic β=2 (reference internal/CoreRef.h:423); a
+    backward free of the plain quotient's overflow (:class:`_PowerHeuristic`)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return _PowerHeuristic.apply(a, b)
 
 
 def world_from_tangent(T, B, N, v):

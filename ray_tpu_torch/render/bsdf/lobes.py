@@ -47,7 +47,12 @@ def eval_oren_diffuse(V, N, L, roughness, base_color):
     nl = torch.clamp_min(dot(N, L, False), 0.0)
     nv = torch.clamp_min(dot(N, V, False), 0.0)
     t = dot(L, V, False) - nl * nv
-    t = torch.where(t > 0.0, t / (torch.maximum(nl, nv) + 1e-37), t)
+    den = torch.maximum(nl, nv) + 1e-37
+    # where both cosines vanish the quotient's partial in den (-t/den²)
+    # overflows and times a zero upstream gradient becomes NaN: no
+    # gradient reaches den there (the value is unchanged)
+    den = torch.where(den > 1e-18, den, den.detach())
+    t = torch.where(t > 0.0, t / den, t)
     f_cos = (nl * (a + b * t))[..., None] * base_color
     pdf = torch.full_like(nl, 0.5 / PI)
     return f_cos, pdf

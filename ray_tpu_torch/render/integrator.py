@@ -2,17 +2,33 @@
 
 The port of ``ray_tpu.render.integrator.render_tile``: one call renders one
 sample of one tile — primary rays → [closest-hit trace (flatten: one BVH;
-tlas: the two-level walk) → visible sphere lights → surface → textured
-uber BSDF → light-tree NEE + shadow (any-hit) trace → BSDF sample, Russian
-roulette] × bounces → per-pixel radiance + AUX.  ``ray_tpu`` runs the
-bounce body under ``lax.scan``; here it is a Python loop over
-``max_total_depth + 1`` bounces of whole-wavefront tensor ops, with
-active-lane masks.  Occupancy compaction (``compact_after``) follows
-``ray_tpu``'s conditions exactly: after ``compact_after`` full-width
-bounces, if the live lanes fit in ``K = max(R // compact_factor, 512)``,
-they are gathered to the front (a stable sort) and the remaining bounces
-run on those K lanes, whose state is scattered back after; each lane's
-arithmetic is unchanged, so compaction never changes a pixel.
+tlas: the two-level walk), marching through Transparent surfaces → visible
+analytic lights → surface → Mix resolution → textured uber BSDF →
+light-tree NEE + shadow trace (any-hit, or the transmittance march when
+the scene has transparency) → BSDF sample, Russian roulette] × bounces →
+per-pixel radiance + AUX.  ``ray_tpu`` runs the bounce body under
+``lax.scan``; here it is a Python loop over ``max_total_depth + 1``
+bounces of whole-wavefront tensor ops, with active-lane masks.
+
+The two transparency marches are ``ray_tpu``'s ``lax.while_loop`` loops,
+ported as Python loops on ``.any()`` of the live lanes, each trace one
+launch of the scene's closest-hit kernel: the closest-hit march
+(:func:`_trace_closest_through`, reference IntersectScene,
+CoreRef.cpp:3041-3158) carries a camera or BSDF ray through Transparent
+surfaces without spending a bounce, and the shadow march
+(:func:`_trace_transmittance`, CoreRef.cpp:3160-3262) multiplies a shadow
+ray's transmittance by each transparent surface's Mix-weighted color.
+Each loop test is one host synchronisation (``march_counts`` counts them
+and the marches' traces).  The closest-hit march runs detached, as in
+``ray_tpu``: Transparent colors reach the gradient only through the
+shadow march's :func:`~ray_tpu_torch.render.surface.shadow_transmittance`.
+
+Occupancy compaction (``compact_after``) follows ``ray_tpu``'s conditions
+exactly: after ``compact_after`` full-width bounces, if the live lanes fit
+in ``K = max(R // compact_factor, 512)``, they are gathered to the front (a
+stable sort) and the remaining bounces run on those K lanes, whose state is
+scattered back after; each lane's arithmetic is unchanged, so compaction
+never changes a pixel.
 
 Backward: PyTorch autograd through the whole tile.  Set float columns of
 ``scene.materials`` and ``env_col`` to leaf tensors with
@@ -31,20 +47,22 @@ runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps only
 the bounce's input state and recomputes its shading in backward.  The RNG
 is a hash of (pixel, iteration, dimension) and the forward has no atomics
 or unstable sorts, so the replay computes the forward's values bit for
-bit.  With ``remat_save_trace`` (the default) the bounce's two trace
-outputs are kept as well and handed back to the replay (``_TraceTape``,
-``ray_tpu``'s ``save_only_these_names("trace")``): backward launches no
-trace.  Without it the replay launches both traces again.
+bit.  With ``remat_save_trace`` (the default) the bounce's trace outputs
+(two, or more with the transparency marches) are kept as well and handed
+back to the replay in call order (``_TraceTape``, ``ray_tpu``'s
+``save_only_these_names("trace")``): backward launches no trace.  Without
+it the replay launches every trace again.
 ``remat_save_dots`` is accepted and changes nothing: ``ray_tpu`` saves its
 one-hot matmul outputs with it, and the port's bounce has no matrix
 product (the table reads are ``index_select``).
 
-Render options and scene features this slice does not carry raise
+Render options and scene features the port does not carry yet raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
@@ -54,6 +72,7 @@ from torch.utils import checkpoint
 from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops import rng
 from ray_tpu_torch.ops.linalg import (
+    HIT_BIAS,
     MAX_DIST,
     dot,
     offset_ray,
@@ -69,6 +88,12 @@ from ray_tpu_torch.ops.traverse import (
 from ray_tpu_torch.render import light_sampling, surface as surface_mod, uber
 from ray_tpu_torch.render.bsdf.microfacet import PI
 from ray_tpu_torch.render.raygen import generate_primary_rays
+from ray_tpu_torch.scene.materials import ShadingNode
+
+# the transparency marches' traces ("through": the closest-hit march past
+# a bounce's first trace; "transmittance": the shadow march) and their loop
+# tests ("syncs": one host synchronisation each), summed over renders
+march_counts: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,8 +220,6 @@ def _peek_ior(stack, skip_first, default=1.0):
 def _check_supported(scene, settings: PassSettings, cache_mode: str) -> None:
     if scene.has_visibility:
         raise not_ported("per-ray-type visibility masks", "Queue 1 item 20")
-    if scene.has_transparency:
-        raise not_ported("transparency", "Queue 1 item 21")
     if settings.tex_filter not in _TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
     if settings.output_sh:
@@ -311,7 +334,11 @@ def render_tile(
 class _TraceTape:
     """The trace outputs of one checkpointed bounce, in call order: recorded
     when the bounce runs forward, handed back when backward replays it, so
-    the replay shades the same (detached) hits without launching a trace."""
+    the replay shades the same (detached) hits without launching a trace.
+    A bounce of a scene with transparency traces a variable number of
+    times (each march step is one trace); the replay recomputes the same
+    march decisions from the same values, so it asks for the same traces
+    in the same order."""
 
     def __init__(self):
         self.outs = []
@@ -379,6 +406,138 @@ def _trace_occlusion(scene, ro, rd, t_max, active):
     )
 
 
+_TRANSP_KEYS = ("solid_f", "solid_b", "uv0", "uv1", "uv2", "mat_f", "mat_b")
+
+
+def _transp_hit(scene, hit):
+    """(side_solid, uv, mat_id) of each hit: whether the side hit blocks
+    shadow rays, the interpolated UV and the side's material."""
+    row = surface_mod.fetch_tri_row(scene, hit.prim, keys=_TRANSP_KEYS)
+    side_solid = torch.where(hit.backface, row["solid_b"] > 0.5,
+                             row["solid_f"] > 0.5)
+    w = (1.0 - hit.u - hit.v)[:, None]
+    uv = (w * row["uv0"] + hit.u[:, None] * row["uv1"]
+          + hit.v[:, None] * row["uv2"])
+    mat_id = surface_mod.pick_hit_material(scene, hit.prim, hit.backface,
+                                           row=row)
+    return side_solid, uv, mat_id
+
+
+def _trace_transmittance(scene, settings: PassSettings, traced, ro, rd,
+                         dist, active):
+    """Shadow-ray transparency march (reference IntersectScene shadow,
+    CoreRef.cpp:3160-3262): closest hits along the ray, multiplying the
+    Mix-weighted colors of transparent sides; a solid side zeroes the
+    factor.  Stops when no lane is live or after ``max_transp_depth + 1``
+    traces; lanes still live then block fully (rc = 0, CoreRef.cpp:3189).
+    Returns (R, 3) transmittance, 1 on lanes not ``active``."""
+    rc = torch.ones(ro.shape, dtype=torch.float32, device=ro.device)
+    act = active
+    it = 0
+    while it <= settings.max_transp_depth:
+        march_counts["syncs"] += 1
+        if not bool(act.any()):
+            break
+        march_counts["transmittance"] += 1
+        hit, _ = traced(_trace_closest, scene, ro, rd, dist, act)
+        miss = hit.prim < 0
+        side_solid, uv, mat_id = _transp_hit(scene, hit)
+        rc = torch.where((act & (~miss) & side_solid)[:, None], 0.0, rc)
+        cont = act & (~miss) & (~side_solid)
+        tcol = surface_mod.shadow_transmittance(scene, mat_id, uv)
+        rc = torch.where(cont[:, None], rc * tcol, rc)
+        adv = hit.t + HIT_BIAS
+        ro = torch.where(cont[:, None], ro + rd * adv[:, None], ro)
+        dist = torch.where(cont, dist - adv, dist)
+        act = cont & (rc.amax(dim=-1) > 1e-6) & (dist > HIT_BIAS)
+        it += 1
+    rc = torch.where(act[:, None], 0.0, rc)
+    return torch.where(active[:, None], rc, 1.0)
+
+
+def _transp_classify(scene, settings: PassSettings, hit, rd, live, transp_d,
+                     total_d, thr_lum, seed, sample_i):
+    """One step of the closest-hit march: resolve each hit's material as
+    the reference's trace stage does (CoreRef.cpp:3076-3126: Mix chains
+    without the Fresnel factor), then apply its Russian roulette past
+    ``min_transp_depth`` and its ``max_transp_depth`` budget
+    (CoreRef.cpp:3131-3141).  Returns (cont, kill, step_mult): lanes that
+    march on, transparent hits killed, and the color a lane that marches
+    on takes."""
+    miss = hit.prim < 0
+    side_solid, uv, mat_id = _transp_hit(scene, hit)
+    rand_dim = rng.RAND_DIM_BASE_COUNT + (
+        (total_d + transp_d).to(torch.int64) * rng.RAND_DIM_BOUNCE_COUNT)
+    trans_r, term_r = rng.scrambled_2d_rand(
+        rand_dim + rng.RAND_DIM_BSDF_PICK, seed, sample_i)
+    ones = torch.ones_like(trans_r)
+    mat_id, _, _ = surface_mod.resolve_mix(
+        scene, mat_id, uv, trans_r, rd, rd, ones, hit.backface, None,
+        use_fresnel=False)
+    i = torch.clamp_min(mat_id, 0).long()
+    is_transp = (live & (~miss) & (~side_solid) & (mat_id >= 0)
+                 & (scene.materials["type"][i] == ShadingNode.TRANSPARENT))
+    can_term = transp_d > settings.min_transp_depth
+    if settings.use_path_termination:
+        q = torch.where(can_term, torch.clamp_min(1.0 - thr_lum, 0.05), 0.0)
+    else:
+        q = torch.zeros_like(thr_lum)
+    exhausted = (transp_d + 1) >= settings.max_transp_depth
+    kill = is_transp & ((term_r < q) | (thr_lum <= 0.0) | exhausted)
+    cont = is_transp & (~kill)
+    step_mult = (scene.materials["base_color"][i]
+                 * safe_div_pos(1.0, 1.0 - q)[:, None])
+    return cont, kill, step_mult
+
+
+def _trace_closest_through(scene, settings: PassSettings, traced, ro, rd,
+                           t_max, active, throughput, transp_d, total_d,
+                           seed, sample_i):
+    """Closest-hit trace that marches through Transparent surfaces (the
+    reference's IntersectScene loop, CoreRef.cpp:3041-3158): a transparent
+    continuation spends transparency depth and RNG dimensions, not a
+    bounce.  The march loops while any lane continues; each lane's budget
+    is its own (``exhausted``), and a killed lane's throughput becomes 0.
+    The march is detached: its colors multiply ``throughput`` as
+    constants.  Returns (hit with t the distance from ``ro``, instance
+    ids or None, throughput, transparency depth)."""
+    hit, inst = traced(_trace_closest, scene, ro, rd, t_max, active)
+    if not scene.has_transparency:
+        return hit, inst, throughput, transp_d
+    with torch.no_grad():
+        rd = rd.detach()
+        lum = throughput.detach().amax(dim=-1)
+        cont, kill, mult = _transp_classify(
+            scene, settings, hit, rd, active, transp_d, total_d, lum, seed,
+            sample_i)
+        ro_c = ro.detach()
+        t_base = torch.zeros_like(t_max)
+        t_mult = torch.ones_like(ro_c)
+        while True:
+            march_counts["syncs"] += 1
+            if not bool(cont.any()):
+                break
+            march_counts["through"] += 1
+            c3 = cont[:, None]
+            adv = hit.t + HIT_BIAS
+            ro_c = torch.where(c3, ro_c + rd * adv[:, None], ro_c)
+            t_base = torch.where(cont, t_base + adv, t_base)
+            t_mult = torch.where(c3, t_mult * mult, t_mult)
+            lum = torch.where(cont, lum * mult.amax(dim=-1), lum)
+            transp_d = transp_d + cont.to(transp_d.dtype)
+            new_hit, _ = traced(_trace_closest, scene, ro_c, rd,
+                                torch.clamp_min(t_max - t_base, 0.0), cont)
+            hit = type(hit)(*(torch.where(cont, n, o)
+                              for n, o in zip(new_hit, hit)))
+            cont, nkill, mult = _transp_classify(
+                scene, settings, hit, rd, cont, transp_d, total_d, lum, seed,
+                sample_i)
+            kill = kill | nkill
+        hit = hit._replace(t=hit.t + t_base)
+    throughput = throughput * torch.where(kill[:, None], 0.0, t_mult)
+    return hit, (hit.inst if inst is not None else None), throughput, transp_d
+
+
 def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             sample_i: int, tape=None):
     """One wavefront bounce (``ray_tpu``'s ``bounce_step``).  Returns the
@@ -394,10 +553,17 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     device = ro.device
     have_lights = scene.num_lights > 0
     is_first = bounce == 0
+    has_portal = any(p for (_k, _v, _d, p) in scene.light_kinds)
     limit0 = settings.clamp_direct if is_first else settings.clamp_indirect
 
     total_depth = depth[:, 0] + depth[:, 1] + depth[:, 2]
-    hit, hit_inst = traced(_trace_closest, scene, ro, rd, t_max, active)
+    # closest hit, marching through Transparent surfaces (which updates the
+    # throughput and the transparency depth, not the bounce)
+    hit, hit_inst, throughput, transp_d = _trace_closest_through(
+        scene, settings, traced, ro, rd, t_max, active, throughput,
+        depth[:, 3], total_depth, seed, sample_i)
+    if scene.has_transparency:
+        depth = torch.cat([depth[:, :3], transp_d[:, None]], dim=-1)
     miss = hit.prim < 0
     indirect = total_depth > 0
 
@@ -424,8 +590,14 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         al_t, al_i, al_pdf, al_spot = light_sampling.intersect_area_lights(
             scene, ro, rd, seg_end, no_sphrect=settings.no_sphrect)
         light_first = active & (al_i >= 0) & (al_t < seg_end)
-        lcol = scene.lights["col"][torch.clamp_min(al_i, 0).long()] \
-            * al_spot[:, None]
+        al_safe = torch.clamp_min(al_i, 0).long()
+        lcol = scene.lights["col"][al_safe] * al_spot[:, None]
+        if has_portal:
+            # a sky-portal hit shows the environment through the window
+            # (Evaluate_LightColor's sky_portal branch, ShadeRef.cpp:1077)
+            lcol = torch.where(scene.lights["portal"][al_safe][:, None],
+                               lcol * light_sampling.env_color(scene, rd),
+                               lcol)
         if settings.use_nee:
             # MIS at any depth (Evaluate_LightColor, ShadeRef.cpp:1080-1170)
             lw = torch.where(indirect, power_heuristic(bsdf_pdf, al_pdf), 1.0)
@@ -571,11 +743,29 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         sh_d = to_lp / sh_dist[:, None]
         sh_dist = sh_dist * ls.dist_mul
         shadow_active = nee_valid & ls.cast_shadow
-        occluded = traced(_trace_occlusion, scene, sh_o, sh_d,
-                          sh_dist * 0.999, shadow_active)
-        visible = nee_valid & ((~ls.cast_shadow) | (~occluded))
-        sh_contrib = _clamp_contribution(throughput * nee_col, limit0)
-        accum = _add(accum, sh_contrib, visible)
+        # sky portals block environment shadow rays one-sidedly (the
+        # blocker pass, CoreRef.cpp:4866-4870 + :4533-4590)
+        pblock = None
+        if has_portal:
+            pblock = ls.from_env & light_sampling.portal_shadow_block(
+                scene, sh_o, sh_d, sh_dist * 0.999)
+        if scene.has_transparency:
+            rc = _trace_transmittance(scene, settings, traced, sh_o, sh_d,
+                                      sh_dist * 0.999, shadow_active)
+            factor = torch.where(ls.cast_shadow[:, None], rc, 1.0)
+            if pblock is not None:
+                factor = torch.where(pblock[:, None], 0.0, factor)
+            sh_contrib = _clamp_contribution(throughput * nee_col * factor,
+                                             limit0)
+            accum = _add(accum, sh_contrib, nee_valid)
+        else:
+            occluded = traced(_trace_occlusion, scene, sh_o, sh_d,
+                              sh_dist * 0.999, shadow_active)
+            visible = nee_valid & ((~ls.cast_shadow) | (~occluded))
+            if pblock is not None:
+                visible = visible & (~pblock)
+            sh_contrib = _clamp_contribution(throughput * nee_col, limit0)
+            accum = _add(accum, sh_contrib, visible)
         n_shadow = shadow_active.sum()
 
     # ---------- BSDF sampling / next bounce ----------

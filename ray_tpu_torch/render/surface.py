@@ -9,10 +9,14 @@ object space and the hit's instance transform (positions by the matrix,
 normals by its inverse transpose) carries it to world space.
 
 ``ray_tpu`` reads the packed row with a one-hot matmul (a TPU layout
-device); here it is plain indexing, with the same values.  Mix resolution,
-normal mapping and the per-material tangent rotation stay the pass-throughs
-they are in ``ray_tpu`` when the scene has none; a scene that has them
-raises (ROADMAP Queue 1 items 29 and 32).
+device); here it is plain indexing, with the same values.  Mix nodes
+resolve stochastically to a leaf material (:func:`resolve_mix`, with the
+Fresnel factor in the shade stage and without it in the trace stage), and
+shadow rays through transparent surfaces take the deterministic
+Mix-weighted transparency color (:func:`shadow_transmittance`).  Normal
+mapping and the per-material tangent rotation stay the pass-throughs they
+are in ``ray_tpu`` when the scene has none; a scene that has them raises
+(ROADMAP Queue 1 item 32).
 """
 
 from __future__ import annotations
@@ -22,7 +26,12 @@ from typing import NamedTuple
 import torch
 
 from ray_tpu_torch._roadmap import not_ported
-from ray_tpu_torch.ops.linalg import cross, dot, safe_normalize
+from ray_tpu_torch.ops.linalg import cross, dot, safe_div_pos, safe_normalize
+from ray_tpu_torch.render.bsdf.microfacet import fresnel_dielectric_cos
+from ray_tpu_torch.scene.materials import MAT_FLAG_MIX_ADD, ShadingNode
+from ray_tpu_torch.scene.textures import sample_bilinear, texture_lod
+
+MAX_MIX_DEPTH = 4  # Mix nodes may nest; resolution is unrolled this deep
 
 
 class Surface(NamedTuple):
@@ -245,11 +254,90 @@ def pick_hit_material(scene, prim, backface, row=None):
 
 def resolve_mix(scene, mat_id, uv, mix_rand, I, N, ext_ior, backfacing,
                 tex_rand, lam=None, fetch_kw=None, use_fresnel=True):
-    """Stochastic Mix-node resolution: returns (leaf_mat_id, mix_rand,
-    mix_weight) — a static pass-through when the scene has no Mix node."""
-    if scene.has_mix:
-        raise not_ported("Mix nodes", "Queue 1 item 29")
-    return mat_id, mix_rand, torch.ones_like(mix_rand)
+    """Stochastically resolve Mix-node chains (ShadeRef.cpp:1303-1335),
+    unrolled ``MAX_MIX_DEPTH`` deep; non-Mix lanes pass through.  Returns
+    (leaf_mat_id, rescaled mix_rand, mix_weight) — a static pass-through
+    when the scene has no Mix node.  ``use_fresnel=False`` is the trace
+    stage's resolve (CoreRef.cpp:3103-3126), which does not scale the mix
+    value by the dielectric Fresnel term."""
+    if not scene.has_mix:
+        return mat_id, mix_rand, torch.ones_like(mix_rand)
+    mats = scene.materials
+    mix_weight = torch.ones_like(mix_rand)
+    for _ in range(MAX_MIX_DEPTH):
+        i = torch.clamp_min(mat_id, 0).long()
+        mtype_ = mats["type"][i]
+        mix_val = mats["strength"].index_select(0, i)
+        base_tex = mats["base_texture"][i]
+        ior = mats["ior"].index_select(0, i)
+        flags_ = mats["flags"][i]
+        mm1 = mats["mix_mat1"][i]
+        mm2 = mats["mix_mat2"][i]
+        is_mix = (mtype_ == ShadingNode.MIX) & (mat_id >= 0)
+        if scene.has_textures:
+            lod = (None if lam is None
+                   else texture_lod(scene.textures, base_tex, lam))
+            tex = sample_bilinear(scene.textures, base_tex, uv, lod,
+                                  **(fetch_kw or {}))
+            mix_val = mix_val * torch.where(base_tex >= 0, tex[:, 0], 1.0)
+        if use_fresnel:
+            eta = torch.where(backfacing, safe_div_pos(ext_ior, ior),
+                              safe_div_pos(ior, ext_ior))
+            rr = torch.where(ior != 0.0,
+                             fresnel_dielectric_cos(dot(I, N, False), eta),
+                             1.0)
+            mix_val = mix_val * torch.clamp(rr, 0.0, 1.0)
+
+        mix_add = (flags_ & MAT_FLAG_MIX_ADD) != 0
+        take2 = mix_rand <= mix_val
+        new_id = torch.where(take2, mm2, mm1)
+        w_mult = torch.where(
+            mix_add,
+            torch.where(take2, safe_div_pos(1.0, mix_val),
+                        safe_div_pos(1.0, 1.0 - mix_val)),
+            1.0,
+        )
+        new_rand = torch.where(
+            take2,
+            safe_div_pos(mix_rand, mix_val),
+            safe_div_pos(mix_rand - mix_val, 1.0 - mix_val),
+        )
+        mat_id = torch.where(is_mix, new_id, mat_id)
+        mix_rand = torch.where(is_mix, torch.clamp(new_rand, 0.0, 1.0),
+                               mix_rand)
+        mix_weight = torch.where(is_mix, mix_weight * w_mult, mix_weight)
+    return mat_id, mix_rand, mix_weight
+
+
+def shadow_transmittance(scene, mat_id, uv, lam=None,
+                         depth: int = MAX_MIX_DEPTH):
+    """Deterministic Mix-weighted transparency color for shadow rays
+    (reference CoreRef.cpp:3213-3250: the shadow loop expands the Mix DAG
+    with weights — no Fresnel, no stochastic pick — and sums the
+    Transparent leaves' base colors).  Returns (R, 3)."""
+    mats = scene.materials
+    i = torch.clamp_min(mat_id, 0).long()
+    mtype = mats["type"][i]
+    bcol = mats["base_color"].index_select(0, i)
+    is_transp = (mtype == ShadingNode.TRANSPARENT) & (mat_id >= 0)
+    leaf = torch.where(is_transp[:, None], bcol, 0.0)
+    if depth == 0 or not scene.has_mix:  # static: Transparent leaves only
+        return leaf
+    mix_val = mats["strength"].index_select(0, i)
+    base_tex = mats["base_texture"][i]
+    mm1 = mats["mix_mat1"][i]
+    mm2 = mats["mix_mat2"][i]
+    is_mix = (mtype == ShadingNode.MIX) & (mat_id >= 0)
+    if scene.has_textures:
+        lod = None if lam is None else texture_lod(scene.textures, base_tex,
+                                                    lam)
+        tex = sample_bilinear(scene.textures, base_tex, uv, lod)
+        mix_val = mix_val * torch.where(base_tex >= 0, tex[:, 0], 1.0)
+    mix_val = torch.clamp(mix_val, 0.0, 1.0)
+    t1 = shadow_transmittance(scene, mm1, uv, lam, depth - 1)
+    t2 = shadow_transmittance(scene, mm2, uv, lam, depth - 1)
+    mixed = (1.0 - mix_val)[:, None] * t1 + mix_val[:, None] * t2
+    return torch.where(is_mix[:, None], mixed, leaf)
 
 
 def apply_normal_map(scene, mat_id, surf: Surface, I, tex_rand, lam=None,

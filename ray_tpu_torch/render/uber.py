@@ -1,16 +1,17 @@
 """The uber-BSDF: one superset parameter block evaluated for every hit.
 
-The port of ``ray_tpu.render.uber`` for the node types this port carries:
-DIFFUSE (Oren-Nayar, uniform-hemisphere sampled), GLOSSY (the GGX
-specular lobe alone), EMISSIVE and PRINCIPLED (Burley diffuse with sheen,
-GGX specular, GTR1 clearcoat and GGX refraction, with the Cycles-style
-lobe weights).  A node type pins the lobe
-weights of the principled superset; evaluation is arithmetic and selects.
-As in ``ray_tpu``, the set of node types in the scene is static
-(:class:`MatFeatures`) and lobe families no material can reach are traced
-away; a scene with REFRACTIVE, MIX or TRANSPARENT nodes raises
-(ROADMAP Queue 1 item 29).  ``ray_tpu``'s one-hot matmul material reads
-become ``index_select`` reads with the same values.
+The port of ``ray_tpu.render.uber``: DIFFUSE (Oren-Nayar, uniform-
+hemisphere sampled), GLOSSY (the GGX specular lobe alone), REFRACTIVE (the
+GGX refraction lobe alone, Fresnel pick probability 0), EMISSIVE,
+TRANSPARENT (a straight pass-through tinted by the base color) and
+PRINCIPLED (Burley diffuse with sheen, GGX specular, GTR1 clearcoat and
+GGX refraction, with the Cycles-style lobe weights).  MIX nodes resolve to
+one of these before the uber block (``surface.resolve_mix``).  A node type
+pins the lobe weights of the principled superset; evaluation is arithmetic
+and selects.  As in ``ray_tpu``, the set of node types in the scene is
+static (:class:`MatFeatures`) and lobe families no material can reach are
+traced away.  ``ray_tpu``'s one-hot matmul material reads become
+``index_select`` reads with the same values.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from typing import NamedTuple
 
 import torch
 
-from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops.linalg import dot, lum, safe_div_pos, saturate
 from ray_tpu_torch.render.bsdf import lobes
 from ray_tpu_torch.render.bsdf.microfacet import calc_alpha, fresnel_dielectric_cos
@@ -34,8 +34,6 @@ RAY_TYPE_SPECULAR = 2
 RAY_TYPE_REFR = 3
 RAY_TYPE_SHADOW = 4
 
-_PORTED_NODES = frozenset({ShadingNode.DIFFUSE, ShadingNode.GLOSSY,
-                           ShadingNode.EMISSIVE, ShadingNode.PRINCIPLED})
 MAX_CONE_SPREAD_INCREMENT = 0.05  # reference Constants.inl:108
 
 
@@ -47,6 +45,8 @@ class MatFeatures:
     principled: bool = True
     diffuse: bool = True      # a plain DIFFUSE node exists
     glossy: bool = True       # a GLOSSY node exists
+    refractive: bool = True   # a REFRACTIVE node exists
+    transparent: bool = True  # a TRANSPARENT node exists
 
     @property
     def any_diffuse(self) -> bool:
@@ -58,7 +58,7 @@ class MatFeatures:
 
     @property
     def any_refr(self) -> bool:
-        return self.principled
+        return self.principled or self.refractive
 
     @property
     def coat(self) -> bool:
@@ -66,17 +66,13 @@ class MatFeatures:
 
 
 def mat_features(mat_types) -> MatFeatures:
-    """Features for a static node-type tuple.  Raises for node types the
-    port does not carry yet."""
+    """Features for a static node-type tuple."""
     s = frozenset(int(t) for t in mat_types)
-    missing = s - _PORTED_NODES
-    if missing:
-        names = sorted(k for k, v in vars(ShadingNode).items()
-                       if not k.startswith("_") and v in missing)
-        raise not_ported(f"material node types {names}", "Queue 1 item 29")
     return MatFeatures(principled=ShadingNode.PRINCIPLED in s,
                        diffuse=ShadingNode.DIFFUSE in s,
-                       glossy=ShadingNode.GLOSSY in s)
+                       glossy=ShadingNode.GLOSSY in s,
+                       refractive=ShadingNode.REFRACTIVE in s,
+                       transparent=ShadingNode.TRANSPARENT in s)
 
 
 class UberParams(NamedTuple):
@@ -204,6 +200,7 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
     is_principled = mtype == ShadingNode.PRINCIPLED
     is_diffuse_node = mtype == ShadingNode.DIFFUSE
     is_glossy = mtype == ShadingNode.GLOSSY
+    is_refractive = mtype == ShadingNode.REFRACTIVE
     is_emissive = mtype == ShadingNode.EMISSIVE
     is_transparent = mtype == ShadingNode.TRANSPARENT
 
@@ -266,7 +263,8 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
     w_diffuse = torch.where(is_diffuse_node, one, zero)
     w_specular = torch.where(is_glossy, one, zero) if feats.glossy else zero
     w_clearcoat = zero
-    w_refraction = zero
+    w_refraction = (torch.where(is_refractive, one, zero) if feats.refractive
+                    else zero)
     if feats.principled:
         w_diffuse = torch.where(is_principled, w_d, w_diffuse)
         w_specular = torch.where(is_principled, w_s, w_specular)
@@ -307,19 +305,23 @@ def gather_uber_params(scene, mat_id, uv, I, N, backfacing, ext_ior, tex_rand,
             safe_div_pos(ext_ior, mat_ior),
         )
         refr_spec_alpha = calc_alpha(roughness, zero, regularize_alpha)
-        trans_roughness = (
-            1.0 - (1.0 - roughness) * (1.0 - transmission_roughness)
-        )
-        trans_fresnel = fresnel_dielectric_cos(
-            dot(I, N, False), safe_div_pos(torch.ones_like(eta), eta)
-        )
-        trans_alpha = torch.where(
-            is_principled[:, None],
-            calc_alpha(trans_roughness, zero, regularize_alpha),
-            refr_spec_alpha,
-        )
-        # a Refractive node always transmits: fresnel pick prob 0
-        trans_fresnel = torch.where(is_principled, trans_fresnel, 0.0)
+        if feats.principled:
+            trans_roughness = (
+                1.0 - (1.0 - roughness) * (1.0 - transmission_roughness)
+            )
+            trans_fresnel = fresnel_dielectric_cos(
+                dot(I, N, False), safe_div_pos(torch.ones_like(eta), eta)
+            )
+            trans_alpha = torch.where(
+                is_principled[:, None],
+                calc_alpha(trans_roughness, zero, regularize_alpha),
+                refr_spec_alpha,
+            )
+            # a Refractive node always transmits: fresnel pick prob 0
+            trans_fresnel = torch.where(is_principled, trans_fresnel, 0.0)
+        else:
+            trans_alpha = refr_spec_alpha
+            trans_fresnel = zero
     else:
         eta = one
         refr_spec_alpha = zero2
@@ -578,6 +580,17 @@ def sample_uber(p: UberParams, T, B, N, I, rand2, mix_rand,
         ),
     ).to(torch.int32)
     flip_origin = pick_r & (~pick_rr)
+
+    if feats.transparent:
+        # a Transparent node passes straight through, tinted by its base
+        # color (CoreRef.cpp:3143-3145); ray type 5 = transparency
+        tr = p.is_transparent
+        out_dir = torch.where(tr[:, None], I, out_dir)
+        out_w = torch.where(tr[:, None], p.base_color, out_w)
+        out_pdf = torch.where(tr, lobes.DELTA_PDF, out_pdf)
+        ray_type = torch.where(tr, 5, ray_type).to(torch.int32)
+        flip_origin = flip_origin | tr
+        cone_inc = torch.where(tr, 0.0, cone_inc)
 
     # emissive / no-lobe: dead sample
     dead = p.is_emissive | ((~pick_d) & (~pick_s) & (~pick_c) & (~pick_r)

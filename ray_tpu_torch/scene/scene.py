@@ -15,7 +15,9 @@ subtree slabs of the binned trace (``bvh_soa["binned_*"]``,
 instanced more than once) builds one object-space BVH per mesh and a TLAS
 over the instances, and past 256 unique triangles the unified 8-wide table
 ``bvh_soa["wrows_tlas"]`` that the traversal walks.  Uncompressed textures
-pack into ``ray_tpu``'s flat texel table (:mod:`.textures`).  Not ported
+pack into ``ray_tpu``'s flat texel table (:mod:`.textures`).  A principled
+material with ``alpha`` < 1 or an alpha texture expands, as in
+``ray_tpu``, into Mix(Transparent, root) nodes.  Not ported
 yet, and raising ``NotImplementedError`` with the ROADMAP entry that will
 port it: compressed textures and env maps, the physical sky and the
 SBVH/HLBVH builders.
@@ -249,13 +251,28 @@ class Scene:
                                   compress=compress)
 
     def add_material(self, desc: MaterialDesc) -> int:
+        # Principled alpha expands into a Mix(Transparent, root) node tree
+        # like the reference (SceneCPU.cpp:285-334): alpha == 0 IS the
+        # transparent node; otherwise a Mix with strength = alpha (and the
+        # alpha texture as the mix weight map), ior = 0 (no Fresnel).
         from ray_tpu_torch.scene.materials import NO_TEXTURE
 
         if desc.type == ShadingNode.PRINCIPLED and (
                 desc.alpha != 1.0 or desc.alpha_texture != NO_TEXTURE):
-            # ray_tpu expands principled alpha into Mix(Transparent, root)
-            raise not_ported("principled alpha (Mix + Transparent nodes)",
-                             "Queue 1 item 29")
+            root = dataclasses.replace(desc, alpha=1.0,
+                                       alpha_texture=NO_TEXTURE)
+            self._materials.append(root)
+            root_id = len(self._materials) - 1
+            self._materials.append(MaterialDesc(
+                type=ShadingNode.TRANSPARENT, base_color=(1.0, 1.0, 1.0)))
+            transp_id = len(self._materials) - 1
+            if desc.alpha == 0.0 and desc.alpha_texture == NO_TEXTURE:
+                return transp_id
+            self._materials.append(MaterialDesc(
+                type=ShadingNode.MIX, strength=float(desc.alpha),
+                base_texture=desc.alpha_texture, ior=0.0,
+                mix_materials=(transp_id, root_id)))
+            return len(self._materials) - 1
         self._materials.append(desc)
         return len(self._materials) - 1
 

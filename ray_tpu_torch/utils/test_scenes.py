@@ -1,7 +1,10 @@
 """Canonical test scenes: the port of ``ray_tpu.utils.test_scenes``'s
 Cornell box (the scene of the flagship frame) and the instanced colonnade
 (the big scene: two-level traversal, textures, principled materials,
-sphere lights), and the instanced generator scene of the traversal tests."""
+sphere lights), the instanced generator scene of the traversal tests, the
+four scenes of ``ray_tpu``'s committed CPU goldens
+(``tests/cpu_golden_scenes.py``: ``GOLDEN_SCENES``) and ``alpha_box``, a
+Cornell box whose tall box has principled alpha."""
 
 from __future__ import annotations
 
@@ -21,8 +24,7 @@ def cornell_scene(
 ):
     """Cornell-style box: white back/floor/ceiling, red left, green right,
     a diffuse tall box, and a configurable light source.  Returns
-    (Scene, Camera); only ``emissive_quad`` and ``env`` render in this port
-    so far — the analytic light kinds build but raise at render time."""
+    (Scene, Camera)."""
     sc = Scene()
     white = sc.add_material(MaterialDesc(type=ShadingNode.DIFFUSE, base_color=(0.73, 0.73, 0.73), roughness=0.0))
     red = sc.add_material(MaterialDesc(type=ShadingNode.DIFFUSE, base_color=(0.65, 0.05, 0.05), roughness=0.0))
@@ -83,6 +85,9 @@ def cornell_scene(
         sc.add_light(
             LightDesc(
                 type=LightType.DIR,
+                # directional "sun": color is radiance, so a few-degree
+                # disk needs a high value to light the box (solid angle
+                # ≈ π·tan²(angle/2))
                 color=(light_power * 25.0,) * 3,
                 direction=(0.2, -1.0, 1.6),  # shines in through the open front
                 angle=4.0,
@@ -95,6 +100,124 @@ def cornell_scene(
 
     cam = make_camera(origin=(0, 0, -2.9), look_at=(0, 0, 0), fov=45.0)
     return sc, cam
+
+
+def scene_rect_disk():
+    """Cornell shell lit by a rect + a disk light (no emissive quad)."""
+    sc = Scene()
+    white = sc.add_material(MaterialDesc(
+        type=ShadingNode.DIFFUSE, base_color=(0.73, 0.73, 0.73)))
+    red = sc.add_material(MaterialDesc(
+        type=ShadingNode.DIFFUSE, base_color=(0.65, 0.05, 0.05)))
+    s = 1.0
+    for center, u, v, m in [
+        ((0, -s, 0), (s, 0, 0), (0, 0, s), white),
+        ((0, +s, 0), (s, 0, 0), (0, 0, -s), white),
+        ((0, 0, +s), (s, 0, 0), (0, -s, 0), white),
+        ((-s, 0, 0), (0, 0, s), (0, s, 0), red),
+        ((+s, 0, 0), (0, 0, -s), (0, s, 0), white),
+    ]:
+        cx, cy, cz = center
+        ux, uy, uz = u
+        vx, vy, vz = v
+        verts = [
+            [cx - ux - vx, cy - uy - vy, cz - uz - vz],
+            [cx + ux - vx, cy + uy - vy, cz + uz - vz],
+            [cx + ux + vx, cy + uy + vy, cz + uz + vz],
+            [cx - ux + vx, cy - uy + vy, cz - uz + vz],
+        ]
+        sc.add_mesh(vertices=verts, indices=[[0, 1, 2], [0, 2, 3]],
+                    material=m)
+    sc.add_light(LightDesc(
+        type=LightType.RECT, color=(14.0, 13.0, 12.0),
+        position=(-0.3, 0.96, 0.1), axis_u=(1, 0, 0), axis_v=(0, 0, 1),
+        width=0.4, height=0.4))
+    sc.add_light(LightDesc(
+        type=LightType.DISK, color=(30.0, 32.0, 34.0),
+        position=(0.5, 0.9, -0.4),
+        axis_u=(0.894, 0.447, 0.0), axis_v=(0, 0, 1),
+        width=0.3, height=0.3))
+    cam = make_camera(origin=(0, 0, -2.8), look_at=(0, 0, 0), fov=50.0)
+    return sc, cam
+
+
+def scene_sphere_spot_line():
+    """Cornell shell with a plain sphere light, a spotlight and a line
+    light (sphere cone sampling, spot falloff, cylinder sampling)."""
+    sc, cam = cornell_scene("sphere")
+    sc.add_light(LightDesc(
+        type=LightType.SPHERE, color=(25.0, 20.0, 15.0),
+        position=(0.5, 0.7, -0.5), radius=0.08,
+        direction=(-0.5, -0.81, 0.3), spot_size=40.0,
+        spot_blend=0.2 * 0.2))
+    sc.add_light(LightDesc(
+        type=LightType.LINE, color=(40.0, 45.0, 50.0),
+        position=(-0.6, 0.8, 0.0), axis_u=(1, 0, 0), axis_v=(0, 0, 1),
+        radius=0.01, height=0.8))
+    return sc, cam
+
+
+def scene_dir_env():
+    """Open ground plane + a dir light with angular spread + a constant
+    environment (2,210 triangles: the 8-wide walk)."""
+    sc = Scene()
+    grey = sc.add_material(MaterialDesc(
+        type=ShadingNode.DIFFUSE, base_color=(0.6, 0.6, 0.6)))
+    ball = sc.add_material(MaterialDesc(
+        type=ShadingNode.PRINCIPLED, base_color=(0.7, 0.3, 0.2),
+        roughness=0.4))
+    sc.add_mesh(vertices=[[-8, 0, -8], [8, 0, -8], [8, 0, 8], [-8, 0, 8]],
+                indices=[[0, 1, 2], [0, 2, 3]], material=grey)
+    v, idx, n, uv = make_uv_sphere(radius=0.5)
+    sc.add_mesh(v + [0.0, 0.5, 0.0], idx, normals=n, uvs=uv, material=ball)
+    sc.add_light(LightDesc(
+        type=LightType.DIR, color=(6.0, 5.5, 5.0),
+        direction=(0.45, -0.8, 0.4), angle=8.0))
+    sc.set_environment((0.3, 0.45, 0.7))
+    cam = make_camera(origin=(0, 1.6, -4.0), look_at=(0, 0.4, 0), fov=40.0)
+    return sc, cam
+
+
+def scene_tri_glass():
+    """Emissive-triangle light (MIS vs BSDF hits) + a refractive box."""
+    return cornell_scene(
+        "emissive_quad",
+        box_material=MaterialDesc(
+            type=ShadingNode.REFRACTIVE, base_color=(1.0, 1.0, 1.0),
+            roughness=0.0, ior=1.45),
+    )
+
+
+def alpha_box(lift: float = 0.0):
+    """``cornell_scene("rect")`` whose tall box is a principled material
+    with alpha 0.5: Mix(Transparent, principled), which drives both
+    transparency marches and the Mix resolution.  At ``lift`` 0 the box's
+    bottom face lies in the floor's plane, and a ray leaving a point inside
+    the transparent box downward meets both at one t — which one it
+    reports rides on the last ulp of the ray."""
+    sc, cam = cornell_scene("rect", box_material=MaterialDesc(
+        type=ShadingNode.PRINCIPLED, base_color=(0.8, 0.6, 0.2),
+        roughness=0.3, alpha=0.5))
+    if lift:
+        # the tall box is the sixth mesh: its vertices at the lifted centre
+        bv, _, _ = make_box(center=(-0.3, -0.65 + lift, 0.3),
+                            size=(0.6, 0.7, 0.6))
+        sc._meshes[5].vertices = np.asarray(bv, np.float32).reshape(-1, 3)
+    return sc, cam
+
+
+# the goldens' scenes, resolution, sample count and pass settings
+# (tests/cpu_golden_scenes.py: PassSettings(max_total_depth=5,
+# min_total_depth=3))
+GOLDEN_SCENES = {
+    "rect_disk": scene_rect_disk,
+    "sphere_spot_line": scene_sphere_spot_line,
+    "dir_env": scene_dir_env,
+    "tri_glass": scene_tri_glass,
+}
+GOLDEN_RES = 64
+GOLDEN_SPP = 400
+GOLDEN_DEPTH = dict(max_total_depth=5, min_total_depth=3)
 
 
 def colonnade_scene(

@@ -10,8 +10,10 @@
   ROADMAP item (checked below for each).
 * ``Scene.finalize(4)`` builds with ``max_leaf=4``;
   ``finalize(fast_build=True)`` raises for item 15; ``set_physical_sky()``
-  for item 23; ``save_scene`` / ``load_scene`` for item 14;
+  for item 23;
   ``PassSettings(force_xla=True)`` constructs, its fields in ray_tpu's order.
+  ``save_scene`` / ``load_scene`` raised for item 14 until it was ported:
+  now a scene round-trips through them, ``device`` keyword-only.
 """
 
 import dataclasses
@@ -93,13 +95,27 @@ def test_set_physical_sky_raises_naming_item_23():
         sc.set_physical_sky()
 
 
+def _save_then_load(path, **load_kw):
+    sc, _ = cornell_scene()
+    scene = sc.finalize(device="cpu")
+    ray_tpu_torch.save_scene(path, scene)
+    return scene, ray_tpu_torch.load_scene(path, **load_kw)
+
+
 @pytest.mark.parametrize("call", [
-    lambda: ray_tpu_torch.save_scene("scene.npz", None),
-    lambda: ray_tpu_torch.load_scene("scene.npz"),
+    lambda path: _save_then_load(path, device="cpu"),
+    lambda path: _save_then_load(path, device=torch.device("cpu")),
 ])
-def test_scene_io_raises_naming_item_14(call):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        call()
+def test_scene_io_raises_naming_item_14(call, tmp_path):
+    """Item 14 is ported: the scene comes back equal, on the device named
+    by the keyword-only ``device``."""
+    scene, back = call(str(tmp_path / "scene.npz"))
+    assert back.device.type == "cpu"
+    assert back.light_kinds == scene.light_kinds
+    for k, v in scene.materials.items():
+        assert torch.equal(back.materials[k], v), k
+    params = inspect.signature(ray_tpu_torch.load_scene).parameters
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
 
 
 def test_pass_settings_force_xla():

@@ -9,7 +9,10 @@ is shown to launch its kernel: the flagship ``trace_brute``, the
 ``cornell_sphere`` scene (376 triangles) ``trace_bvh``, the instanced
 colonnade ``trace_tlas``, a big flatten scene ``trace_tlas`` over its
 ``wrows`` (the wide route) and, finalized with ``pallas_binned=True``,
-``trace_binned``.
+``trace_binned``.  The shading slice's scenes (the four CPU goldens' and
+the alpha box) hold every trace launch of a tile, the transparency
+marches' included, bit-exact against the plain version, and one golden
+renders at its 400 samples within the goldens' gate.
 """
 
 import numpy as np
@@ -612,3 +615,89 @@ def test_renderer_sample_on_the_card():
     assert bool(((px >= 0) & (px <= 1)).all())
     with pytest.raises(ValueError, match="renderer"):
         r.render(sc.finalize(device="cpu"), cam, 1)
+
+
+def _shading_scene(name):
+    from ray_tpu_torch.utils import test_scenes
+
+    if name == "alpha_box":
+        return test_scenes.alpha_box()
+    return test_scenes.GOLDEN_SCENES[name]()
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("rect_disk", "trace_brute"), ("sphere_spot_line", "trace_brute"),
+    ("dir_env", "trace_tlas"), ("tri_glass", "trace_brute"),
+    ("alpha_box", "trace_brute")])
+def test_shading_scene_launches_bit_exact(name, kernel):
+    """Every trace launch of a 256x128 tile, on the kernel the scene's size
+    picks (dir_env's 2,210 triangles: the wide route), equals the plain
+    version's; the alpha box's tile launches march traces beyond the 6
+    closest-hit ones, and no any-hit trace."""
+    _need_cuda()
+    from ray_tpu_torch.ops import traverse
+    from ray_tpu_torch.render import integrator
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+
+    sc, cam = _shading_scene(name)
+    scene = sc.finalize()
+    calls = []
+    real = getattr(traverse, kernel)
+
+    def recording(*args, any_hit=False):
+        calls.append(([a.clone() if hasattr(a, "clone") else a
+                       for a in args], any_hit))
+        return real(*args, any_hit=any_hit)
+
+    integrator.march_counts.clear()
+    setattr(traverse, kernel, recording)
+    try:
+        render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                    height=1080, tile_w=256, tile_h=128,
+                    settings=PassSettings(max_total_depth=5,
+                                          min_total_depth=2),
+                    use_filter_table=False)
+    finally:
+        setattr(traverse, kernel, real)
+    n_march = (integrator.march_counts["through"]
+               + integrator.march_counts["transmittance"])
+    n_any = sum(a for _, a in calls)
+    assert len(calls) == 12 + n_march - (6 if scene.has_transparency else 0)
+    assert n_any == (0 if scene.has_transparency else 6)
+    if name == "alpha_box":
+        assert n_march > 0
+    plain = getattr(traverse, f"{kernel}_plain")
+    for args, any_hit in calls:
+        k = real(*args, any_hit=any_hit)
+        p = plain(*args, any_hit=any_hit)
+        for f in k._fields:
+            a, b = getattr(k, f), getattr(p, f)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f
+
+
+def test_golden_at_400_samples_on_the_card():
+    """rect_disk through ``create_renderer`` at the golden's 64x64 and 400
+    samples, against the committed golden: >= 28 dB PSNR and <= 40
+    fireflies (tests/test_cpu_goldens.py's gate)."""
+    _need_cuda()
+    import pathlib
+
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.utils.test_scenes import (
+        GOLDEN_DEPTH, GOLDEN_RES, GOLDEN_SCENES, GOLDEN_SPP)
+
+    golden = np.load(pathlib.Path(__file__).parent / "goldens_cpu"
+                     / "rect_disk.npz")["image_u8"]
+    sc, cam = GOLDEN_SCENES["rect_disk"]()
+    r = ray_tpu.create_renderer(
+        ray_tpu.RenderSettings(width=GOLDEN_RES, height=GOLDEN_RES),
+        ray_tpu.PassSettings(**GOLDEN_DEPTH))
+    r.render(sc.finalize(), cam, GOLDEN_SPP)
+    out = np.clip(r.pixels(cam).cpu().numpy() * 255.0, 0, 255).astype(
+        np.uint8)
+    diff = np.abs(out.astype(np.float32) - golden.astype(np.float32))
+    psnr = -10.0 * np.log10(max(float((diff ** 2).mean()), 1e-12) / 255.0 ** 2)
+    assert psnr >= 28.0, psnr
+    assert int((diff > 32).any(axis=-1).sum()) <= 40

@@ -13,7 +13,13 @@ for that reason: ``base_color`` and ``depth_normal`` within rtol 1e-5 on
 tile mean within 1e-3 relative and ``rays_traced`` within 0.5%.
 
 The ``cornell_sphere`` tile (248 triangles: ray_tpu walks its BVH2 on the
-CPU, the port ``trace_bvh_plain``) is held to the same bounds.
+CPU, the port ``trace_bvh_plain``) is held to the same bounds, and so is a
+1 spp 32x24 tile of each scene of ray_tpu's CPU goldens
+(``tests/cpu_golden_scenes.py``: rect and disk lights; sphere, spot and
+line lights; a directional light and a constant environment over 2,210
+triangles, the port's 8-wide walk; an emissive triangle and a REFRACTIVE
+box) at the goldens' pass settings, each scene built by each package's
+own builder (``ray_tpu_torch.utils.test_scenes.GOLDEN_SCENES``).
 """
 
 import jax.numpy as jnp
@@ -25,6 +31,7 @@ from ray_tpu.render.integrator import render_tile as j_render
 from ray_tpu.utils.test_scenes import cornell_scene as j_cornell
 from ray_tpu_torch.render.integrator import PassSettings, render_tile
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
+from ray_tpu_torch.utils.test_scenes import GOLDEN_SCENES
 from test_torch_scene import cornell_sphere
 
 W, H = 1920, 1080
@@ -34,6 +41,11 @@ def _render_both(light_kind, x0, y0, tw, th, iteration, seed, **settings):
     if light_kind == "sphere_rings8":
         (jsc, jcam), (tsc, tcam) = (cornell_sphere(port, rings=8)
                                     for port in (False, True))
+    elif light_kind in GOLDEN_SCENES:
+        from cpu_golden_scenes import SCENES
+
+        (jsc, jcam), (tsc, tcam) = (SCENES[light_kind](),
+                                    GOLDEN_SCENES[light_kind]())
     else:
         (jsc, jcam), (tsc, tcam) = j_cornell(light_kind), t_cornell(light_kind)
     ref = j_render(
@@ -88,6 +100,9 @@ def test_cornell_sphere_tile_matches_ray_tpu():
                            nan_check=True)),
     # constant environment: one ENV light, CDF picking, env MIS on miss
     ("env", dict(max_total_depth=3, no_background=True)),
+    # the CPU goldens' scenes at their pass settings
+    *((name, dict(max_total_depth=5, min_total_depth=3))
+      for name in sorted(GOLDEN_SCENES)),
 ])
 def test_variant_tiles_match_ray_tpu(light_kind, settings):
     out, ref = _render_both(light_kind, 960, 700, 32, 24, 2, 7, **settings)

@@ -319,16 +319,29 @@ def _render_small(sc, cam):
 
 @pytest.mark.parametrize("kind", ["rect", "dir"])
 def test_unported_light_kinds_raise(kind):
+    """The rect and directional lights raised here until ROADMAP Queue 1
+    item 30 was ported; now they render, and the environment map beside
+    them (item 31) still raises, naming its item."""
     sc, cam = t_cornell(kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _render_small(sc, cam)
+    out = _render_small(sc, cam)
+    assert bool(torch.isfinite(out["color"]).all())
+    tex = sc.add_texture(np.ones((4, 8, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="item 31"):
+        sc.set_environment((1.0, 1.0, 1.0), map_id=tex)
 
 
 @pytest.mark.parametrize("node", [ShadingNode.REFRACTIVE,
                                   ShadingNode.TRANSPARENT, ShadingNode.MIX])
 def test_unported_node_types_raise(node):
+    """These node types raised here until ROADMAP Queue 1 item 29 was
+    ported; now they render, and a normal map on them (item 32) still
+    raises, naming its item."""
     sc, cam = t_cornell(box_material=MaterialDesc(type=node))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    out = _render_small(sc, cam)
+    assert bool(torch.isfinite(out["color"]).all())
+    sc, cam = t_cornell(box_material=MaterialDesc(type=node, normal_map=0))
+    assert sc.add_texture(np.full((4, 4, 3), 0.5, np.float32)) == 0
+    with pytest.raises(NotImplementedError, match="item 32"):
         _render_small(sc, cam)
 
 
@@ -340,9 +353,13 @@ def test_unported_render_options_raise():
             render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
                         tile_w=8, tile_h=8, settings=PassSettings(**opt),
                         use_filter_table=False)
+    # a line light raised here until ROADMAP Queue 1 item 30 was ported;
+    # per-ray-type visibility masks (item 20) still raise
     sc2, cam2 = t_cornell()
     sc2.add_light(LightDesc(type=LightType.LINE, radius=0.1, height=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert bool(torch.isfinite(_render_small(sc2, cam2)["color"]).all())
+    sc2.add_instance(0, visibility=1)
+    with pytest.raises(NotImplementedError, match="item 20"):
         _render_small(sc2, cam2)
 
 
