@@ -34,13 +34,24 @@ spot and line lights), ``dir_env`` (a directional light and a constant
 environment over 2,210 triangles: the wide route), ``tri_glass`` (an
 emissive quad and a REFRACTIVE box) — and ``alpha_box`` (a rect-lit
 Cornell box whose tall box has principled alpha 0.5: Mix(Transparent,
-principled), both transparency marches).
+principled), both transparency marches);
+
+and the traversal slice's six (``SLICE``): ``cornell_tlas`` (the flagship
+finalized with ``instancing="tlas"``: 24 unique triangles, no
+``wrows_tlas``, so every trace takes ``trace_tlas_bin``, the binary
+two-level walk, and its TRI lights are instanced), ``cornell_vis`` (the
+flagship and three instances of a box, each hidden from one ray type) in
+flatten mode (the masked ``trace_bvh``) and tlas mode (``trace_tlas_bin``
+with ray masks), ``sphere_vis`` (``cornell_sphere`` with a
+camera-invisible sphere) in flatten mode (the masked wide route) and tlas
+mode (``trace_tlas`` with ray masks), and ``env_map`` (``dir_env`` under a
+512x256 latlong environment map: importance-sampled environment NEE).
 
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``); exits non-zero when
    CUDA is absent;
-2. builds the five CUDA kernels from ``ray_tpu_torch/csrc`` (one ``nvcc``
+2. builds the six CUDA sources of ``ray_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version: the
    gather probe's ``gather_table`` on the probe's own inputs, on a table
@@ -64,11 +75,18 @@ Phases:
    the flagship and ``cornell_sphere`` and of one 960x540 tile of each
    colonnade (the binned tile's sort keys too), and every launch of one
    frame of ``tri_glass``, ``dir_env`` and ``alpha_box`` (the marches'
-   traces included);
+   traces included); the slice's kernels on its generator cases at
+   2,073,600 rays (``slice_generator_cases``: ``trace_tlas_bin`` on 24
+   non-uniformly scaled instances with RAY_CAMERA / RAY_SHADOW masks, on
+   stress rays and with a stack of 3; the masked ``trace_bvh`` and wide
+   route with random masks; ``trace_tlas`` at ``max_leaf`` 6 and 7, whose
+   rows it pads) and on every launch of one frame of each ``SLICE``
+   scene;
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
    terrain and floor; the alpha box's lies on the box, which stands in the
-   floor's plane, and the same box lifted 2 mm is held beside it);
+   floor's plane, and the same box lifted 2 mm is held beside it; the
+   slice's at ``SLICE_TILES``);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
@@ -79,6 +97,10 @@ Phases:
    one closest-hit launch a march trace; a scene with transparency
    launches no any-hit trace), with the launches a frame split into
    closest-hit, any-hit and march, and the marches' host syncs a frame;
+   each ``SLICE`` scene's frames (``cornell_tlas`` ``FRAMES``, the others
+   ``SHADING_FRAMES``; the colonnades' 2x2 lines ``COLONNADE_FRAMES``), and
+   the ``cornell_tlas`` frame against the flatten flagship's at one
+   iteration (means within ``TLAS_VS_FLATTEN_REL``);
    then the goldens: each golden scene through ``create_renderer`` at the
    golden's 64x64, pass settings and 400 samples, through ``pixels`` to
    uint8, against the committed ``.npz``: ≥ 28 dB PSNR, ≤ 40 fireflies
@@ -98,7 +120,10 @@ Phases:
    its forward's traces, marches included, and none in backward), and the
    two policies' gradient columns within ``REMAT_NOISE_MULT`` times the
    gap between two stored-residual runs at 1080p (or 1e-4) and within 1e-4
-   on a 480x270 tile with deterministic reductions;
+   on a 480x270 tile with deterministic reductions; ``cornell_tlas`` (1x1)
+   and ``env_map`` (2x2) fwd+bwd with stored residuals over
+   ``SLICE_BWD_FRAMES`` frames, each with a 64x48 gradient tile card vs
+   CPU;
 7. the colonnade's fwd+bwd: ``COLONNADE_BWD_FRAMES`` 2x2 frames with remat
    (each tile its own backward, the gradients summed; 24 + 24
    ``trace_tlas`` launches a frame, none in backward), one frame with
@@ -122,8 +147,12 @@ Phases:
    ``index_select``, and ``trace_tlas`` over the binned scene's ``wrows``
    on the binned tile's rays (the wide route that scene takes without
    ``pallas_binned``), and the binned tile's sort keys (kernel, plain,
-   bound), and prints one ``kernels`` JSON line (10 entries), the card
-   line, and last the ``{"ok": true, ...}`` line.
+   bound); the slice's kernels on the launches of a ``cornell_tlas``
+   (``trace_tlas_bin``), a ``cornell_vis`` flatten (``trace_bvh_vis``) and
+   a ``sphere_vis`` flatten frame (``trace_tlas_vis``), each masked
+   kernel beside its unmasked one on the same rays; and prints one
+   ``kernels`` JSON line (16 entries), the card line, and last the
+   ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
 """
@@ -141,6 +170,9 @@ import warnings
 
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 10
+# the colonnades' 2x2 forward lines (cut from FRAMES to keep the script
+# inside its time limit as it grows; the spread of a line is printed)
+COLONNADE_FRAMES = 5
 BWD_FRAMES = 5
 COLONNADE_BWD_FRAMES = 3  # bench.py's iters
 FRAMES_1X1 = 3
@@ -155,7 +187,23 @@ KERNELS = {
                        replaces="ray_tpu/ops/traverse_pallas.py:501"),
     "trace_binned": dict(source="ray_tpu_torch/csrc/trace_binned.cu",
                          replaces="ray_tpu/ops/traverse_pallas.py:939"),
+    # the traversal slice: the masked instantiations of trace_bvh.cu (the
+    # per-triangle test of ray_tpu's XLA walk _traverse) and of
+    # trace_tlas.cu (the has_vis leaf test of _traverse_wide), and the
+    # binary two-level walk _traverse_tlas (XLA in ray_tpu)
+    "trace_bvh_vis": dict(source="ray_tpu_torch/csrc/trace_bvh.cu",
+                          replaces="ray_tpu/ops/traverse.py:118"),
+    "trace_tlas_vis": dict(source="ray_tpu_torch/csrc/trace_tlas.cu",
+                           replaces="ray_tpu/ops/traverse.py:236"),
+    "trace_tlas_bin": dict(source="ray_tpu_torch/csrc/trace_tlas_bin.cu",
+                           replaces="ray_tpu/ops/traverse.py:844"),
 }
+# the CUDA sources to build, one nvcc each
+SOURCES = ("trace_brute", "trace_bvh", "trace_tlas", "trace_tlas_bin",
+           "trace_binned", "gather_table")
+# the wrapper each kernel family launches through (the masked ones: their
+# unmasked wrapper with the masks as keywords)
+WRAPPER = {"trace_bvh_vis": "trace_bvh", "trace_tlas_vis": "trace_tlas"}
 # the gather probe's table length (scripts/test_pallas_gather.py N)
 GATHER_TABLE = 1024
 GATHER = dict(source="ray_tpu_torch/csrc/gather_table.cu",
@@ -611,15 +659,30 @@ def stress_cases(n_rays, device):
     return cases
 
 
-def check_parity(kernel, args, modes, label, errs):
-    """Kernel vs plain on one input set, in the given modes."""
+def kernel_call(kernel, args, any_hit, plain=False, work=None):
+    """Run kernel family ``kernel`` (its wrapper, or with ``plain`` its
+    plain version, ``work`` counting) on captured ``args``: a masked
+    family's args end with its masks (``trace_bvh_vis``: tri_vis and
+    ray_mask after the ints; ``trace_tlas_vis``: ``trace_tlas``'s own,
+    the leaf visibility test switched on)."""
     from ray_tpu_torch.ops import traverse
 
-    fn = getattr(traverse, kernel)
-    plain = getattr(traverse, f"{kernel}_plain")
+    name = WRAPPER.get(kernel, kernel) + ("_plain" if plain else "")
+    fn = getattr(traverse, name)
+    kw = {} if work is None else {"work": work}
+    if kernel == "trace_bvh_vis":
+        return fn(*args[:9], any_hit=any_hit, tri_vis=args[9],
+                  ray_mask=args[10], **kw)
+    if kernel == "trace_tlas_vis":
+        return fn(*args, any_hit=any_hit, has_vis=True, **kw)
+    return fn(*args, any_hit=any_hit, **kw)
+
+
+def check_parity(kernel, args, modes, label, errs):
+    """Kernel vs plain on one input set, in the given modes."""
     for any_hit in modes:
-        k = fn(*args, any_hit=any_hit)
-        p = plain(*args, any_hit=any_hit)
+        k = kernel_call(kernel, args, any_hit)
+        p = kernel_call(kernel, args, any_hit, plain=True)
         name = f"{kernel}_{'anyhit' if any_hit else 'closest'}"
         for f in k._fields:
             a, b = getattr(k, f), getattr(p, f)
@@ -677,18 +740,25 @@ def capture_frame(scene, cam, settings, iteration, x0=0, y0=0, tw=None,
     from ray_tpu_torch.ops import traverse
 
     calls = []
-    real = {k: getattr(traverse, k) for k in KERNELS}
+    wrappers = [k for k in KERNELS if k not in WRAPPER]
+    real = {k: getattr(traverse, k) for k in wrappers}
 
     def recorder(kernel):
-        def recording(*args, any_hit=False):
+        def recording(*args, any_hit=False, **kw):
             first_ray = RAY_ARG.get(kernel, 2)
             copied = tuple(a.clone() if i >= first_ray and hasattr(a, "clone")
                            else a for i, a in enumerate(args))
-            calls.append((kernel, copied, any_hit))
-            return real[kernel](*args, any_hit=any_hit)
+            family = kernel
+            if kw.get("tri_vis") is not None:
+                family = "trace_bvh_vis"
+                copied += (kw["tri_vis"], kw["ray_mask"].clone())
+            elif kw.get("has_vis"):
+                family = "trace_tlas_vis"
+            calls.append((family, copied, any_hit))
+            return real[kernel](*args, any_hit=any_hit, **kw)
         return recording
 
-    for k in KERNELS:
+    for k in wrappers:
         setattr(traverse, k, recorder(k))
     try:
         out = render(scene, cam, settings, iteration, x0, y0, tw, th)
@@ -716,16 +786,25 @@ def time_launches(fn, reps, warmup=True):
 
 
 # where a wrapper's rays start among its arguments (the tables before them)
-RAY_ARG = {"trace_brute": 1, "trace_binned": 1}
+RAY_ARG = {"trace_brute": 1, "trace_binned": 1, "trace_tlas_bin": 3}
 
 
 def split_args(kernel, args):
     """(tables, (ro, rd, t_min, t_max, active), extra) of a captured
-    launch: the extra arguments after the rays (for trace_tlas the ray mask
-    and the ints; trace_binned's one table is the dict of slabs)."""
+    launch: the extra arguments after the rays (for trace_tlas and
+    trace_tlas_vis the ray mask and the ints, for trace_tlas_bin the same;
+    trace_binned's one table is the dict of slabs, trace_tlas_bin's three
+    are the node rows, the triangle rows and the dict of instance columns;
+    trace_bvh_vis's ints are followed by tri_vis, a table, and the ray
+    mask)."""
     n = RAY_ARG.get(kernel, 2)
-    if kernel == "trace_tlas":
+    if kernel in ("trace_tlas", "trace_tlas_vis"):
         return args[:1], args[2:7], args[7:]
+    if kernel == "trace_tlas_bin":
+        return args[:3], args[3:8], args[8:]
+    if kernel == "trace_bvh_vis":
+        return ((*args[:2], args[9]), args[2:7],
+                (int(args[7]), int(args[8]), args[10]))
     return args[:n], args[n:n + 5], tuple(int(a) for a in args[n + 5:])
 
 
@@ -757,14 +836,13 @@ def launch_bound(kernel, args, any_hit):
     from ray_tpu_torch.ops import traverse
 
     tables, (ro, _, _, _, active), extra = split_args(kernel, args)
-    plain_fn = getattr(traverse, f"{kernel}_plain")
     n_active = int(active.sum())
     R = ro.shape[0]
     node_steps = inst_entries = box_tests = 0
     lane_bytes = BYTES_PER_LANE
     if kernel == "trace_binned":
         work = {}
-        plain_fn(*args, any_hit=any_hit, work=work)
+        kernel_call(kernel, args, any_hit, plain=True, work=work)
         tests, node_steps = work["tri_tests"], work["node_steps"]
         # one subtree box a subtree walked (the plain walk's S-box scans
         # are that design's cost, not the work)
@@ -776,7 +854,7 @@ def launch_bound(kernel, args, any_hit):
         T = tables[0].shape[0]
         if any_hit:
             # tests run until the first hit: prim + 1 for hits, T for misses
-            plain = plain_fn(*args, any_hit=True)
+            plain = traverse.trace_brute_plain(*args, any_hit=True)
             hit = plain.prim >= 0
             tests = int(torch.where(hit, plain.prim + 1, T)[active].sum())
         else:
@@ -784,16 +862,27 @@ def launch_bound(kernel, args, any_hit):
         ops = OPS_PER_TEST * tests
     else:
         work = {}
-        plain_fn(*args, any_hit=any_hit, work=work)
+        kernel_call(kernel, args, any_hit, plain=True, work=work)
         tests, node_steps = work["tri_tests"], work["node_steps"]
-        if kernel == "trace_tlas":
+        if kernel in ("trace_tlas", "trace_tlas_vis"):
             inst_entries = work["inst_entries"]
             ops = (OPS_PER_TEST * tests + OPS_PER_WIDE_NODE_STEP * node_steps
                    + OPS_PER_INST_ENTRY * inst_entries)
             lane_bytes += TLAS_EXTRA_BYTES_PER_LANE * (
                 1 if extra[0] is None else 2)
+        elif kernel == "trace_tlas_bin":
+            # a BVH2 node step of either level, an instance entry
+            inst_entries = work["inst_entries"]
+            ops = (OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
+                   + OPS_PER_INST_ENTRY * inst_entries)
+            lane_bytes += TLAS_EXTRA_BYTES_PER_LANE * (
+                1 if extra[0] is None else 2)
+            # the instance columns: 14 words an instance
+            tables = (*tables[:2], *tables[2].values())
         else:
             ops = OPS_PER_TEST * tests + OPS_PER_NODE_STEP * node_steps
+            if kernel == "trace_bvh_vis":
+                lane_bytes += TLAS_EXTRA_BYTES_PER_LANE  # the ray mask
     table_bytes = sum(4 * t.numel() for t in tables)
     nbytes = lane_bytes * R + BYTES_PER_ACTIVE_LANE * n_active + table_bytes
     return {"kernel": kernel, "any_hit": bool(any_hit), "rays": R,
@@ -824,17 +913,22 @@ def counter_pool(device):
 def kernel_arrays(kernel, tables):
     """The tensors a kernel's C entry point reads for its captured tables:
     trace_brute's and trace_bvh's cached rows (``tri_rows``,
-    ``node_rows``), trace_binned's row-major slabs and subtree tree,
-    trace_tlas's rows as they are."""
+    ``node_rows``; with the masks for trace_bvh_vis), trace_tlas_bin's
+    (and ``inst_rows``), trace_binned's row-major slabs and subtree tree,
+    trace_tlas's rows as ``check_tlas_rows`` hands them over."""
     from ray_tpu_torch.ops import traverse
 
     if kernel == "trace_brute":
         return traverse._brute_kernel_tables(*tables)
     if kernel == "trace_bvh":
         return traverse._bvh_kernel_tables(*tables)
+    if kernel == "trace_bvh_vis":
+        return traverse._bvh_vis_kernel_tables(*tables)
+    if kernel == "trace_tlas_bin":
+        return traverse._tlas_bin_kernel_tables(*tables)
     if kernel == "trace_binned":
         return traverse._binned_kernel_tables(tables[0])
-    return tables
+    return (traverse.check_tlas_rows(tables[0]),)
 
 
 def raw_launch(kernel, args, any_hit, fn=None, arrays=None):
@@ -854,13 +948,16 @@ def raw_launch(kernel, args, any_hit, fn=None, arrays=None):
         arrays = kernel_arrays(kernel, tables)
     if fn is None:
         fn = {"trace_brute": traverse._brute_fn, "trace_bvh": traverse._bvh_fn,
+              "trace_bvh_vis": traverse._bvh_vis_fn,
               "trace_tlas": traverse._tlas_fn,
+              "trace_tlas_vis": lambda: traverse._tlas_fn(True),
+              "trace_tlas_bin": traverse._tlas_bin_fn,
               "trace_binned": traverse._binned_fn}[kernel]()
     ro, rd, t_min, t_max, active = rays
     R = ro.shape[0]
     dtypes = [torch.float32, torch.int32, torch.float32, torch.float32,
               torch.bool]
-    if kernel == "trace_tlas":
+    if kernel in ("trace_tlas", "trace_tlas_vis", "trace_tlas_bin"):
         dtypes.append(torch.int32)
     outs = [torch.empty(R, dtype=d, device=ro.device) for d in dtypes]
     out_ptrs = [o.data_ptr() for o in outs]
@@ -868,12 +965,23 @@ def raw_launch(kernel, args, any_hit, fn=None, arrays=None):
     ray_ptrs = [ro.data_ptr(), rd.data_ptr(), t_min.data_ptr(),
                 t_max.data_ptr(), active.data_ptr()]
     tail = None
-    if kernel == "trace_tlas":
+    if kernel in ("trace_tlas", "trace_tlas_vis"):
         (rows,), (mask, max_leaf, stack_size) = arrays, extra
         head = (rows.data_ptr(), rows.shape[0], rows.shape[1],
                 *ray_ptrs, None if mask is None else mask.data_ptr(),
                 R, *out_ptrs, int(max_leaf), int(stack_size), int(any_hit),
                 stream)
+    elif kernel == "trace_tlas_bin":
+        (mask, max_leaf, stack_size) = extra
+        head = (*(x for a in arrays for x in (a.data_ptr(), a.shape[0])),
+                *ray_ptrs, None if mask is None else mask.data_ptr(), R,
+                *out_ptrs, int(max_leaf), int(stack_size), int(any_hit),
+                stream)
+    elif kernel == "trace_bvh_vis":
+        (max_leaf, stack_size, mask) = extra
+        head = (*(x for a in arrays for x in (a.data_ptr(), a.shape[0])),
+                *ray_ptrs, R, *out_ptrs, max_leaf, stack_size,
+                mask.data_ptr(), int(any_hit), stream)
     elif kernel == "trace_binned":
         S = binned_arrays(tables[0])[1]
         head = (*(a.data_ptr() for a in arrays), S, *ray_ptrs, R, *out_ptrs,
@@ -956,18 +1064,18 @@ def kernel_timings(calls):
     rows = []
     timed_plain = set()
     for kernel, args, any_hit in calls:
-        plain_fn = getattr(traverse, f"{kernel}_plain")
         row = launch_bound(kernel, args, any_hit)
         row["ms"] = time_launches(raw_launch(kernel, args, any_hit)[0], 50)
         row["plain_ms"] = None
+
+        def plain(kernel=kernel, args=args, any_hit=any_hit):
+            return kernel_call(kernel, args, any_hit, plain=True)
         if kernel != "trace_binned":
             row["plain_ms"] = time_launches(
-                lambda: plain_fn(*args, any_hit=any_hit),
-                3 if kernel == "trace_brute" else 1)
+                plain, 3 if kernel == "trace_brute" else 1)
         elif any_hit not in timed_plain:
             timed_plain.add(any_hit)
-            row["plain_ms"] = time_launches(
-                lambda: plain_fn(*args, any_hit=any_hit), 1, warmup=False)
+            row["plain_ms"] = time_launches(plain, 1, warmup=False)
         rows.append(row)
     return rows
 
@@ -1272,8 +1380,9 @@ def check_grad_tile_against_cpu(make_scene, label, x0, y0, settings):
     grads = []
     for dev in ("cuda", "cpu"):
         sc, cam = make_scene()
-        _, _, g, _, _ = fwd_bwd(sc.finalize(device=dev), cam, settings, 1,
-                                [(x0, y0, 64, 48)])
+        _, _, g, _, _ = fwd_bwd(
+            sc.finalize(device=dev, **FINALIZE.get(label, {})), cam,
+            settings, 1, [(x0, y0, 64, 48)])
         grads.append(g)
     worst = 0.0
     for k, gc in grads[1].items():
@@ -1629,6 +1738,212 @@ def shading_fwd_bwd(label, scene, cam, settings, kernel, grid=(1, 1)):
              f"by {worst:.3e} of its largest entry")
 
 
+# ---- the traversal slice: the binary two-level walk, visibility masks,
+# environment maps ----------------------------------------------------------
+# label -> (builder in ray_tpu_torch.utils.test_scenes, finalize keywords,
+# the kernel family every trace takes, forward frames)
+SLICE = {
+    "cornell_tlas": ("cornell_tlas", dict(instancing="tlas"),
+                     "trace_tlas_bin", FRAMES),
+    "cornell_vis flatten": ("cornell_vis", dict(instancing="flatten"),
+                            "trace_bvh_vis", SHADING_FRAMES),
+    "cornell_vis tlas": ("cornell_vis", dict(instancing="tlas"),
+                         "trace_tlas_bin", SHADING_FRAMES),
+    "sphere_vis flatten": ("sphere_vis", dict(instancing="flatten"),
+                           "trace_tlas_vis", SHADING_FRAMES),
+    "sphere_vis tlas": ("sphere_vis", dict(instancing="tlas"),
+                        "trace_tlas", SHADING_FRAMES),
+    "env_map": ("env_map", {}, "trace_tlas", SHADING_FRAMES),
+}
+FINALIZE.update({label: kw for label, (_, kw, _, _) in SLICE.items()})
+# the slice scenes whose launches give the new families' line in the
+# kernels JSON (and the masked-vs-unmasked timings)
+SLICE_TIMED = ("cornell_tlas", "cornell_vis flatten", "sphere_vis flatten")
+# 64x48 card-vs-CPU tiles: on the boxes and their shadows, the hidden
+# sphere's shadow, the ball under the map
+SLICE_TILES = {"cornell_tlas": (928, 516), "cornell_vis flatten": (1020, 540),
+               "cornell_vis tlas": (1020, 540),
+               "sphere_vis flatten": (1060, 860),
+               "sphere_vis tlas": (1060, 860), "env_map": (928, 600)}
+# the fwd+bwd paths of the slice (stored residuals) and their grids: a 1x1
+# env_map frame peaked at 71.2 GiB of the card's 80 GB (its PRINCIPLED
+# ball's residuals, as the alpha box's), so it runs as 2x2 tiles, each its
+# own backward
+SLICE_BWD = {"cornell_tlas": (1, 1), "env_map": GRID}
+SLICE_BWD_FRAMES = 3
+# the tlas frame against the flatten flagship frame: means within this
+# relative gap (tests/test_instancing.py holds ray_tpu's within 2e-3 of
+# each pixel at 8 spp)
+TLAS_VS_FLATTEN_REL = 1e-3
+
+
+def slice_scene(label):
+    """(Scene, Camera) of a ``SLICE`` scene, from the public API."""
+    from ray_tpu_torch.utils import test_scenes
+
+    return getattr(test_scenes, SLICE[label][0])()
+
+
+def shapes_scene(n_inst, seed):
+    """Generator two-level scene of 172 unique triangles (a 160-triangle UV
+    sphere and a box), ``n_inst`` instances each under a random
+    translation in [-2, 2]^3 and non-uniform scale in [0.4, 1.6]^3; every
+    third instance hidden from camera rays, every fourth from shadow
+    rays.  Returns the Scene (tlas: no wrows_tlas; flatten: wrows with
+    the visibility column)."""
+    import numpy as np
+
+    from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
+    from ray_tpu_torch.scene.scene import Scene
+    from ray_tpu_torch.scene.visibility import visibility_mask
+    from ray_tpu_torch.utils.geometry import make_box, make_uv_sphere
+
+    r = np.random.RandomState(seed)
+    sc = Scene()
+    m = sc.add_material(MaterialDesc(type=ShadingNode.DIFFUSE,
+                                     base_color=(0.7, 0.7, 0.7)))
+    v, idx, n, uv = make_uv_sphere(radius=0.6, rings=8, segments=10)
+    meshes = [sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)]
+    bv, bidx, bn = make_box(size=(0.8, 0.5, 0.6))
+    meshes.append(sc.add_mesh(bv, bidx, normals=bn, material=m))
+    for i in range(n_inst):
+        x = np.eye(4, dtype=np.float32)
+        x[[0, 1, 2], [0, 1, 2]] = r.uniform(0.4, 1.6, 3)
+        x[:3, 3] = r.uniform(-2.0, 2.0, 3)
+        vis = visibility_mask(camera=i % 3 != 0, shadow=i % 4 != 0)
+        sc.add_instance(meshes[i % 2], x, visibility=vis)
+    sc.set_environment((0.5, 0.5, 0.5))
+    return sc
+
+
+def slice_generator_cases(n_rays, device):
+    """{label: (kernel family, args)} of the slice's generator cases:
+    trace_tlas_bin on ``shapes_scene`` (24 instances) with RAY_CAMERA and
+    RAY_SHADOW masks and on stress rays; the masked BVH2 walk on a 300-
+    triangle generator BVH with random per-triangle masks and random ray
+    types; the masked wide route on ``shapes_scene`` flattened; and
+    trace_tlas at max_leaf 6 and 7 (rows padded to 68 and 80 floats)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.scene.visibility import (
+        RAY_CAMERA, RAY_DIFFUSE, RAY_REFR, RAY_SHADOW, RAY_SPECULAR)
+    from ray_tpu_torch.utils.test_scenes import instanced_scene
+
+    r = np.random.RandomState(9)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    kinds = np.array([RAY_CAMERA, RAY_DIFFUSE, RAY_SPECULAR, RAY_REFR,
+                      RAY_SHADOW], np.int32)
+    cases = {}
+    tl = shapes_scene(24, 3).finalize(device=device, instancing="tlas")
+    ro = r.uniform(-3.0, 3.0, (n_rays, 3)).astype(np.float32)
+    rd = r.normal(size=(n_rays, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    active = np.ones(n_rays, bool)
+    active[::17] = False
+    rays = (t(ro), t(rd), torch.zeros(n_rays, device=device),
+            torch.full((n_rays,), 1e30, device=device), t(active))
+    tables = (tl.bvh_soa["packed"], tl.tri_soa["packed"], tl.inst)
+    for name, bit in (("RAY_CAMERA", RAY_CAMERA), ("RAY_SHADOW", RAY_SHADOW)):
+        mask = torch.full((n_rays,), int(bit), dtype=torch.int32,
+                          device=device)
+        cases[f"tlas_bin 24 instances, {name}"] = ("trace_tlas_bin", (
+            *tables, *rays, mask, tl.max_leaf, tl.stack_size))
+    stress = stress_rays(n_rays, -3.0, 3.0, 13, device)
+    mixed = t(kinds[r.randint(0, 5, n_rays)])
+    cases["tlas_bin 24 instances, stress rays"] = ("trace_tlas_bin", (
+        *tables, *stress, mixed, tl.max_leaf, tl.stack_size))
+    cases["tlas_bin 24 instances, stack 3"] = ("trace_tlas_bin", (
+        *tables, *stress, None, tl.max_leaf, 3))
+    nodes, tris, *bvh_rays, ml, ss = generator_case("trace_bvh", 300, n_rays,
+                                                    1300, device)
+    tri_vis = t(np.where(r.rand(300) < 0.5, 0x1f,
+                         kinds[r.randint(0, 5, 300)] ^ 0x1f))
+    cases["bvh 300 tris, masks"] = ("trace_bvh_vis", (
+        nodes, tris, *bvh_rays, ml, ss, tri_vis, mixed))
+    fl = shapes_scene(24, 3).finalize(device=device, instancing="flatten")
+    cases[f"wide {fl.num_tris} tris, masks"] = ("trace_tlas_vis", (
+        fl.bvh_soa["wrows"], 0, *rays, mixed, fl.max_leaf, fl.stack_size))
+    cases[f"wide {fl.num_tris} tris, stress rays"] = ("trace_tlas_vis", (
+        fl.bvh_soa["wrows"], 0, *stress, mixed, fl.max_leaf, fl.stack_size))
+    for max_leaf in (6, 7):
+        sc = instanced_scene(n_inst=6).finalize(device=device,
+                                                max_leaf=max_leaf)
+        rows = sc.bvh_soa["wrows_tlas"]
+        cases[f"tlas max_leaf {max_leaf}, width {rows.shape[1]}"] = (
+            "trace_tlas", (rows, int(sc.bvh_soa["winst_base"]),
+                           *stress_rays(n_rays, -4.0, 4.0, 14, device),
+                           None, max_leaf, sc.stack_size))
+    return cases
+
+
+def slice_scenes(settings, errs):
+    """Finalize each ``SLICE`` scene on the card, capture every launch of
+    one 1080p frame and hold each against its plain version.  Returns
+    {label: (scene, cam, kernel, calls)}."""
+    import torch
+
+    out = {}
+    for label, (_, kw, kernel, _) in SLICE.items():
+        sc, cam = slice_scene(label)
+        t_fin = time.perf_counter()
+        scene = sc.finalize(**kw)
+        t_fin = time.perf_counter() - t_fin
+        soa = scene.bvh_soa
+        tables = "".join(f", {k} {tuple(soa[k].shape)}"
+                         for k in ("wrows", "wrows_tlas") if k in soa)
+        print(f"scene {label}: mode {scene.mode}, {scene.num_tris} unique "
+              f"tris, {soa['code0'].shape[0]} BVH2 nodes{tables}, "
+              f"visibility {scene.has_visibility}, env map "
+              f"{scene.env_tab_w}x{scene.env_tab_h}, {scene.num_lights} "
+              f"lights, stack {scene.stack_size}; finalize {t_fin:.3f} s")
+        _, calls = capture_frame(scene, cam, settings, 1)
+        torch.cuda.synchronize()
+        if len(calls) != 12 or any(c[0] != kernel for c in calls):
+            fail(f"a {label} frame made {[c[0] for c in calls]}, expected 12 "
+                 f"{kernel} calls")
+        for i, (k, args, any_hit) in enumerate(calls):
+            check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
+        out[label] = (scene, cam, kernel, calls)
+    return out
+
+
+def tlas_against_flatten(flagship_scene, tlas_scene, cam, settings):
+    """The flagship frame finalized both ways at the same iteration: the
+    two-level structure is an implementation detail, so the frames' mean
+    radiance agrees within ``TLAS_VS_FLATTEN_REL``."""
+    _, flat = render_frame(flagship_scene, cam, settings, 5, (1, 1))
+    _, tlas = render_frame(tlas_scene, cam, settings, 5, (1, 1))
+    rel = abs(tlas - flat) / flat
+    print(f"cornell_tlas against the flatten flagship, iteration 5: mean "
+          f"radiance {tlas:.7f} vs {flat:.7f}, relative gap {rel:.2e} "
+          f"(limit {TLAS_VS_FLATTEN_REL:g})")
+    if not rel <= TLAS_VS_FLATTEN_REL:
+        fail("the cornell_tlas frame's mean differs from the flatten "
+             "flagship's")
+
+
+def masked_vs_unmasked(label, calls):
+    """The masked kernel against the unmasked one on the same tables and
+    rays (the unmasked hits differ: it sees every instance): ms a launch,
+    mean over the frame's launches of each mode."""
+    pairs = {"trace_bvh_vis": ("trace_bvh", lambda a: a[:9]),
+             "trace_tlas_vis": ("trace_tlas", lambda a: a)}
+    for any_hit in (False, True):
+        masked, plain = [], []
+        for kernel, args, ah in calls:
+            if ah != any_hit:
+                continue
+            base, cut = pairs[kernel]
+            masked.append(time_launches(raw_launch(kernel, args, ah)[0], 50))
+            plain.append(time_launches(raw_launch(base, cut(args), ah)[0],
+                                       50))
+        print(f"{label} {'anyhit' if any_hit else 'closest'}: masked "
+              f"{calls[0][0]} {statistics.fmean(masked):.4f} ms, unmasked "
+              f"{pairs[calls[0][0]][0]} {statistics.fmean(plain):.4f} ms a "
+              f"launch on the same rays (mean of {len(masked)}) [{CARD}]")
+
+
 def profile_frames(cases):
     """Each (label, unprofiled ms, run) under torch.profiler: the device's
     kernel time and its share of the unprofiled run (a frame, or a tile
@@ -1905,11 +2220,10 @@ def main() -> int:
 
     # ---- build: one nvcc per kernel, all at once ----------------------
     t0 = time.perf_counter()
-    names = [*KERNELS, "gather_table"]
-    cuda_build.build(names)
-    for k in names:
+    cuda_build.build(SOURCES)
+    for k in SOURCES:
         cuda_build.load(k)
-    print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.3f} s")
+    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.3f} s")
 
     device = torch.device("cuda")
     settings = PassSettings(max_total_depth=5, min_total_depth=2)
@@ -1969,6 +2283,12 @@ def main() -> int:
         if kernel == "trace_binned":
             check_sort_key(case, label, errs)
         check_parity(kernel, case, (False, True), label, errs)
+    # the traversal slice: the binary two-level walk, the masked walks and
+    # trace_tlas's padded rows, at a 1080p frame's lane count
+    for label, (kernel, case) in slice_generator_cases(WIDTH * HEIGHT,
+                                                       device).items():
+        check_parity(kernel, case, (False, True), label, errs)
+    del case
 
     phase("the scenes", t_start)
     # ---- the scenes; a warm-up frame (a colonnade tile) captures every
@@ -2049,6 +2369,8 @@ def main() -> int:
         for i, (k, args, any_hit) in enumerate(calls):
             check_parity(k, args, (any_hit,), f"{name} launch {i}", errs)
         del calls
+    # the traversal slice's scenes: every launch of one 1080p frame
+    slices = slice_scenes(settings, errs)
 
     phase("card vs CPU tiles", t_start)
     # ---- small tiles: card vs the port's plain CPU path ---------------
@@ -2071,13 +2393,17 @@ def main() -> int:
     check_tile_against_cpu(lambda: shading_scene("alpha_box", ALPHA_LIFT),
                            "alpha_box lifted 2 mm", *SHADING_TILES["alpha_box"],
                            settings)
+    for label, (x0, y0) in SLICE_TILES.items():
+        check_tile_against_cpu(lambda lb=label: slice_scene(lb), label, x0,
+                               y0, settings)
 
     phase("forward paths", t_start)
     # ---- the forward main paths ---------------------------------------
     launches, frame_ms = {}, {}
     for label, (scene, cam, kernel, _, st, grid) in scenes.items():
-        counts, frame_ms[label] = forward_path(label, scene, cam, st, kernel,
-                                               grid)
+        counts, frame_ms[label] = forward_path(
+            label, scene, cam, st, kernel, grid,
+            FRAMES if grid == (1, 1) else COLONNADE_FRAMES)
         for mode in ("closest", "anyhit"):
             name = f"{kernel}_{mode}"
             launches[name] = launches.get(name, 0) + counts[name]
@@ -2101,6 +2427,14 @@ def main() -> int:
         for mode in ("closest", "anyhit"):
             key = f"{kernel}_{mode}"
             launches[key] = launches.get(key, 0) + counts.get(key, 0)
+    for label, (scene, cam, kernel, _) in slices.items():
+        counts, frame_ms[label] = forward_path(label, scene, cam, settings,
+                                               kernel, frames=SLICE[label][3])
+        for mode in ("closest", "anyhit"):
+            key = f"{kernel}_{mode}"
+            launches[key] = launches.get(key, 0) + counts[key]
+    tlas_against_flatten(scenes["flagship"][0], slices["cornell_tlas"][0],
+                         scenes["flagship"][1], settings)
 
     phase("goldens", t_start)
     golden_gate()
@@ -2117,6 +2451,12 @@ def main() -> int:
     for name, grid in SHADING_BWD.items():
         scene, cam, kernel = shading[name]
         shading_fwd_bwd(name, scene, cam, settings, kernel, grid)
+    for label, grid in SLICE_BWD.items():
+        scene, cam, kernel, _ = slices[label]
+        bwd_ms[label] = fwd_bwd_path(label, scene, cam, settings, kernel,
+                                     grid, SLICE_BWD_FRAMES)
+        check_grad_tile_against_cpu(lambda lb=label: slice_scene(lb), label,
+                                    *SLICE_TILES[label], settings)
 
     phase("colonnade fwd+bwd", t_start)
     # ---- the colonnade's fwd+bwd frame: bench.py's settings_big (remat),
@@ -2206,6 +2546,20 @@ def main() -> int:
           f"ms a launch (mean of {len(key_rows)}) [{CARD}]")
     rows = [r for label in scenes for r in scenes[label][-1]]
     kernels = []
+    for label in SLICE_TIMED:
+        print(f"kernel timing, {label}:")
+        slice_rows = kernel_timings(slices[label][3])
+        for r in slice_rows:
+            print(f"  {r['kernel']} {'anyhit ' if r['any_hit'] else 'closest'} "
+                  f"active {r['active']:>8}/{r['rays']} node steps "
+                  f"{r['node_steps']:>10} inst entries {r['inst_entries']:>8} "
+                  f"tests {r['tests']:>10}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.4f} ms (bytes "
+                  f"{r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})")
+        rows += slice_rows
+        if label != "cornell_tlas":
+            masked_vs_unmasked(label, slices[label][3])
     for kernel, info in KERNELS.items():
         for mode, any_hit in (("closest", False), ("anyhit", True)):
             name = f"{kernel}_{mode}"

@@ -1,10 +1,16 @@
-// BVH2 ray trace for scenes of up to 512 node and triangle rows: each ray
-// walks the tree with its own stack, testing two child boxes per node and
-// up to max_leaf triangles per leaf (Möller–Trumbore).
+// BVH2 ray trace: each ray walks the tree with its own stack, testing two
+// child boxes per node and up to max_leaf triangles per leaf
+// (Möller–Trumbore), optionally only the triangles whose per-ray-type
+// visibility mask meets the ray's.
 //
 // Replaces the TPU kernel ray_tpu/ops/traverse_pallas.py:_bvh_kernel
 // (pl.pallas_call in _trace_bvh_call, entry trace_bvh_pallas), which
-// ray_tpu's _pallas_mode routes every scene of 41 to 512 rows to.
+// ray_tpu's _pallas_mode routes every scene of 41 to 512 rows to, and
+// ray_tpu's XLA walk _traverse, which takes the larger scenes without an
+// 8-wide table and every masked trace without one (ray_tpu/ops/
+// traverse.py:118, the tri_vis test at :195-198).  The 512-row cap was the
+// TPU's VMEM: this kernel reads its rows from global memory and takes any
+// table below 2^27 rows.
 //
 // Semantics (identical to _bvh_kernel and to ray_tpu's XLA walk _traverse,
 // and bit-equal to the plain PyTorch version trace_bvh_plain in
@@ -23,7 +29,9 @@
 //     an entry or its stack is empty (what _traverse does while any other
 //     lane of its batch still walks);
 //   * a leaf code c < 0 holds first = (-c-1) >> 4 and count = (-c-1) & 15,
-//     and tests triangles k < max_leaf && k < count;
+//     and tests triangles k < max_leaf && k < count; the masked
+//     instantiation (kVis) skips a triangle whose mask (word 9 of its row)
+//     shares no bit with the ray's ray_mask;
 //   * a triangle counts when det != 0, u >= 0, v >= 0, u + v <= 1,
 //     t > t_min and t < t_best (closest hit) or t < t_max (any hit);
 //   * any hit: a later passing triangle of the same leaf overwrites an
@@ -53,9 +61,9 @@
 //     read as four float4, and triangle rows of 12 (p0 e1 e2, tri_test.cuh)
 //     read as three.
 //   * They are read from global memory through the read-only path
-//     (__ldg), not staged: at most 512 x 28 floats = 57.3 KB, 21.8 KB for
-//     cornell_sphere's 59 + 376 rows, which stay in each SM's L1 after the
-//     first touches.  Staging them in shared memory once a block made each
+//     (__ldg), not staged: 21.8 KB for cornell_sphere's 59 + 376 rows,
+//     which stay in each SM's L1 after the first touches (a larger table
+//     lives in the 50 MB L2).  Staging them in shared memory once a block made each
 //     block copy the whole table before its first step (8,100 blocks x 21.8
 //     KB a full-width launch through L2), and a grid of a few blocks an SM
 //     that stages once and walks its rays grid-stride lost the hardware's
@@ -73,6 +81,11 @@
 //     full test only for the pairs it cannot reject.
 //   * The stack is a per-thread int[64] (local memory, cached in L1)
 //     indexed below stack_size.
+//   * Visibility masks are a compile-time flag: the mask rides in the
+//     triangle row's spare word 9 (the wrapper's second cached copy of the
+//     rows, ops/traverse.py tri_rows(tris, tri_vis)), so the masked walk
+//     issues no extra load, and the unmasked instantiation is the kernel
+//     it was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,7 +96,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRows = 512;   // ray_tpu's T_MAX_BVH
+constexpr int kMaxRows = 1 << 27;  // a leaf code's first << 4 | count
 constexpr int kMaxStack = 64;   // MAX_STACK_SIZE
 constexpr int kMaxLeaf = 15;    // LEAF_COUNT_MASK
 constexpr int kNode4 = 4;       // float4 a node row
@@ -148,15 +161,15 @@ __device__ __forceinline__ bool slab(float lox, float loy, float loz,
 }
 
 // The walk of the active ray r; writes its hit record.
-template <bool kAnyHit>
+template <bool kAnyHit, bool kVis>
 __device__ __forceinline__ void trace_ray(
     int64_t r, const float4* __restrict__ nodes,
     const float4* __restrict__ tris, const float* __restrict__ ro,
     const float* __restrict__ rd, const float* __restrict__ t_min,
-    const float* __restrict__ t_max, float* __restrict__ out_t,
-    int32_t* __restrict__ out_prim, float* __restrict__ out_u,
-    float* __restrict__ out_v, bool* __restrict__ out_bf, int max_leaf,
-    int stack_size) {
+    const float* __restrict__ t_max, const int32_t* __restrict__ ray_mask,
+    float* __restrict__ out_t, int32_t* __restrict__ out_prim,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    bool* __restrict__ out_bf, int max_leaf, int stack_size) {
   const float ox = ro[3 * r], oy = ro[3 * r + 1], oz = ro[3 * r + 2];
   const float dx = rd[3 * r], dy = rd[3 * r + 1], dz = rd[3 * r + 2];
   const float tmn = t_min[r], tmx = t_max[r];
@@ -166,6 +179,7 @@ __device__ __forceinline__ void trace_ray(
   bool bf = false;
   const bool tmn_nonneg = tmn >= 0.0f;
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  const int32_t rmask = kVis ? ray_mask[r] : 0;
   int32_t stack[kMaxStack];
   int sp = 0;
   int32_t cur = 0;  // the root slot
@@ -207,6 +221,7 @@ __device__ __forceinline__ void trace_ray(
     for (int k = 0; k < max_leaf && k < count; ++k) {
       float4 r0, r1, r2;
       tri_row(tris, first + k, r0, r1, r2);
+      if (kVis && (__float_as_int(r2.y) & rmask) == 0) continue;
       const float upper = kAnyHit ? tmx : t_best;
       if (tri_test::hit(r0, r1, r2, ox, oy, oz, dx, dy, dz, tmn, tmn_nonneg,
                         upper, t_best, u_b, v_b, bf)) {
@@ -229,15 +244,16 @@ __device__ __forceinline__ void trace_ray(
   out_bf[r] = bf;
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kVis>
 __global__ void __launch_bounds__(kThreads) trace_bvh_kernel(
     const float4* __restrict__ nodes,  // (N, 16): lo0 hi0 lo1 hi1 c0 c1 0 0
-    const float4* __restrict__ tris,   // (T, 12): p0 e1 e2 0 0 0
+    const float4* __restrict__ tris,   // (T, 12): p0 e1 e2 vis 0 0
     const float* __restrict__ ro,      // (R, 3)
     const float* __restrict__ rd,      // (R, 3)
     const float* __restrict__ t_min,
     const float* __restrict__ t_max,
     const bool* __restrict__ active,
+    const int32_t* __restrict__ ray_mask,  // (R,) with kVis, else unread
     int64_t n_rays,
     float* __restrict__ out_t,
     int32_t* __restrict__ out_prim,
@@ -260,27 +276,23 @@ __global__ void __launch_bounds__(kThreads) trace_bvh_kernel(
   }
   const int n_live = live_lanes::pack_live<kThreads>(live, s_list, s_count);
   if (static_cast<int>(threadIdx.x) < n_live) {
-    trace_ray<kAnyHit>(base + s_list[threadIdx.x], nodes, tris, ro, rd, t_min,
-                       t_max, out_t, out_prim, out_u, out_v, out_bf, max_leaf,
-                       stack_size);
+    trace_ray<kAnyHit, kVis>(base + s_list[threadIdx.x], nodes, tris, ro, rd,
+                             t_min, t_max, ray_mask, out_t, out_prim, out_u,
+                             out_v, out_bf, max_leaf, stack_size);
   }
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes.  ``nodes``: the (n_nodes, 16) and
-// ``tris`` the (n_tris, 12) cached rows, both 16-byte aligned.  Launches on
-// ``stream`` and returns the launch's cudaGetLastError() (0 on success);
-// never synchronises.
-extern "C" int trace_bvh_launch(
-    const void* nodes, int n_nodes, const void* tris, int n_tris,
-    const void* ro, const void* rd, const void* t_min, const void* t_max,
-    const void* active, int64_t n_rays, void* out_t, void* out_prim,
-    void* out_u, void* out_v, void* out_bf, int max_leaf, int stack_size,
-    int any_hit, void* stream) {
-  if (n_nodes < 1 || n_nodes > kMaxRows || n_tris < 1 || n_tris > kMaxRows ||
-      max_leaf < 1 || max_leaf > kMaxLeaf || stack_size < 1 ||
-      stack_size > kMaxStack || n_rays <= 0 ||
+template <bool kVis>
+int launch(const void* nodes, int n_nodes, const void* tris, int n_tris,
+           const void* ro, const void* rd, const void* t_min,
+           const void* t_max, const void* active, const void* ray_mask,
+           int64_t n_rays, void* out_t, void* out_prim, void* out_u,
+           void* out_v, void* out_bf, int max_leaf, int stack_size,
+           int any_hit, void* stream) {
+  if (n_nodes < 1 || n_nodes >= kMaxRows || n_tris < 1 ||
+      n_tris >= kMaxRows || max_leaf < 1 || max_leaf > kMaxLeaf ||
+      stack_size < 1 || stack_size > kMaxStack || n_rays <= 0 ||
+      (kVis && ray_mask == nullptr) ||
       reinterpret_cast<uintptr_t>(nodes) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(tris) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -295,19 +307,52 @@ extern "C" int trace_bvh_launch(
   const float* tn = static_cast<const float*>(t_min);
   const float* tx = static_cast<const float*>(t_max);
   const bool* a = static_cast<const bool*>(active);
+  const int32_t* m = static_cast<const int32_t*>(ray_mask);
   float* ot = static_cast<float*>(out_t);
   int32_t* op = static_cast<int32_t*>(out_prim);
   float* ou = static_cast<float*>(out_u);
   float* ov = static_cast<float*>(out_v);
   bool* ob = static_cast<bool*>(out_bf);
   if (any_hit) {
-    trace_bvh_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        nd, tr, o, d, tn, tx, a, n_rays, ot, op, ou, ov, ob, max_leaf,
-        stack_size);
+    trace_bvh_kernel<true, kVis>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            nd, tr, o, d, tn, tx, a, m, n_rays, ot, op, ou, ov, ob, max_leaf,
+            stack_size);
   } else {
-    trace_bvh_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        nd, tr, o, d, tn, tx, a, n_rays, ot, op, ou, ov, ob, max_leaf,
-        stack_size);
+    trace_bvh_kernel<false, kVis>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            nd, tr, o, d, tn, tx, a, m, n_rays, ot, op, ou, ov, ob, max_leaf,
+            stack_size);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  ``nodes``: the (n_nodes, 16) and
+// ``tris`` the (n_tris, 12) cached rows, both 16-byte aligned.  Launch on
+// ``stream`` and return the launch's cudaGetLastError() (0 on success);
+// never synchronise.
+extern "C" int trace_bvh_launch(
+    const void* nodes, int n_nodes, const void* tris, int n_tris,
+    const void* ro, const void* rd, const void* t_min, const void* t_max,
+    const void* active, int64_t n_rays, void* out_t, void* out_prim,
+    void* out_u, void* out_v, void* out_bf, int max_leaf, int stack_size,
+    int any_hit, void* stream) {
+  return launch<false>(nodes, n_nodes, tris, n_tris, ro, rd, t_min, t_max,
+                       active, nullptr, n_rays, out_t, out_prim, out_u, out_v,
+                       out_bf, max_leaf, stack_size, any_hit, stream);
+}
+
+// The masked walk: ``tris`` carries each triangle's visibility mask in word
+// 9 (int bits) and ``ray_mask`` (n_rays,) i32 the rays' type bits.
+extern "C" int trace_bvh_vis_launch(
+    const void* nodes, int n_nodes, const void* tris, int n_tris,
+    const void* ro, const void* rd, const void* t_min, const void* t_max,
+    const void* active, int64_t n_rays, void* out_t, void* out_prim,
+    void* out_u, void* out_v, void* out_bf, int max_leaf, int stack_size,
+    const void* ray_mask, int any_hit, void* stream) {
+  return launch<true>(nodes, n_nodes, tris, n_tris, ro, rd, t_min, t_max,
+                      active, ray_mask, n_rays, out_t, out_prim, out_u, out_v,
+                      out_bf, max_leaf, stack_size, any_hit, stream);
 }

@@ -7,7 +7,10 @@
 // Replaces the TPU kernel ray_tpu/ops/traverse_pallas.py:_tlas_kernel
 // (pl.pallas_call in _trace_tlas_call, entry trace_tlas_pallas), which
 // ray_tpu's trace_closest_tlas / trace_occlusion_tlas route every two-level
-// scene to on a TPU.
+// scene with a wrows_tlas table to on a TPU.  It also serves the flatten
+// 8-wide walk _traverse_wide (a table without instance rows), and its
+// masked instantiation (kVis) that walk's per-triangle visibility test
+// (has_vis, ray_tpu/ops/traverse.py:326-331).
 //
 // Semantics (identical to ray_tpu's XLA walk _traverse_wide_tlas, and
 // bit-equal to the plain PyTorch version trace_tlas_plain in
@@ -28,9 +31,11 @@
 //     moves the ray into object space without renormalising (so t stays
 //     world-metric), recomputes safe_inv and descends into the root;
 //   * any other negative code: triangle leaf row v, slot-SoA columns p0x
-//     .. p2z (9 x max_leaf) then prim (max_leaf, int bits; < 0 pads).  The
-//     leaf's best hit comes by strict <, and replaces the ray's hit when it
-//     is nearer than t_best;
+//     .. p2z (9 x max_leaf), prim (max_leaf, int bits; < 0 pads) and the
+//     visibility masks (max_leaf, int bits).  A slot counts when its prim
+//     is >= 0 and, in the masked instantiation, its mask meets ray_mask.
+//     The leaf's best hit comes by strict <, and replaces the ray's hit
+//     when it is nearer than t_best;
 //   * RESTORE brings back the world-space ray; EMPTY means nothing to do.
 // Triangles are tested against t_best (closest hit) or t_max (any hit);
 // any hit ends the walk once a triangle is taken.  A push at sp >=
@@ -58,10 +63,15 @@
 // block), so rows are read from global memory through the read-only path
 // (__ldg) and the 50 MB L2 holds the whole table after the first touches.
 //   * Rows are read as 16-byte loads (float4): 14 for a node row, 4 for an
-//     instance row, 10 a group of four slots of a leaf row.  The wrapper
-//     checks that the width is a multiple of 4 floats and the base 16-byte
-//     aligned; a leaf row whose max_leaf is not a multiple of 4 is read
+//     instance row, 10 a group of four slots of a leaf row (11 masked).
+//     The wrapper hands over a table whose width is a multiple of 4 floats
+//     and whose base is 16-byte aligned — for a max_leaf whose width
+//     max(56, 11 max_leaf) is not, a cached copy padded with zero columns
+//     (ops/traverse.py check_tlas_rows) — and the kernel steps rows by
+//     that width; a leaf row whose max_leaf is not a multiple of 4 is read
 //     slot by slot.
+//   * Leaf visibility is a compile-time flag, so the unmasked walk is the
+//     kernel it was.
 //   * The walk is a while-while loop (Aila & Laine, "Understanding the
 //     efficiency of ray traversal on GPUs", HPG 2009): an inner loop runs
 //     node steps until the ray holds a leaf, an instance entry or RESTORE,
@@ -155,7 +165,7 @@ __device__ __forceinline__ void tri_slot(
   }
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kVis>
 __device__ __forceinline__ void trace_ray(
     int r, const float4* __restrict__ rows, int w4,
     const float* __restrict__ ro, const float* __restrict__ rd,
@@ -290,27 +300,37 @@ __device__ __forceinline__ void trace_ray(
             // float4 c * (L / 4) + g
             const int l4 = L >> 2;
             for (int g = 0; g < l4; ++g) {
-              float4 p[10];
+              constexpr int kCols = kVis ? 11 : 10;
+              float4 p[kCols];
 #pragma unroll
-              for (int c = 0; c < 10; ++c) p[c] = __ldg(row + c * l4 + g);
+              for (int c = 0; c < kCols; ++c) p[c] = __ldg(row + c * l4 + g);
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
+                int32_t pk = __float_as_int(comp(p[9], j));
+                // a slot the ray's type may not see counts as padding
+                if (kVis && (__float_as_int(comp(p[kCols - 1], j)) & rmask) ==
+                                0) {
+                  pk = -1;
+                }
                 tri_slot(w, comp(p[0], j), comp(p[1], j), comp(p[2], j),
                          comp(p[3], j), comp(p[4], j), comp(p[5], j),
-                         comp(p[6], j), comp(p[7], j), comp(p[8], j),
-                         __float_as_int(comp(p[9], j)), tmn, upper, lt,
-                         lprim, lu, lv, lbf);
+                         comp(p[6], j), comp(p[7], j), comp(p[8], j), pk,
+                         tmn, upper, lt, lprim, lu, lv, lbf);
               }
             }
           } else {
             const float* f = reinterpret_cast<const float*>(row);
             for (int k = 0; k < L; ++k) {
+              int32_t pk = __float_as_int(__ldg(f + 9 * L + k));
+              if (kVis && (__float_as_int(__ldg(f + 10 * L + k)) & rmask) ==
+                              0) {
+                pk = -1;
+              }
               tri_slot(w, __ldg(f + k), __ldg(f + L + k), __ldg(f + 2 * L + k),
                        __ldg(f + 3 * L + k), __ldg(f + 4 * L + k),
                        __ldg(f + 5 * L + k), __ldg(f + 6 * L + k),
-                       __ldg(f + 7 * L + k), __ldg(f + 8 * L + k),
-                       __float_as_int(__ldg(f + 9 * L + k)), tmn, upper, lt,
-                       lprim, lu, lv, lbf);
+                       __ldg(f + 7 * L + k), __ldg(f + 8 * L + k), pk, tmn,
+                       upper, lt, lprim, lu, lv, lbf);
             }
           }
           if (lprim >= 0 && lt < w.t_best) {
@@ -343,7 +363,7 @@ __device__ __forceinline__ void trace_ray(
   out_inst[r] = w.inst;
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kVis>
 __global__ void __launch_bounds__(kThreads) trace_tlas_kernel(
     const float4* __restrict__ rows,  // (N, W) wrows_tlas, W = 4 * w4
     int w4,
@@ -364,18 +384,15 @@ __global__ void __launch_bounds__(kThreads) trace_tlas_kernel(
     int stack_size) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r < n_rays) {
-    trace_ray<kAnyHit>(r, rows, w4, ro, rd, t_min, t_max, active, ray_mask,
+    trace_ray<kAnyHit, kVis>(r, rows, w4, ro, rd, t_min, t_max, active,
+                             ray_mask,
                        out_t, out_prim, out_u, out_v, out_bf, out_inst,
                        max_leaf, stack_size);
   }
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes.  ``ray_mask`` may be null (every ray
-// sees every instance).  Launches on ``stream`` and returns the launch's
-// cudaGetLastError() (0 on success); never synchronises.
-extern "C" int trace_tlas_launch(
+template <bool kVis>
+int launch(
     const void* rows, int n_rows, int width, const void* ro, const void* rd,
     const void* t_min, const void* t_max, const void* active,
     const void* ray_mask, int64_t n_rays, void* out_t, void* out_prim,
@@ -405,13 +422,44 @@ extern "C" int trace_tlas_launch(
   int32_t* oi = static_cast<int32_t*>(out_inst);
   const int R = static_cast<int>(n_rays);
   if (any_hit) {
-    trace_tlas_kernel<true><<<blocks, kThreads, 0, s>>>(
+    trace_tlas_kernel<true, kVis><<<blocks, kThreads, 0, s>>>(
         rw, width / 4, o, d, tn, tx, a, m, R, ot, op, ou, ov, ob, oi,
         max_leaf, stack_size);
   } else {
-    trace_tlas_kernel<false><<<blocks, kThreads, 0, s>>>(
+    trace_tlas_kernel<false, kVis><<<blocks, kThreads, 0, s>>>(
         rw, width / 4, o, d, tn, tx, a, m, R, ot, op, ou, ov, ob, oi,
         max_leaf, stack_size);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  ``rows``: the (n_rows, width) table,
+// width a multiple of 4 floats, 16-byte aligned.  ``ray_mask`` may be null
+// (every ray type).  Launch on ``stream`` and return the launch's
+// cudaGetLastError() (0 on success); never synchronise.
+extern "C" int trace_tlas_launch(
+    const void* rows, int n_rows, int width, const void* ro, const void* rd,
+    const void* t_min, const void* t_max, const void* active,
+    const void* ray_mask, int64_t n_rays, void* out_t, void* out_prim,
+    void* out_u, void* out_v, void* out_bf, void* out_inst, int max_leaf,
+    int stack_size, int any_hit, void* stream) {
+  return launch<false>(rows, n_rows, width, ro, rd, t_min, t_max, active,
+                       ray_mask, n_rays, out_t, out_prim, out_u, out_v,
+                       out_bf, out_inst, max_leaf, stack_size, any_hit,
+                       stream);
+}
+
+// The masked flatten walk: a leaf slot counts only when its visibility
+// column (10 max_leaf + k) meets the ray's ray_mask.
+extern "C" int trace_tlas_vis_launch(
+    const void* rows, int n_rows, int width, const void* ro, const void* rd,
+    const void* t_min, const void* t_max, const void* active,
+    const void* ray_mask, int64_t n_rays, void* out_t, void* out_prim,
+    void* out_u, void* out_v, void* out_bf, void* out_inst, int max_leaf,
+    int stack_size, int any_hit, void* stream) {
+  return launch<true>(rows, n_rows, width, ro, rd, t_min, t_max, active,
+                      ray_mask, n_rays, out_t, out_prim, out_u, out_v, out_bf,
+                      out_inst, max_leaf, stack_size, any_hit, stream);
 }

@@ -14,22 +14,31 @@ on a TPU and in the dispatch order of ``_trace_closest_soa_jit``
 * any other scene with the 8-wide table ``wrows`` → :func:`trace_wide`
   (``_traverse_wide``), which is the two-level walk on a table without
   instance rows and runs as :func:`trace_tlas`;
-* a larger scene without ``wrows`` raises ``NotImplementedError``
-  (ROADMAP Queue 1 item 19).
+* a larger scene without ``wrows`` → :func:`trace_bvh` (``_traverse``, the
+  same BVH2 walk: the 512-row cap is a TPU's VMEM, not semantics).
 
-and of ``trace_closest_tlas`` / ``trace_occlusion_tlas`` for two-level
-scenes: every one that carries the unified 8-wide table ``wrows_tlas``
-goes to :func:`trace_tlas` (``trace_tlas_pallas``); one without it (≤ 256
-unique triangles, which ``ray_tpu`` walks with the binary ``_traverse_tlas``)
-raises (ROADMAP Queue 1 item 19).
+A trace with per-triangle visibility (``tri_vis`` and the rays' type bits
+``ray_mask``) routes as ``ray_tpu``'s ``mode=None`` does: the masked wide
+walk when the scene has ``wrows``, else the masked BVH2 walk, whatever the
+triangle count (the brute and binned kernels never see a mask).
+
+Two-level scenes go through ``trace_closest_tlas`` /
+``trace_occlusion_tlas``: one that carries the unified 8-wide table
+``wrows_tlas`` to :func:`trace_tlas` (``trace_tlas_pallas``), one without
+it (≤ 256 unique triangles) to :func:`trace_tlas_bin`, the binary
+two-level walk ``_traverse_tlas`` over the BVH2 node and triangle tables
+and the instance columns.
 
 Each wrapper launches its hand-written kernel
-(``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,binned}.cu``) on a CUDA
-tensor, or raises; on a CPU tensor it runs its plain PyTorch version
+(``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,tlas_bin,binned}.cu``) on a
+CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch version
 (:func:`trace_brute_plain`, :func:`trace_bvh_plain`,
-:func:`trace_tlas_plain`, :func:`trace_binned_plain`) — the same
-arithmetic in the same expression order, the executable spec each kernel
-is held to bit for bit on the card.
+:func:`trace_tlas_plain`, :func:`trace_tlas_bin_plain`,
+:func:`trace_binned_plain`) — the same arithmetic in the same expression
+order, the executable spec each kernel is held to bit for bit on the card.
+The array-of-structs wrappers :func:`trace_closest`,
+:func:`trace_occlusion` and the O(R·T) spec :func:`trace_closest_brute`
+are ``ray_tpu``'s test helpers, in plain PyTorch.
 
 Traversal is a discrete decision procedure: hits come back detached
 (``prim`` int32, ``backface`` bool) and shading re-derives differentiable
@@ -44,7 +53,6 @@ from typing import NamedTuple
 
 import torch
 
-from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops import cuda_build
 from ray_tpu_torch.scene.binned import (
     CF,
@@ -87,15 +95,21 @@ class HitInst(NamedTuple):
 # ray_tpu's brute-force threshold (ops/traverse.py _PALLAS_BRUTE_MAX); the
 # kernel's shared-memory triangle buffer holds this many
 BRUTE_MAX_TRIS = 40
-# ray_tpu's BVH-kernel limit (ops/traverse_pallas.py T_MAX_BVH): node and
-# triangle rows the kernel stages in shared memory
+# ray_tpu's BVH-kernel limit (ops/traverse_pallas.py T_MAX_BVH): where its
+# router stops sending a scene to the BVH2 kernel (routing only: the port's
+# BVH2 kernel reads its rows from global memory and takes any table)
 BVH_MAX_ROWS = 512
+# the BVH2 kernel's table limit: a leaf code holds first << 4 | count
+BVH_MAX_TABLE_ROWS = 1 << 27
 # stack-empty sentinel (never a valid child code)
 EMPTY = -0x80000000
 # two-level walk: popping it brings back the world-space ray
 RESTORE = -0x7ffffffe
 # every ray type (instance visibility masks are tested against it)
 FULL_RAY_MASK = 0x7fffffff
+# TLAS leaf marker inside the binary two-level code space (ray_tpu
+# ops/traverse.py INST_LEAF_FLAG)
+INST_LEAF_FLAG = 1 << 28
 # slab-test slack: f32 1 + 2 ulp (ray_tpu ops/traverse.py _aabb_c)
 SLAB_SLACK = 1.00000024
 # the binned walk's "no subtree yet" entry distance: jnp.float32(3.4e38)
@@ -106,7 +120,8 @@ INT32_MAX = 0x7FFFFFFF
 def _trace_mode(n_nodes: int, n_tris: int, has_binned: bool = False,
                 has_wide: bool = False) -> str:
     """``ray_tpu``'s ``_pallas_mode`` on a TPU, and the dispatch order of
-    ``_trace_closest_soa_jit``: brute, bvh, binned, then the 8-wide walk."""
+    ``_trace_closest_soa_jit``: brute, bvh, binned, then the 8-wide walk,
+    and without it the BVH2 walk (``_traverse``) at any size."""
     if n_tris <= BRUTE_MAX_TRIS:
         return "brute"
     if max(n_nodes, n_tris) <= BVH_MAX_ROWS:
@@ -115,9 +130,7 @@ def _trace_mode(n_nodes: int, n_tris: int, has_binned: bool = False,
         return "binned"
     if has_wide:
         return "wide"
-    raise not_ported(
-        f"the BVH2 walk past {BVH_MAX_ROWS} rows without the 8-wide table "
-        f"({n_tris} triangles, {n_nodes} nodes)", "Queue 1 item 19")
+    return "bvh"
 
 
 def trace_brute_plain(tris, ro, rd, t_min, t_max, active, any_hit=False) -> Hit:
@@ -220,7 +233,8 @@ def _tri_c(ox, oy, oz, dx, dy, dz, trow, t_min, t_max):
 
 
 def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
-                    stack_size, any_hit=False, work=None) -> Hit:
+                    stack_size, any_hit=False, work=None, tri_vis=None,
+                    ray_mask=None) -> Hit:
     """BVH2 walk in plain PyTorch: the tensor port of ``ray_tpu``'s
     ``_traverse`` (ops/traverse.py:118-233), which is bit-identical to its
     Pallas kernel ``_bvh_kernel``.
@@ -242,10 +256,15 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
     triangle of the leaf overwrites an earlier one, and the walk ends after
     that leaf.
 
+    With per-ray-type visibility (``_traverse``'s ``tri_vis`` path,
+    ray_tpu/ops/traverse.py:195-198) a leaf slot is tested only when its
+    triangle's mask meets the ray's: ``(tri_vis[tri] & ray_mask) != 0``.
+
     ``nodes``: (N, 14) f32 packed rows (child 0 box, child 1 box, both
-    child codes as int bits); ``tris``: (T, 9) f32.  ``work``: optional
-    dict; node steps and triangle tests are added to its ``"node_steps"`` /
-    ``"tri_tests"``."""
+    child codes as int bits); ``tris``: (T, 9) f32; ``tri_vis``: None or
+    (T,) i32, with ``ray_mask`` (R,) i32 (None: every ray type).
+    ``work``: optional dict; node steps and triangle tests are added to its
+    ``"node_steps"`` / ``"tri_tests"``."""
     R = ro.shape[0]
     dx, dy, dz = rd[:, 0], rd[:, 1], rd[:, 2]
     ray = (ro[:, 0], ro[:, 1], ro[:, 2], dx, dy, dz,
@@ -255,13 +274,23 @@ def trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
            torch.zeros_like(t_max), torch.zeros_like(t_max),
            torch.zeros((R,), dtype=torch.bool, device=ro.device))
     nodes = nodes.contiguous()
+    vis = None
+    if tri_vis is not None:
+        vis = (tri_vis, _full_mask(ray_mask, R, ro.device))
     return Hit(*_walk_bvh2(nodes, nodes.view(torch.int32)[:, 12:14], tris,
                            None, None, ray, hit, active, max_leaf,
-                           stack_size, any_hit, work))
+                           stack_size, any_hit, work, vis))
+
+
+def _full_mask(ray_mask, R, device):
+    """``ray_mask``, or every ray type for each of R rays when None."""
+    if ray_mask is not None:
+        return ray_mask
+    return torch.full((R,), FULL_RAY_MASK, dtype=torch.int32, device=device)
 
 
 def _walk_bvh2(nodes, codes, tris, base, prim_map, ray, hit, walk, max_leaf,
-               stack_size, any_hit, work):
+               stack_size, any_hit, work, vis=None):
     """The BVH2 stack walk of :func:`trace_bvh_plain` (its docstring states
     the semantics), from the root for the lanes ``walk``, continuing the
     hit record ``hit`` = (t, prim, u, v, backface).
@@ -271,7 +300,8 @@ def _walk_bvh2(nodes, codes, tris, base, prim_map, ray, hit, walk, max_leaf,
     iz, t_min, t_max), each (R,).  ``base``: None, or an (R,) int64 row
     offset added to every node and triangle index (the lane's subtree slab
     in :func:`trace_binned_plain`); ``prim_map``: None (``prim`` is the
-    triangle's row) or a table mapping the row to the ``prim`` recorded."""
+    triangle's row) or a table mapping the row to the ``prim`` recorded;
+    ``vis``: None or (tri_vis (T,) i32, ray_mask (R,) i32)."""
     ox, oy, oz, dx, dy, dz, ix, iy, iz, t_min, t_max = ray
     t_best, prim, u_b, v_b, bf = hit
     R = ox.shape[0]
@@ -323,6 +353,8 @@ def _walk_bvh2(nodes, codes, tris, base, prim_map, ray, hit, walk, max_leaf,
             valid = is_leaf & (k < count)
             tri = torch.where(valid, first + k, 0)
             row = tri.long() if base is None else tri.long() + base
+            if vis is not None:
+                valid = valid & ((vis[0][row] & vis[1]) != 0)
             th, tt, tu, tv, tb = _tri_c(
                 ox, oy, oz, dx, dy, dz, tris[row], t_min,
                 t_max if any_hit else t_best)
@@ -361,7 +393,7 @@ def tlas_width(max_leaf: int) -> int:
 
 def trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max, active,
                      ray_mask, max_leaf, stack_size, any_hit=False,
-                     work=None) -> HitInst:
+                     work=None, has_vis=False) -> HitInst:
     """Two-level 8-wide walk in plain PyTorch: the tensor port of
     ``ray_tpu``'s ``_traverse_wide_tlas`` (ops/traverse.py:370-539), which
     is bit-identical to its Pallas kernel ``_tlas_kernel``.
@@ -384,9 +416,13 @@ def trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max, active,
     an entry or its stack is empty (``_traverse_wide_tlas`` goes on popping
     only while another lane of the batch still walks — ROADMAP Queue 3).
 
-    ``ray_mask``: (R,) i32 or None (every ray type).  Returns a
-    :class:`HitInst` whose ``inst`` is the instance index (the instance row
-    less ``winst_base``; -1 on a miss).  ``work``: optional dict; node
+    ``ray_mask``: (R,) i32 or None (every ray type).  ``has_vis``: the
+    flatten walk with per-triangle visibility (``_traverse_wide``'s
+    ``has_vis``, ray_tpu/ops/traverse.py:326-331): a leaf slot counts only
+    when its visibility column (10·L … 11·L) meets ``ray_mask``.  Columns
+    past ``tlas_width(max_leaf)`` (a padded table) are never read.  Returns
+    a :class:`HitInst` whose ``inst`` is the instance index (the instance
+    row less ``winst_base``; -1 on a miss).  ``work``: optional dict; node
     steps, instance entries and triangle tests are added to its
     ``"node_steps"`` / ``"inst_entries"`` / ``"tri_tests"``."""
     R = ro.shape[0]
@@ -398,9 +434,7 @@ def trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max, active,
     wox, woy, woz = ro[:, 0], ro[:, 1], ro[:, 2]
     wdx, wdy, wdz = rd[:, 0], rd[:, 1], rd[:, 2]
     wix, wiy, wiz = _safe_inv(wdx), _safe_inv(wdy), _safe_inv(wdz)
-    if ray_mask is None:
-        ray_mask = torch.full((R,), FULL_RAY_MASK, dtype=torch.int32,
-                              device=device)
+    ray_mask = _full_mask(ray_mask, R, device)
     lanes = torch.arange(R, device=device)
     i8 = torch.arange(8, dtype=torch.int32, device=device)
     bit8 = torch.ones_like(i8) << i8
@@ -497,6 +531,9 @@ def trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max, active,
         )
         prim4 = row_i[:, 9 * L:10 * L]
         valid4 = is_tri[:, None] & (prim4 >= 0)
+        if has_vis:
+            valid4 = valid4 & ((row_i[:, 10 * L:11 * L] & ray_mask[:, None])
+                               != 0)
         hit4 = th & valid4
         tt4 = torch.where(hit4, tt, inf)
         k_best = torch.argmin(tt4, dim=1)[:, None]
@@ -531,6 +568,171 @@ def trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max, active,
 
     inst = torch.where(prim >= 0, inst - int(winst_base), -1).to(torch.int32)
     return HitInst(t=t_best, prim=prim, u=u_b, v=v_b, backface=bf, inst=inst)
+
+
+# the instance columns the binary two-level walk reads, in the order of the
+# kernel's 16-float instance rows (then vis and blas_root as int bits)
+INST_XFORM_COLS = ("inv00", "inv01", "inv02", "inv10", "inv11", "inv12",
+                   "inv20", "inv21", "inv22", "invtx", "invty", "invtz")
+
+
+def trace_tlas_bin_plain(nodes, tris, inst, ro, rd, t_min, t_max, active,
+                         ray_mask, max_leaf, stack_size, any_hit=False,
+                         work=None) -> HitInst:
+    """Binary two-level walk in plain PyTorch: the tensor port of
+    ``ray_tpu``'s ``_traverse_tlas`` (ops/traverse.py:844-986), which it
+    runs for tlas scenes without ``wrows_tlas`` (≤ 256 unique triangles).
+
+    ``nodes``: the tlas finalize's (N, 14) packed BVH2 rows — the TLAS
+    first, then every mesh's BVH, child codes pre-offset, a TLAS leaf the
+    code ``-((INST_LEAF_FLAG | instance) + 1)``; ``tris``: the (T, 9)
+    object-space triangles; ``inst``: the instance columns (``vis``,
+    ``blas_root``, ``inv00`` … ``inv22``, ``invtx`` … ``invtz``).
+
+    Every ray holds a cursor ``cur``, the instance it is in and an (S, R)
+    stack.  A node step is :func:`trace_bvh_plain`'s: both child boxes
+    against [t_min, t_best] in the current-space ray, the near child by
+    ``t0 <= t1``, the far one pushed when both are hit.  An instance leaf
+    whose ``vis`` meets ``ray_mask`` pushes RESTORE, moves the ray into
+    object space — origin ``((inv·0 x + inv·1 y) + inv·2 z) + invt``,
+    direction the same without ``invt`` and not renormalised, so t stays
+    world-metric — takes ``_safe_inv`` of the new direction and descends
+    into ``blas_root``.  A triangle leaf tests its first ``min(count,
+    max_leaf)`` slots against t_best (closest hit) or t_max (any hit, where
+    the last passing slot wins and the walk ends after the leaf), recording
+    the current instance with each take.  RESTORE brings back the world
+    ray.  The following pop is folded into each step; overflow pops on, as
+    in :func:`trace_bvh_plain` (ROADMAP Queue 3).
+
+    ``ray_mask``: (R,) i32 or None (every ray type).  Returns a
+    :class:`HitInst` (``inst`` -1 on a miss).  ``work``: optional dict;
+    node steps, instance entries and triangle tests are added to its
+    ``"node_steps"`` / ``"inst_entries"`` / ``"tri_tests"``."""
+    R = ro.shape[0]
+    device = ro.device
+    S = int(stack_size)
+    nodes = nodes.contiguous()
+    codes = nodes.view(torch.int32)[:, 12:14]
+    wox, woy, woz = ro[:, 0], ro[:, 1], ro[:, 2]
+    wdx, wdy, wdz = rd[:, 0], rd[:, 1], rd[:, 2]
+    wix, wiy, wiz = _safe_inv(wdx), _safe_inv(wdy), _safe_inv(wdz)
+    ray_mask = _full_mask(ray_mask, R, device)
+    lanes = torch.arange(R, device=device)
+    empty = torch.full((R,), EMPTY, dtype=torch.int32, device=device)
+
+    stack = torch.full((S, R), EMPTY, dtype=torch.int32, device=device)
+    sp = torch.zeros((R,), dtype=torch.int32, device=device)
+    cur = torch.where(active, 0, EMPTY).to(torch.int32)
+    cur_inst = torch.zeros((R,), dtype=torch.int32, device=device)
+    ox, oy, oz, dx, dy, dz, ix, iy, iz = (wox, woy, woz, wdx, wdy, wdz,
+                                          wix, wiy, wiz)
+    t_best = t_max.clone()
+    prim = torch.full((R,), -1, dtype=torch.int32, device=device)
+    u_b = torch.zeros_like(t_max)
+    v_b = torch.zeros_like(t_max)
+    bf = torch.zeros((R,), dtype=torch.bool, device=device)
+    inst_b = torch.full((R,), -1, dtype=torch.int32, device=device)
+    if work is not None:
+        for k in ("node_steps", "inst_entries", "tri_tests"):
+            work.setdefault(k, 0)
+
+    while bool(((cur != EMPTY) | (sp > 0)).any()):
+        is_node = cur >= 0
+        leafish = (cur < 0) & (cur != EMPTY) & (cur != RESTORE)
+        v = torch.where(leafish, -cur - 1, 0)
+        is_inst = leafish & ((v & INST_LEAF_FLAG) != 0)
+        is_tri = leafish & (~is_inst)
+        is_restore = cur == RESTORE
+        node = torch.where(is_node, cur, 0).long()
+
+        # ---- internal node (TLAS or mesh BVH, current-space ray) ----
+        nrow = nodes[node]
+        h0, t0 = _aabb_c(ox, oy, oz, ix, iy, iz, nrow[:, 0], nrow[:, 1],
+                         nrow[:, 2], nrow[:, 3], nrow[:, 4], nrow[:, 5],
+                         t_min, t_best)
+        h1, t1 = _aabb_c(ox, oy, oz, ix, iy, iz, nrow[:, 6], nrow[:, 7],
+                         nrow[:, 8], nrow[:, 9], nrow[:, 10], nrow[:, 11],
+                         t_min, t_best)
+        c0, c1 = codes[node, 0], codes[node, 1]
+        near_is_0 = t0 <= t1
+        near_code = torch.where(near_is_0, c0, c1)
+        far_code = torch.where(near_is_0, c1, c0)
+        near_hit = torch.where(near_is_0, h0, h1) & is_node
+        far_hit = torch.where(near_is_0, h1, h0) & is_node
+        push_far = near_hit & far_hit
+        from_node = torch.where(near_hit, near_code,
+                                torch.where(far_hit, far_code, empty))
+
+        # ---- instance leaf: visibility, then enter the mesh ----
+        ii = torch.where(is_inst, v & (INST_LEAF_FLAG - 1), 0).long()
+        enter = is_inst & ((inst["vis"][ii] & ray_mask) != 0)
+        m = [inst[k][ii] for k in INST_XFORM_COLS]
+        eox = m[0] * wox + m[1] * woy + m[2] * woz + m[9]
+        eoy = m[3] * wox + m[4] * woy + m[5] * woz + m[10]
+        eoz = m[6] * wox + m[7] * woy + m[8] * woz + m[11]
+        edx = m[0] * wdx + m[1] * wdy + m[2] * wdz
+        edy = m[3] * wdx + m[4] * wdy + m[5] * wdz
+        edz = m[6] * wdx + m[7] * wdy + m[8] * wdz
+        from_inst = torch.where(enter, inst["blas_root"][ii], empty)
+
+        # ---- push: the far child, or RESTORE on entering ----
+        push = push_far | enter
+        push_val = torch.where(enter, RESTORE, far_code).to(torch.int32)
+        w = push & (sp < S)
+        stack[sp[w].long(), lanes[w]] = push_val[w]
+        sp = sp + push.to(torch.int32)
+
+        # ---- current-space ray (enter → object, restore → world) ----
+        def pick(e_val, w_val, cur_val):
+            return torch.where(enter, e_val,
+                               torch.where(is_restore, w_val, cur_val))
+
+        ox, oy, oz = pick(eox, wox, ox), pick(eoy, woy, oy), pick(eoz, woz, oz)
+        dx, dy, dz = pick(edx, wdx, dx), pick(edy, wdy, dy), pick(edz, wdz, dz)
+        ix = pick(_safe_inv(edx), wix, ix)
+        iy = pick(_safe_inv(edy), wiy, iy)
+        iz = pick(_safe_inv(edz), wiz, iz)
+        cur_inst = torch.where(enter, ii.to(torch.int32), cur_inst)
+
+        # ---- triangle leaf (object-space ray, world-metric t) ----
+        leaf_v = -torch.where(is_tri, cur, -1) - 1
+        first = leaf_v >> LEAF_COUNT_BITS
+        count = leaf_v & LEAF_COUNT_MASK
+        for k in range(max_leaf):
+            valid = is_tri & (k < count)
+            tri = torch.where(valid, first + k, 0)
+            th, tt, tu, tv, tb = _tri_c(
+                ox, oy, oz, dx, dy, dz, tris[tri.long()], t_min,
+                t_max if any_hit else t_best)
+            take = th & valid
+            t_best = torch.where(take, tt, t_best)
+            prim = torch.where(take, tri, prim)
+            u_b = torch.where(take, tu, u_b)
+            v_b = torch.where(take, tv, v_b)
+            bf = torch.where(take, tb, bf)
+            inst_b = torch.where(take, cur_inst, inst_b)
+            if work is not None:
+                work["tri_tests"] += int(valid.sum())
+        if work is not None:
+            work["node_steps"] += int(is_node.sum())
+            work["inst_entries"] += int(enter.sum())
+
+        next_cur = torch.where(is_node, from_node,
+                               torch.where(enter, from_inst, empty))
+        if any_hit:
+            done = prim >= 0
+            sp = torch.where(done, 0, sp)
+            next_cur = torch.where(done, empty, next_cur)
+
+        # pop where exhausted; a slot at or past S was never written
+        need_pop = (next_cur == EMPTY) & (sp > 0)
+        top = sp - 1
+        popped = torch.where(top < S, stack[top.clamp(0, S - 1).long(), lanes],
+                             empty)
+        cur = torch.where(need_pop, popped, next_cur)
+        sp = torch.where(need_pop, sp - 1, sp)
+    return HitInst(t=t_best, prim=prim, u=u_b, v=v_b, backface=bf,
+                   inst=inst_b)
 
 
 def _check(name, x, dtype, shape, device):
@@ -624,45 +826,82 @@ def trace_brute(tris, ro, rd, t_min, t_max, active, any_hit=False) -> Hit:
 
 
 def trace_bvh(nodes, tris, ro, rd, t_min, t_max, active, max_leaf,
-              stack_size, any_hit=False) -> Hit:
+              stack_size, any_hit=False, tri_vis=None, ray_mask=None) -> Hit:
     """BVH2 trace: (N, 14) f32 packed node rows, (T, 9) f32 packed
-    triangles (N, T ≤ 512), the rays as for :func:`trace_brute`, the
-    scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  CPU tensors run
-    :func:`trace_bvh_plain`; CUDA tensors launch the kernel on the current
-    stream, on the tables' cached :func:`node_rows` and :func:`tri_rows`
-    (built at the first launch on them)."""
+    triangles (any N, T below 2^27: the kernel reads them from global
+    memory), the rays as for :func:`trace_brute`, the scene's ``max_leaf``
+    (≤ 15) and ``stack_size`` (≤ 64); optionally per-triangle visibility
+    ``tri_vis`` (T,) i32 with the rays' ``ray_mask`` (R,) i32 (None: every
+    ray type).  CPU tensors run :func:`trace_bvh_plain`; CUDA tensors
+    launch the kernel on the current stream, on the tables' cached
+    :func:`node_rows` and :func:`tri_rows` (built at the first launch on
+    them; with ``tri_vis`` a second copy whose word 9 holds the mask, and
+    the masked kernel, counted as ``trace_bvh_vis``)."""
     device, R, rows = _cuda_inputs(
         "trace_bvh", (("nodes", nodes, 14), ("tris", tris, 9)),
         ro, rd, t_min, t_max, active)
+    for name, x in (("tri_vis", tri_vis), ("ray_mask", ray_mask)):
+        if x is not None and x.device != device:
+            raise ValueError(f"{name} is on {x.device}, ro on {device}")
     if device.type == "cpu":
         return trace_bvh_plain(nodes, tris, ro, rd, t_min, t_max, active,
-                               max_leaf, stack_size, any_hit)
+                               max_leaf, stack_size, any_hit,
+                               tri_vis=tri_vis, ray_mask=ray_mask)
     N, T = rows
-    if max(N, T) > BVH_MAX_ROWS:
-        raise ValueError(f"trace_bvh takes at most {BVH_MAX_ROWS} node and "
-                         f"triangle rows, got {N} and {T}")
+    if max(N, T) >= BVH_MAX_TABLE_ROWS:
+        raise ValueError(f"trace_bvh takes fewer than {BVH_MAX_TABLE_ROWS} "
+                         f"node and triangle rows, got {N} and {T}")
     if not 1 <= max_leaf <= LEAF_COUNT_MASK:
         raise ValueError(f"max_leaf {max_leaf} outside [1, {LEAF_COUNT_MASK}]")
     if not 1 <= stack_size <= MAX_STACK_SIZE:
         raise ValueError(f"stack_size {stack_size} outside "
                          f"[1, {MAX_STACK_SIZE}]")
-    nrows, trows = _bvh_kernel_tables(nodes, tris)
-    return _launch("trace_bvh", _bvh_fn(), device, R,
+    if tri_vis is None:
+        if ray_mask is not None:
+            raise ValueError("trace_bvh takes a ray_mask only with tri_vis")
+        nrows, trows = _bvh_kernel_tables(nodes, tris)
+        return _launch("trace_bvh", _bvh_fn(), device, R,
+                       (nrows.data_ptr(), N, trows.data_ptr(), T),
+                       ro, rd, t_min, t_max, active, any_hit,
+                       int(max_leaf), int(stack_size))
+    _check("tri_vis", tri_vis, torch.int32, (T,), device)
+    ray_mask = _full_mask(ray_mask, R, device)
+    _check("ray_mask", ray_mask, torch.int32, (R,), device)
+    nrows, trows = _bvh_vis_kernel_tables(nodes, tris, tri_vis)
+    return _launch("trace_bvh_vis", _bvh_vis_fn(), device, R,
                    (nrows.data_ptr(), N, trows.data_ptr(), T),
                    ro, rd, t_min, t_max, active, any_hit,
-                   int(max_leaf), int(stack_size))
+                   int(max_leaf), int(stack_size), ray_mask.data_ptr())
 
 
-def tri_rows(tris):
+def tri_rows(tris, tri_vis=None):
     """The (T, 12) f32 triangle rows the brute and BVH kernels read as
     three 16-byte loads: p0, e1 = p1 - p0, e2 = p2 - p0 (the plain
-    versions' own float32 subtractions, so the same bits) and three zero
-    words, from the (T, 9) packed rows p0 p1 p2."""
+    versions' own float32 subtractions, so the same bits) and three words
+    that are zero, or with ``tri_vis`` (T,) i32 the first of them the
+    triangle's visibility mask as int bits, from the (T, 9) packed rows p0
+    p1 p2."""
     rows = torch.zeros((tris.shape[0], 12), dtype=torch.float32,
                        device=tris.device)
     rows[:, 0:3] = tris[:, 0:3]
     rows[:, 3:6] = tris[:, 3:6] - tris[:, 0:3]
     rows[:, 6:9] = tris[:, 6:9] - tris[:, 0:3]
+    if tri_vis is not None:
+        rows.view(torch.int32)[:, 9] = tri_vis
+    return rows
+
+
+def inst_rows(inst):
+    """The (I, 16) f32 instance rows the binary two-level kernel reads as
+    four 16-byte loads: the object-from-world 3x3 (``inv00`` … ``inv22``,
+    row-major) and translation (``invtx`` … ``invtz``), the visibility
+    mask and the mesh's root code as int bits, two zero words."""
+    n = inst["vis"].shape[0]
+    rows = torch.zeros((n, 16), dtype=torch.float32, device=inst["vis"].device)
+    for c, k in enumerate(INST_XFORM_COLS):
+        rows[:, c] = inst[k]
+    rows.view(torch.int32)[:, 12] = inst["vis"]
+    rows.view(torch.int32)[:, 13] = inst["blas_root"]
     return rows
 
 
@@ -708,6 +947,28 @@ def _bvh_kernel_tables(nodes, tris):
     return _kernel_tables(
         "trace_bvh", (nodes, tris),
         lambda n, t: (node_rows(n.contiguous()), tri_rows(t.contiguous())))
+
+
+def _bvh_vis_kernel_tables(nodes, tris, tri_vis):
+    """(node_rows, tri_rows with the masks) of the masked BVH kernel,
+    cached per scene beside the unmasked copy."""
+    return _kernel_tables(
+        "trace_bvh_vis", (nodes, tris, tri_vis),
+        lambda n, t, m: (node_rows(n.contiguous()),
+                         tri_rows(t.contiguous(), m.contiguous())))
+
+
+def _tlas_bin_kernel_tables(nodes, tris, inst):
+    """(node_rows, tri_rows, inst_rows) of the binary two-level kernel,
+    cached per scene."""
+    cols = tuple(inst[k] for k in ("vis", "blas_root", *INST_XFORM_COLS))
+
+    def build(n, t, *c):
+        return (node_rows(n.contiguous()), tri_rows(t.contiguous()),
+                inst_rows(dict(zip(("vis", "blas_root", *INST_XFORM_COLS),
+                                   c))))
+    return _kernel_tables("trace_tlas_bin", (nodes, tris, *cols), build)
+
 
 
 def _flip_sign(x, s):
@@ -774,30 +1035,55 @@ def _bvh_fn():
     return fn
 
 
-def check_tlas_rows(rows) -> None:
-    """What the ``trace_tlas`` kernel needs of its table beyond the shape
-    :func:`trace_tlas` checks: it reads rows as 16-byte loads, so the width
-    must be a multiple of 4 floats and the base 16-byte aligned (the
-    default ``max_leaf`` of both modes gives widths 56 and 88; ``max_leaf``
-    6, 7, 9-11 and 13-15 give other widths).  Raises ``ValueError``."""
-    if rows.shape[1] % 4 != 0:
-        raise ValueError(f"trace_tlas reads 16-byte rows: width "
-                         f"{rows.shape[1]} is not a multiple of 4")
-    if rows.data_ptr() % 16 != 0:
-        raise ValueError("trace_tlas reads 16-byte rows: the table's base "
-                         "is not 16-byte aligned")
+def _bvh_vis_fn():
+    lib = cuda_build.load("trace_bvh")
+    fn = lib.trace_bvh_vis_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, i, p, i, p, p, p, p, p, ctypes.c_int64,
+                       p, p, p, p, p, i, i, p, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tlas_rows(rows):
+    """The table the ``trace_tlas`` kernel reads for ``rows`` (W columns,
+    W ≥ 56): it reads rows as 16-byte loads, so it gets the table itself
+    when W is a multiple of 4 floats and the base 16-byte aligned (both
+    modes' default ``max_leaf`` give widths 56 and 88), else the cached
+    copy padded with zero columns (``max_leaf`` 6, 7, 9-11, 13-15 give
+    other widths; it steps rows by the padded width and reads slots by
+    ``max_leaf``, and the plain walk never reads past ``tlas_width``).  The
+    copy is kept while the table lives.  Raises ``ValueError`` on a table
+    that is not 2-D or narrower than a node row."""
+    if rows.dim() != 2 or rows.shape[1] < NODE_COLS:
+        raise ValueError(f"trace_tlas takes (N, W >= {NODE_COLS}) rows, got "
+                         f"{tuple(rows.shape)}")
+    if rows.shape[1] % 4 == 0 and rows.data_ptr() % 16 == 0:
+        return rows
+
+    def pad(r):
+        out = torch.zeros((r.shape[0], -(-r.shape[1] // 4) * 4),
+                          dtype=r.dtype, device=r.device)
+        out[:, :r.shape[1]] = r
+        return (out,)
+    return _kernel_tables("trace_tlas", (rows,), pad)[0]
 
 
 def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
-               max_leaf, stack_size, any_hit=False) -> HitInst:
+               max_leaf, stack_size, any_hit=False, has_vis=False) -> HitInst:
     """Two-level trace over the unified table ``wrows_tlas``: (N, W) f32
     rows with W = ``tlas_width(max_leaf)`` (any N below 2^23: the table is
     read from global memory, not staged), the scene's ``winst_base``, the
     rays as for :func:`trace_brute`, an optional (R,) i32 ``ray_mask``, the
-    scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  CPU tensors run
-    :func:`trace_tlas_plain`; CUDA tensors launch the kernel on the current
-    stream, which also needs :func:`check_tlas_rows`.  ``inst`` comes back
-    rebased by ``winst_base`` (-1 on a miss)."""
+    scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  ``has_vis``:
+    leaf slots are tested against ``ray_mask`` too (the masked flatten
+    walk; the kernel's masked instantiation, counted as
+    ``trace_tlas_vis``).  CPU tensors run :func:`trace_tlas_plain`; CUDA
+    tensors launch the kernel on the current stream, on
+    :func:`check_tlas_rows`' table.  ``inst`` comes back rebased by
+    ``winst_base`` (-1 on a miss)."""
     tables = (("rows", rows, tlas_width(max_leaf)),)
     if ray_mask is not None and ray_mask.device != ro.device:
         raise ValueError(f"ray_mask is on {ray_mask.device}, ro on {ro.device}")
@@ -806,7 +1092,7 @@ def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
     if device.type == "cpu":
         return trace_tlas_plain(rows, winst_base, ro, rd, t_min, t_max,
                                 active, ray_mask, max_leaf, stack_size,
-                                any_hit)
+                                any_hit, has_vis=has_vis)
     (N,) = n_rows
     if ray_mask is not None:
         _check("ray_mask", ray_mask, torch.int32, (R,), device)
@@ -817,34 +1103,35 @@ def trace_tlas(rows, winst_base, ro, rd, t_min, t_max, active, ray_mask,
     if not 1 <= stack_size <= MAX_STACK_SIZE:
         raise ValueError(f"stack_size {stack_size} outside "
                          f"[1, {MAX_STACK_SIZE}]")
-    check_tlas_rows(rows)
+    table = check_tlas_rows(rows)
     out = [torch.empty((R,), dtype=d, device=device)
            for d in (torch.float32, torch.int32, torch.float32, torch.float32,
                      torch.bool, torch.int32)]
     if R == 0:
         return HitInst(*out)
+    name = "trace_tlas_vis" if has_vis else "trace_tlas"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _tlas_fn()(
-            rows.data_ptr(), N, rows.shape[1], ro.data_ptr(), rd.data_ptr(),
+        err = _tlas_fn(has_vis)(
+            table.data_ptr(), N, table.shape[1], ro.data_ptr(), rd.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), active.data_ptr(),
             None if ray_mask is None else ray_mask.data_ptr(), R,
             *(o.data_ptr() for o in out), int(max_leaf), int(stack_size),
             int(any_hit), stream,
         )
     if err != 0:
-        raise RuntimeError(f"trace_tlas kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     cuda_build.launch_counts[
-        "trace_tlas_anyhit" if any_hit else "trace_tlas_closest"] += 1
+        f"{name}_anyhit" if any_hit else f"{name}_closest"] += 1
     t, prim, u, v, bf, inst_row = out
     inst = torch.where(prim >= 0, inst_row - int(winst_base), -1)
     return HitInst(t=t, prim=prim, u=u, v=v, backface=bf,
                    inst=inst.to(torch.int32))
 
 
-def _tlas_fn():
+def _tlas_fn(has_vis=False):
     lib = cuda_build.load("trace_tlas")
-    fn = lib.trace_tlas_launch
+    fn = lib.trace_tlas_vis_launch if has_vis else lib.trace_tlas_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
@@ -855,16 +1142,98 @@ def _tlas_fn():
 
 
 def trace_wide(rows, ro, rd, t_min, t_max, active, max_leaf, stack_size,
-               any_hit=False) -> Hit:
+               any_hit=False, ray_mask=None, has_vis=False) -> Hit:
     """The 8-wide walk of a flatten scene over its ``wrows`` table:
     ``ray_tpu``'s ``_traverse_wide`` (ops/traverse.py:236), which is the
     two-level walk on a table with no instance rows, so it runs as
-    :func:`trace_tlas` with ``winst_base`` 0 and no ray mask (on a CUDA
-    tensor the ``trace_tlas`` kernel, counted as its launch), the instance
-    dropped.  ``rows``: (N, W) f32 with W = ``tlas_width(max_leaf)``."""
-    h = trace_tlas(rows, 0, ro, rd, t_min, t_max, active, None, max_leaf,
-                   stack_size, any_hit=any_hit)
+    :func:`trace_tlas` with ``winst_base`` 0 (on a CUDA tensor the
+    ``trace_tlas`` kernel, counted as its launch), the instance dropped.
+    ``rows``: (N, W) f32 with W = ``tlas_width(max_leaf)``.  With
+    ``has_vis`` each leaf slot's visibility column is tested against
+    ``ray_mask`` (None: every ray type)."""
+    h = trace_tlas(rows, 0, ro, rd, t_min, t_max, active, ray_mask, max_leaf,
+                   stack_size, any_hit=any_hit, has_vis=has_vis)
     return Hit(t=h.t, prim=h.prim, u=h.u, v=h.v, backface=h.backface)
+
+
+def trace_tlas_bin(nodes, tris, inst, ro, rd, t_min, t_max, active,
+                   ray_mask, max_leaf, stack_size, any_hit=False) -> HitInst:
+    """The binary two-level trace of a tlas scene without ``wrows_tlas``
+    (``ray_tpu``'s ``_traverse_tlas``): (N, 14) f32 packed node rows (TLAS
+    first), (T, 9) f32 object-space triangles, the instance columns
+    (``vis``, ``blas_root``, ``inv00`` … ``invtz``, each (I,)), the rays as
+    for :func:`trace_brute`, an optional (R,) i32 ``ray_mask``, the
+    scene's ``max_leaf`` (≤ 15) and ``stack_size`` (≤ 64).  CPU tensors
+    run :func:`trace_tlas_bin_plain`; CUDA tensors launch
+    ``csrc/trace_tlas_bin.cu`` on the current stream, on the scene's
+    cached :func:`node_rows`, :func:`tri_rows` and :func:`inst_rows`
+    (built at the first launch on them)."""
+    device, R, rows = _cuda_inputs(
+        "trace_tlas_bin", (("nodes", nodes, 14), ("tris", tris, 9)),
+        ro, rd, t_min, t_max, active)
+    for k in ("vis", "blas_root", *INST_XFORM_COLS):
+        if inst[k].device != device:
+            raise ValueError(f"inst[{k!r}] is on {inst[k].device}, ro on "
+                             f"{device}")
+    if ray_mask is not None and ray_mask.device != device:
+        raise ValueError(f"ray_mask is on {ray_mask.device}, ro on {device}")
+    if device.type == "cpu":
+        return trace_tlas_bin_plain(nodes, tris, inst, ro, rd, t_min, t_max,
+                                    active, ray_mask, max_leaf, stack_size,
+                                    any_hit)
+    N, T = rows
+    n_inst = inst["vis"].shape[0]
+    if max(N, T) >= BVH_MAX_TABLE_ROWS or not 1 <= n_inst < INST_LEAF_FLAG:
+        raise ValueError(f"trace_tlas_bin takes fewer than "
+                         f"{BVH_MAX_TABLE_ROWS} node and triangle rows and "
+                         f"1 to 2^28 - 1 instances, got {N}, {T} and "
+                         f"{n_inst}")
+    _check("inst['vis']", inst["vis"], torch.int32, (n_inst,), device)
+    _check("inst['blas_root']", inst["blas_root"], torch.int32, (n_inst,),
+           device)
+    for k in INST_XFORM_COLS:
+        _check(f"inst[{k!r}]", inst[k], torch.float32, (n_inst,), device)
+    if ray_mask is not None:
+        _check("ray_mask", ray_mask, torch.int32, (R,), device)
+    if not 1 <= max_leaf <= LEAF_COUNT_MASK:
+        raise ValueError(f"max_leaf {max_leaf} outside [1, {LEAF_COUNT_MASK}]")
+    if not 1 <= stack_size <= MAX_STACK_SIZE:
+        raise ValueError(f"stack_size {stack_size} outside "
+                         f"[1, {MAX_STACK_SIZE}]")
+    nrows, trows, irows = _tlas_bin_kernel_tables(nodes, tris, inst)
+    out = [torch.empty((R,), dtype=d, device=device)
+           for d in (torch.float32, torch.int32, torch.float32, torch.float32,
+                     torch.bool, torch.int32)]
+    if R == 0:
+        return HitInst(*out)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _tlas_bin_fn()(
+            nrows.data_ptr(), N, trows.data_ptr(), T, irows.data_ptr(),
+            n_inst, ro.data_ptr(), rd.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), active.data_ptr(),
+            None if ray_mask is None else ray_mask.data_ptr(), R,
+            *(o.data_ptr() for o in out), int(max_leaf), int(stack_size),
+            int(any_hit), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"trace_tlas_bin kernel launch failed: CUDA error "
+                           f"{err}")
+    cuda_build.launch_counts[
+        "trace_tlas_bin_anyhit" if any_hit else "trace_tlas_bin_closest"] += 1
+    return HitInst(*out)
+
+
+def _tlas_bin_fn():
+    lib = cuda_build.load("trace_tlas_bin")
+    fn = lib.trace_tlas_bin_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, ctypes.c_int64,
+                       p, p, p, p, p, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -1184,49 +1553,57 @@ def _binned_key_fn():
     return fn
 
 
-def _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask, max_leaf,
-                    stack_size, any_hit) -> HitInst:
+def _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active, ray_mask,
+                    max_leaf, stack_size, any_hit) -> HitInst:
+    rays = (ro.detach().contiguous(), rd.detach().contiguous(),
+            t_min.detach().contiguous(), t_max.detach().contiguous(),
+            active.contiguous())
+    mask = None if ray_mask is None else ray_mask.contiguous()
     if "wrows_tlas" not in bvh:
-        raise not_ported("the binary two-level walk (_traverse_tlas) of "
-                         "scenes of ≤ 256 unique triangles", "Queue 1 item 19")
-    return trace_tlas(
-        bvh["wrows_tlas"], int(bvh["winst_base"]), ro.detach().contiguous(),
-        rd.detach().contiguous(), t_min.detach().contiguous(),
-        t_max.detach().contiguous(), active.contiguous(),
-        None if ray_mask is None else ray_mask.contiguous(), max_leaf,
-        stack_size, any_hit=any_hit)
+        return trace_tlas_bin(bvh["packed"], tris["packed"], inst, *rays,
+                              mask, max_leaf, stack_size, any_hit=any_hit)
+    return trace_tlas(bvh["wrows_tlas"], int(bvh["winst_base"]), *rays, mask,
+                      max_leaf, stack_size, any_hit=any_hit)
 
 
 def trace_closest_tlas(bvh, tris, inst, ro, rd, t_min, t_max, active,
                        ray_mask=None, max_leaf: int = 4,
                        stack_size: int = MAX_STACK_SIZE) -> HitInst:
     """Two-level closest-hit trace (``ray_tpu``'s ``trace_closest_tlas``).
-    ``bvh``: ``SceneFlat.bvh_soa`` of a tlas scene (its ``wrows_tlas`` and
-    ``winst_base`` are read); ``tris`` and ``inst`` are taken for the
-    signature's sake, as the unified table carries both.  Returns a
-    :class:`HitInst`."""
-    return _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask,
-                           max_leaf, stack_size, False)
+    ``bvh``: ``SceneFlat.bvh_soa`` of a tlas scene; with ``wrows_tlas``
+    (and ``winst_base``) it runs :func:`trace_tlas`, else
+    :func:`trace_tlas_bin` on ``bvh["packed"]``, ``tris["packed"]`` and
+    the instance columns ``inst``.  Returns a :class:`HitInst`."""
+    return _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active,
+                           ray_mask, max_leaf, stack_size, False)
 
 
 def trace_occlusion_tlas(bvh, tris, inst, ro, rd, t_min, t_max, active,
                          ray_mask=None, max_leaf: int = 4,
                          stack_size: int = MAX_STACK_SIZE) -> torch.Tensor:
     """Two-level any-hit (shadow) trace: returns (R,) bool ``occluded``."""
-    hit = _trace_tlas_soa(bvh, ro, rd, t_min, t_max, active, ray_mask,
-                          max_leaf, stack_size, True)
+    hit = _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active,
+                          ray_mask, max_leaf, stack_size, True)
     return hit.prim >= 0
 
 
 def _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf, stack_size,
-           tri_vis, any_hit):
-    if tri_vis is not None:
-        raise not_ported("per-ray-type visibility masks", "Queue 1 item 20")
-    mode = _trace_mode(bvh["code0"].shape[0], tris["p0x"].shape[0],
-                       "binned_slab_f" in bvh, "wrows" in bvh)
+           tri_vis, ray_mask, any_hit):
     rays = (ro.detach().contiguous(), rd.detach().contiguous(),
             t_min.detach().contiguous(), t_max.detach().contiguous(),
             active.contiguous())
+    if tri_vis is not None:
+        # ray_tpu's mode=None: the masked wide walk, else the masked BVH2
+        # walk, whatever the size (ops/traverse.py:601-604, :616-626)
+        mask = None if ray_mask is None else ray_mask.contiguous()
+        if "wrows" in bvh:
+            return trace_wide(bvh["wrows"], *rays, max_leaf, stack_size,
+                              any_hit=any_hit, ray_mask=mask, has_vis=True)
+        return trace_bvh(bvh["packed"], tris["packed"], *rays, max_leaf,
+                         stack_size, any_hit=any_hit,
+                         tri_vis=tri_vis.contiguous(), ray_mask=mask)
+    mode = _trace_mode(bvh["code0"].shape[0], tris["p0x"].shape[0],
+                       "binned_slab_f" in bvh, "wrows" in bvh)
     if mode == "brute":
         return trace_brute(tris["packed"], *rays, any_hit=any_hit)
     if mode == "bvh":
@@ -1247,13 +1624,14 @@ def trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
     Args:
       bvh: dict of (N,) node columns + packed (N, 14) rows
         (``SceneFlat.bvh_soa``; past 512 rows its binned slabs
-        ``binned_*`` or else its 8-wide ``wrows`` are walked).
+        ``binned_*``, else its 8-wide ``wrows``, else the BVH2 is walked).
       tris: dict of (T,) triangle columns + packed (T, 9) rows, leaf order.
       ro, rd: (R, 3) f32; t_min, t_max: (R,) f32; active: (R,) bool.
-      tri_vis/ray_mask: per-ray-type visibility (not ported yet).
+      tri_vis/ray_mask: optional (T,)/(R,) i32 per-ray-type visibility —
+        triangles whose mask shares no bit with the ray's are skipped.
     """
     return _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf,
-                  stack_size, tri_vis, False)
+                  stack_size, tri_vis, ray_mask, False)
 
 
 def trace_occlusion_soa(bvh, tris, ro, rd, t_min, t_max, active,
@@ -1261,5 +1639,87 @@ def trace_occlusion_soa(bvh, tris, ro, rd, t_min, t_max, active,
                         tri_vis=None, ray_mask=None) -> torch.Tensor:
     """Any-hit (shadow) trace: returns (R,) bool ``occluded``."""
     hit = _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf,
-                 stack_size, tri_vis, True)
+                 stack_size, tri_vis, ray_mask, True)
     return hit.prim >= 0
+
+
+# ---------------------------------------------------------------------------
+# ray_tpu's array-of-structs wrappers over (vertices, tri_vidx) inputs, used
+# by tests (ops/traverse.py:738-812)
+# ---------------------------------------------------------------------------
+
+
+def _soa_from_arrays(nodes_child_lo, nodes_child_hi, nodes_child,
+                     prim_indices, vertices, tri_vidx):
+    bvh = {}
+    for side in range(2):
+        for axis, ax in enumerate("xyz"):
+            bvh[f"lo{side}{ax}"] = nodes_child_lo[:, side, axis]
+            bvh[f"hi{side}{ax}"] = nodes_child_hi[:, side, axis]
+        bvh[f"code{side}"] = nodes_child[:, side]
+    bvh["packed"] = torch.cat([
+        nodes_child_lo[:, 0], nodes_child_hi[:, 0],
+        nodes_child_lo[:, 1], nodes_child_hi[:, 1],
+        nodes_child[:, :2].to(torch.int32).contiguous().view(torch.float32),
+    ], dim=1)
+    tris_leaf = vertices[tri_vidx[prim_indices.long()].long()]  # (T, 3, 3)
+    tris = {}
+    for v in range(3):
+        for axis, ax in enumerate("xyz"):
+            tris[f"p{v}{ax}"] = tris_leaf[:, v, axis]
+    tris["packed"] = tris_leaf.reshape(tris_leaf.shape[0], 9).contiguous()
+    return bvh, tris
+
+
+def trace_closest(nodes_child_lo, nodes_child_hi, nodes_child, prim_indices,
+                  vertices, tri_vidx, ro, rd, t_min, t_max, active,
+                  max_leaf: int = 4, stack_size: int = MAX_STACK_SIZE) -> Hit:
+    """Array-of-structs wrapper (``ray_tpu``'s ``trace_closest``): a BVH2's
+    child boxes (N, 2, 3), child codes (N, 2) and ``prim_indices``, the
+    vertices and triangle indices.  Unlike ``trace_closest_soa``'s leaf
+    order, ``prim`` is the original triangle id (-1 on a miss)."""
+    bvh, tris = _soa_from_arrays(nodes_child_lo, nodes_child_hi, nodes_child,
+                                 prim_indices, vertices, tri_vidx)
+    hit = trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
+                            max_leaf=max_leaf, stack_size=stack_size)
+    orig = prim_indices[torch.clamp_min(hit.prim, 0).long()].to(torch.int32)
+    return hit._replace(prim=torch.where(hit.prim >= 0, orig, -1))
+
+
+def trace_occlusion(nodes_child_lo, nodes_child_hi, nodes_child, prim_indices,
+                    vertices, tri_vidx, ro, rd, t_min, t_max, active,
+                    max_leaf: int = 4,
+                    stack_size: int = MAX_STACK_SIZE) -> torch.Tensor:
+    """Any-hit counterpart of :func:`trace_closest`: (R,) bool."""
+    bvh, tris = _soa_from_arrays(nodes_child_lo, nodes_child_hi, nodes_child,
+                                 prim_indices, vertices, tri_vidx)
+    return trace_occlusion_soa(bvh, tris, ro, rd, t_min, t_max, active,
+                               max_leaf=max_leaf, stack_size=stack_size)
+
+
+def trace_closest_brute(vertices, tri_vidx, ro, rd, t_min, t_max,
+                        active) -> Hit:
+    """O(R·T) reference intersector (``ray_tpu``'s
+    ``trace_closest_brute``): every ray against every triangle of the
+    vertex buffer with :func:`~ray_tpu_torch.ops.intersect.intersect_tri`,
+    the nearest hit by the first minimum of t.  A test oracle, on no
+    path."""
+    from ray_tpu_torch.ops.intersect import intersect_tri
+
+    idx = tri_vidx.long()
+    p0, p1, p2 = vertices[idx[:, 0]], vertices[idx[:, 1]], vertices[idx[:, 2]]
+    hit, t, u, v, bf = intersect_tri(
+        ro[:, None, :], rd[:, None, :], p0[None], p1[None], p2[None],
+        t_min[:, None], t_max[:, None])
+    hit = hit & active[:, None]
+    t = torch.where(hit, t, torch.full_like(t, float("inf")))
+    best = torch.argmin(t, dim=1)
+    r = torch.arange(ro.shape[0], device=ro.device)
+    has = hit[r, best]
+    return Hit(
+        t=torch.where(has, t[r, best], t_max),
+        prim=torch.where(has, best.to(torch.int32), -1).to(torch.int32),
+        u=torch.where(has, u[r, best], 0.0),
+        v=torch.where(has, v[r, best], 0.0),
+        backface=torch.where(has, bf[r, best], False),
+    )

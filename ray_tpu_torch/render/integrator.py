@@ -23,6 +23,14 @@ and the marches' traces).  The closest-hit march runs detached, as in
 ``ray_tpu``: Transparent colors reach the gradient only through the
 shadow march's :func:`~ray_tpu_torch.render.surface.shadow_transmittance`.
 
+Per-ray-type visibility (``add_instance(..., visibility=...)``) follows
+``ray_tpu``: every lane carries its ray type as a mask bit — the camera
+ray's, then the sampled lobe's (diffuse, specular, refraction) — and
+shadow rays carry ``RAY_SHADOW``; each trace of a scene with
+``has_visibility`` passes the mask (and, in flatten mode, the scene's
+per-triangle ``tri_vis``), so the walks skip what the ray's type may not
+see.
+
 Occupancy compaction (``compact_after``) follows ``ray_tpu``'s conditions
 exactly: after ``compact_after`` full-width bounces, if the live lanes fit
 in ``K = max(R // compact_factor, 512)``, they are gathered to the front (a
@@ -89,6 +97,13 @@ from ray_tpu_torch.render import light_sampling, surface as surface_mod, uber
 from ray_tpu_torch.render.bsdf.microfacet import PI
 from ray_tpu_torch.render.raygen import generate_primary_rays
 from ray_tpu_torch.scene.materials import ShadingNode
+from ray_tpu_torch.scene.visibility import (
+    RAY_CAMERA,
+    RAY_DIFFUSE,
+    RAY_REFR,
+    RAY_SHADOW,
+    RAY_SPECULAR,
+)
 
 # the transparency marches' traces ("through": the closest-hit march past
 # a bounce's first trace; "transmittance": the shadow march) and their loop
@@ -152,6 +167,7 @@ class _PathState(NamedTuple):
     accum: torch.Tensor       # (R, 3) radiance
     aux_base: torch.Tensor    # (R, 3) base color at the primary hit
     aux_dn: torch.Tensor      # (R, 4) normal + depth at the primary hit
+    ray_mask: torch.Tensor    # (R,) i32 the ray type's visibility bit
     cone_width: torch.Tensor  # (R,) ray-cone width at the ray origin
     cone_spread: torch.Tensor  # (R,) ray-cone spread angle
     seed: torch.Tensor        # (R,) per-lane RNG seed
@@ -217,16 +233,13 @@ def _peek_ior(stack, skip_first, default=1.0):
     return out
 
 
-def _check_supported(scene, settings: PassSettings, cache_mode: str) -> None:
-    if scene.has_visibility:
-        raise not_ported("per-ray-type visibility masks", "Queue 1 item 20")
+def _check_supported(settings: PassSettings, cache_mode: str) -> None:
     if settings.tex_filter not in _TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
     if settings.output_sh:
         raise not_ported("the SH-L1 radiance output", "Queue 1 item 33")
     if cache_mode != "off":
         raise not_ported("the spatial radiance cache", "Queue 1 item 24")
-    light_sampling.check_light_kinds(scene)
 
 
 def render_tile(
@@ -254,7 +267,7 @@ def render_tile(
     optional (R,) bool — False lanes trace nothing.  Returns a dict with
     'color' (R,3) radiance, 'base_color' (R,3), 'depth_normal' (R,4) and
     'rays_traced' (closest + shadow rays, a 0-dim int64 tensor)."""
-    _check_supported(scene, settings, cache_mode)
+    _check_supported(settings, cache_mode)
     device = scene.device
     rays = generate_primary_rays(
         cam, filter_table, x0, y0, iteration, rand_seed,
@@ -281,6 +294,8 @@ def render_tile(
         accum=f32((R, 3), 0.0),
         aux_base=f32((R, 3), 0.0),
         aux_dn=f32((R, 4), 0.0),
+        ray_mask=torch.full((R,), RAY_CAMERA, dtype=torch.int32,
+                            device=device),
         cone_width=f32((R,), 0.0),
         cone_spread=rays.cone_spread.to(torch.float32).expand(R).contiguous(),
         seed=rng.pixel_seed(rays.px, rays.py, rand_seed),
@@ -375,19 +390,38 @@ def _replayed_bounce(scene, settings: PassSettings, feats, st: _PathState,
                                      preserve_rng_state=False)
 
 
-def _trace_closest(scene, ro, rd, t_max, active):
-    """Mode dispatch: flattened single BVH or the two-level walk.  Returns
-    (hit, inst); inst is None in flatten mode."""
+def _vis_kw(scene, mask):
+    """The visibility arguments of a trace: none for a scene without
+    per-instance visibility, else the rays' type bits ``mask`` (and in
+    flatten mode the per-triangle masks)."""
+    if not scene.has_visibility:
+        return {}
+    if scene.mode == "tlas":
+        return {"ray_mask": mask}
+    return {"tri_vis": scene.tri_vis, "ray_mask": mask}
+
+
+def _shadow_mask(ro):
+    return torch.full(ro.shape[:1], RAY_SHADOW, dtype=torch.int32,
+                      device=ro.device)
+
+
+def _trace_closest(scene, ro, rd, t_max, active, mask=None):
+    """Mode dispatch: flattened single BVH or the two-level walk, for rays
+    of the types ``mask`` (None: every type).  Returns (hit, inst); inst is
+    None in flatten mode."""
     t_min = torch.zeros_like(t_max)
     if scene.mode == "tlas":
         h = trace_closest_tlas(
             scene.bvh_soa, scene.tri_soa, scene.inst, ro, rd, t_min, t_max,
             active, max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+            **_vis_kw(scene, mask),
         )
         return h, h.inst
     h = trace_closest_soa(
         scene.bvh_soa, scene.tri_soa, ro, rd, t_min, t_max, active,
         max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+        **_vis_kw(scene, mask),
     )
     return h, None
 
@@ -395,14 +429,16 @@ def _trace_closest(scene, ro, rd, t_max, active):
 def _trace_occlusion(scene, ro, rd, t_max, active):
     """Any-hit (shadow) trace, dispatched like :func:`_trace_closest`."""
     t_min = torch.zeros_like(t_max)
+    vis = _vis_kw(scene, _shadow_mask(ro) if scene.has_visibility else None)
     if scene.mode == "tlas":
         return trace_occlusion_tlas(
             scene.bvh_soa, scene.tri_soa, scene.inst, ro, rd, t_min, t_max,
             active, max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+            **vis,
         )
     return trace_occlusion_soa(
         scene.bvh_soa, scene.tri_soa, ro, rd, t_min, t_max, active,
-        max_leaf=scene.max_leaf, stack_size=scene.stack_size,
+        max_leaf=scene.max_leaf, stack_size=scene.stack_size, **vis,
     )
 
 
@@ -439,7 +475,8 @@ def _trace_transmittance(scene, settings: PassSettings, traced, ro, rd,
         if not bool(act.any()):
             break
         march_counts["transmittance"] += 1
-        hit, _ = traced(_trace_closest, scene, ro, rd, dist, act)
+        hit, _ = traced(_trace_closest, scene, ro, rd, dist, act,
+                        _shadow_mask(ro) if scene.has_visibility else None)
         miss = hit.prim < 0
         side_solid, uv, mat_id = _transp_hit(scene, hit)
         rc = torch.where((act & (~miss) & side_solid)[:, None], 0.0, rc)
@@ -491,8 +528,8 @@ def _transp_classify(scene, settings: PassSettings, hit, rd, live, transp_d,
 
 
 def _trace_closest_through(scene, settings: PassSettings, traced, ro, rd,
-                           t_max, active, throughput, transp_d, total_d,
-                           seed, sample_i):
+                           t_max, active, mask, throughput, transp_d,
+                           total_d, seed, sample_i):
     """Closest-hit trace that marches through Transparent surfaces (the
     reference's IntersectScene loop, CoreRef.cpp:3041-3158): a transparent
     continuation spends transparency depth and RNG dimensions, not a
@@ -501,7 +538,7 @@ def _trace_closest_through(scene, settings: PassSettings, traced, ro, rd,
     The march is detached: its colors multiply ``throughput`` as
     constants.  Returns (hit with t the distance from ``ro``, instance
     ids or None, throughput, transparency depth)."""
-    hit, inst = traced(_trace_closest, scene, ro, rd, t_max, active)
+    hit, inst = traced(_trace_closest, scene, ro, rd, t_max, active, mask)
     if not scene.has_transparency:
         return hit, inst, throughput, transp_d
     with torch.no_grad():
@@ -526,7 +563,8 @@ def _trace_closest_through(scene, settings: PassSettings, traced, ro, rd,
             lum = torch.where(cont, lum * mult.amax(dim=-1), lum)
             transp_d = transp_d + cont.to(transp_d.dtype)
             new_hit, _ = traced(_trace_closest, scene, ro_c, rd,
-                                torch.clamp_min(t_max - t_base, 0.0), cont)
+                                torch.clamp_min(t_max - t_base, 0.0), cont,
+                                mask)
             hit = type(hit)(*(torch.where(cont, n, o)
                               for n, o in zip(new_hit, hit)))
             cont, nkill, mult = _transp_classify(
@@ -548,6 +586,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     ro, rd, t_max, throughput, bsdf_pdf, active, depth = st[:7]
     ior_stack, accum, aux_base, aux_dn = (st.ior_stack, st.accum, st.aux_base,
                                           st.aux_dn)
+    ray_mask = st.ray_mask
     cone_width, cone_spread, seed = st.cone_width, st.cone_spread, st.seed
     Rl = ro.shape[0]
     device = ro.device
@@ -560,7 +599,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     # closest hit, marching through Transparent surfaces (which updates the
     # throughput and the transparency depth, not the bounce)
     hit, hit_inst, throughput, transp_d = _trace_closest_through(
-        scene, settings, traced, ro, rd, t_max, active, throughput,
+        scene, settings, traced, ro, rd, t_max, active, ray_mask, throughput,
         depth[:, 3], total_depth, seed, sample_i)
     if scene.has_transparency:
         depth = torch.cat([depth[:, :3], transp_d[:, None]], dim=-1)
@@ -612,7 +651,11 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             scene, ro, torch.full((Rl,), scene.env_light_index,
                                   dtype=torch.int32, device=device)
         )
-        light_pdf = (0.5 / PI) * env_light_pick_pdf
+        if scene.env_tab_h > 0:
+            light_pdf = (light_sampling.env_hit_pdf(scene, rd)
+                         * env_light_pick_pdf)
+        else:
+            light_pdf = (0.5 / PI) * env_light_pick_pdf
         can_mis = indirect & (total_depth < settings.max_total_depth)
         mis_w = torch.where(can_mis, power_heuristic(bsdf_pdf, light_pdf), 1.0)
         env_col = env_col * mis_w[:, None]
@@ -823,6 +866,15 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         [is_diff, is_spec, is_refr, torch.zeros_like(is_diff)], dim=-1
     ).to(torch.int32)
     depth = depth + torch.where(na3, depth_inc, 0)
+    if scene.has_visibility:
+        # the next segment's ray type for the visibility masks (the
+        # reference packs it in depth bits 28..31, CoreRef.h:253-280)
+        new_mask = torch.where(
+            is_diff, RAY_DIFFUSE,
+            torch.where(is_spec, RAY_SPECULAR,
+                        torch.where(is_refr, RAY_REFR, ray_mask)))
+        ray_mask = torch.where(next_active, new_mask.to(torch.int32),
+                               ray_mask)
     # the cone advances to the hit and spreads by the sampled lobe's alpha
     # (ShadeRef.cpp:1458-1459 + per-lobe increments)
     cone_width = torch.where(next_active, cw_at_hit, cone_width)
@@ -846,6 +898,6 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     new = _PathState(ro=ro, rd=rd, t_max=t_max, throughput=throughput,
                      bsdf_pdf=bsdf_pdf, active=next_active, depth=depth,
                      ior_stack=ior_stack, accum=accum, aux_base=aux_base,
-                     aux_dn=aux_dn, cone_width=cone_width,
+                     aux_dn=aux_dn, ray_mask=ray_mask, cone_width=cone_width,
                      cone_spread=cone_spread, seed=seed)
     return new, n, bad

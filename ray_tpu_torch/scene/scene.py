@@ -17,10 +17,11 @@ over the instances, and past 256 unique triangles the unified 8-wide table
 ``bvh_soa["wrows_tlas"]`` that the traversal walks.  Uncompressed textures
 pack into ``ray_tpu``'s flat texel table (:mod:`.textures`).  A principled
 material with ``alpha`` < 1 or an alpha texture expands, as in
-``ray_tpu``, into Mix(Transparent, root) nodes.  Not ported
-yet, and raising ``NotImplementedError`` with the ROADMAP entry that will
-port it: compressed textures and env maps, the physical sky and the
-SBVH/HLBVH builders.
+``ray_tpu``, into Mix(Transparent, root) nodes.  A latlong environment map
+(``set_environment(map_id=...)``) gets ``ray_tpu``'s importance tables
+(:mod:`.env`).  Not ported yet, and raising ``NotImplementedError`` with
+the ROADMAP entry that will port it: compressed textures, the physical sky
+and the SBVH/HLBVH builders.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._roadmap import not_ported
+from ray_tpu_torch.ops.traverse import INST_LEAF_FLAG
 from ray_tpu_torch.scene import lights as lights_mod
 from ray_tpu_torch.scene.binned import CI, MAX_SUBTREES, pack_binned_scene
 from ray_tpu_torch.scene.bvh import (
@@ -45,6 +47,7 @@ from ray_tpu_torch.scene.bvh import (
     tri_bounds,
 )
 from ray_tpu_torch.scene.camera import Camera
+from ray_tpu_torch.scene.env import build_env_cdf
 from ray_tpu_torch.scene.lights import LightDesc, LightType, pack_lights
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode, pack_materials
 from ray_tpu_torch.scene.textures import TexturePacker
@@ -57,9 +60,6 @@ WIDE_BVH_MIN_TRIS = 256
 # ray_tpu's BVH-kernel limit (T_MAX_BVH): a flatten scene past it in node or
 # triangle rows may carry binned subtree slabs
 BVH_MAX_ROWS = 512
-# TLAS leaf marker inside the binary two-level code space (ray_tpu
-# ops/traverse.py INST_LEAF_FLAG)
-INST_LEAF_FLAG = 1 << 28
 
 
 def resolve_device(device=None) -> torch.device:
@@ -322,8 +322,8 @@ class Scene:
 
     def set_environment(self, color=(0, 0, 0), map_id: int = -1,
                         rotation: float = 0.0):
-        if int(map_id) >= 0:
-            raise not_ported("environment maps", "Queue 1 item 31")
+        """A constant environment ``color``, times the latlong texture
+        ``map_id`` (>= 0) turned by ``rotation`` radians about +y."""
         self.env_col = np.asarray(color, np.float32)
         self.env_map = int(map_id)
         self.env_rotation = float(rotation)
@@ -781,7 +781,7 @@ class Scene:
     def _pack_common(self, light_descs, tri_areas, vertices, tri_vidx,
                      light_tree_min_lights):
         """Mode-independent tail of finalize: env light + material/light/
-        texture tables + light tree + (constant-env) importance tables."""
+        texture tables + light tree + env importance tables."""
         env_light_index = -1
         if float(np.max(self.env_col)) > 0.0 or self.env_map >= 0:
             env_light_index = len(light_descs)
@@ -799,8 +799,15 @@ class Scene:
                 light_bounds_and_cones,
             )
 
+            env_mean_lum = 1.0
+            if self.env_map >= 0:
+                img = self._textures.get_image(self.env_map)
+                env_mean_lum = float(np.mean(
+                    0.212671 * img[..., 0] + 0.715160 * img[..., 1]
+                    + 0.072169 * img[..., 2]))
             bounds = light_bounds_and_cones(
-                light_descs, vertices, tri_vidx, tri_areas, env_mean_lum=1.0,
+                light_descs, vertices, tri_vidx, tri_areas,
+                env_mean_lum=env_mean_lum,
             )
             light_tree, light_tree_depth = build_light_tree(bounds)
         else:
@@ -818,6 +825,19 @@ class Scene:
                 "leaf_node": np.zeros(max(len(light_descs), 1), np.int32),
             }
 
+        # the environment map's importance tables (scene/env.py)
+        if self.env_map >= 0:
+            env_marginal, env_cond, env_pdf = build_env_cdf(
+                self._textures.get_image(self.env_map))
+            env_tab_h, env_tab_w = env_pdf.shape
+            env_cond = env_cond.reshape(-1)
+            env_pdf = env_pdf.reshape(-1)
+        else:
+            env_marginal = np.ones(1, np.float32)
+            env_cond = np.ones(1, np.float32)
+            env_pdf = np.full(1, 0.25 / np.pi, np.float32)
+            env_tab_h = env_tab_w = 0
+
         return {
             "arrays": {
                 "materials": materials,
@@ -826,9 +846,9 @@ class Scene:
                 "env_col": self.env_col,
                 "env_map": np.int32(self.env_map),
                 "env_rotation": np.float32(self.env_rotation),
-                "env_marginal_cdf": np.ones(1, np.float32),
-                "env_cond_cdf": np.ones(1, np.float32),
-                "env_pdf": np.full(1, 0.25 / np.pi, np.float32),
+                "env_marginal_cdf": env_marginal,
+                "env_cond_cdf": env_cond,
+                "env_pdf": env_pdf,
                 "light_tree": light_tree,
             },
             "static": {
@@ -852,8 +872,8 @@ class Scene:
                      bool(d.doublesided), bool(d.sky_portal))
                     for d in light_descs
                 ),
-                "env_tab_w": 0,
-                "env_tab_h": 0,
+                "env_tab_w": env_tab_w,
+                "env_tab_h": env_tab_h,
                 "light_tree_depth": light_tree_depth,
             },
         }

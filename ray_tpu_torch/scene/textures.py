@@ -86,6 +86,14 @@ class TexturePacker:
         self.num_mips.append(len(mips))
         return tex_id
 
+    def get_image(self, tex_id: int, mip: int = 0) -> np.ndarray:
+        """Mip level ``mip`` of texture ``tex_id`` as (H, W, 4) float32 (the
+        packed, linearised texels) — what finalize builds the environment's
+        importance tables from (``ray_tpu``'s ``get_image``)."""
+        rec = int(np.cumsum([0] + self.num_mips[:-1])[tex_id]) + mip
+        _, w, h = self.records[rec]
+        return self.texels[rec].reshape(h, w, 4)
+
     def pack(self) -> dict:
         """numpy dict: the transposed texel table ``texels_t`` (4, N),
         ``tex_offset``/``tex_w``/``tex_h``/``tex_fmt``/``tex_boff``/

@@ -3,10 +3,15 @@ Cornell box (the scene of the flagship frame) and the instanced colonnade
 (the big scene: two-level traversal, textures, principled materials,
 sphere lights), the instanced generator scene of the traversal tests, the
 four scenes of ``ray_tpu``'s committed CPU goldens
-(``tests/cpu_golden_scenes.py``: ``GOLDEN_SCENES``) and ``alpha_box``, a
-Cornell box whose tall box has principled alpha."""
+(``tests/cpu_golden_scenes.py``: ``GOLDEN_SCENES``), ``alpha_box``, a
+Cornell box whose tall box has principled alpha, and the traversal slice's
+scenes (``cornell_tlas``, ``cornell_vis``, ``sphere_vis``, ``env_map``),
+which take a package's scene API (:func:`port_api`, or ``ray_tpu``'s in
+the tests), so that one function builds the scene in either package."""
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 
@@ -14,6 +19,7 @@ from ray_tpu_torch.scene.camera import make_camera
 from ray_tpu_torch.scene.lights import LightDesc, LightType
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.scene.scene import Scene
+from ray_tpu_torch.scene.visibility import visibility_mask
 from ray_tpu_torch.utils.geometry import make_box, make_quad, make_uv_sphere
 
 
@@ -335,3 +341,129 @@ def instanced_scene(meshes=((12, 16),), n_inst: int = 6, seed: int = 3):
             sc.add_instance(mesh, x)
     sc.set_environment((0.5, 0.5, 0.5))
     return sc
+
+
+# ---- the traversal slice's scenes ----------------------------------------
+
+
+def port_api():
+    """The scene API the slice's builders take: this package's
+    ``cornell_scene``, ``scene_dir_env``, ``MaterialDesc``, ``ShadingNode``,
+    ``LightDesc`` and ``LightType`` (a test passes ``ray_tpu``'s)."""
+    return types.SimpleNamespace(
+        cornell_scene=cornell_scene, scene_dir_env=scene_dir_env,
+        MaterialDesc=MaterialDesc, ShadingNode=ShadingNode,
+        LightDesc=LightDesc, LightType=LightType)
+
+
+def _instance_all(sc):
+    """One untransformed, fully visible instance of each mesh added so far
+    (what finalize does for a scene without instances)."""
+    for m in range(len(sc._meshes)):
+        sc.add_instance(m)
+
+
+def _xform(t, scale=(1.0, 1.0, 1.0)):
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = scale
+    m[:3, 3] = t
+    return m
+
+
+def cornell_tlas(api=None):
+    """The flagship ``cornell_scene("emissive_quad")``, to be finalized with
+    ``instancing="tlas"``: 24 unique triangles, one instance a mesh, the
+    light quad's two TRI lights instanced — no ``wrows_tlas``, so every
+    trace takes the binary two-level walk.  Returns (Scene, Camera)."""
+    api = api or port_api()
+    return api.cornell_scene("emissive_quad")
+
+
+def cornell_vis(api=None):
+    """The flagship plus three instances of one small box (36 unique
+    triangles in all), each hidden from one ray type: one floating under
+    the light with ``visibility_mask(camera=False)`` (its shadow shows,
+    the box does not), one on the floor with ``shadow=False`` (seen, casts
+    no shadow) and one scaled non-uniformly by (1.5, 0.6, 1.0) with
+    ``specular=False``.  Flatten mode: the masked BVH2 walk; tlas mode:
+    the binary two-level walk with ray masks.  Returns (Scene, Camera)."""
+    api = api or port_api()
+    sc, cam = api.cornell_scene("emissive_quad")
+    _instance_all(sc)
+    bv, bidx, bn = make_box(size=(0.3, 0.3, 0.3))
+    box = sc.add_mesh(bv, bidx, normals=bn, material=0)
+    sc.add_instance(box, _xform((0.3, 0.35, -0.1)),
+                    visibility=visibility_mask(camera=False))
+    sc.add_instance(box, _xform((0.35, -0.85, 0.35)),
+                    visibility=visibility_mask(shadow=False))
+    sc.add_instance(box, _xform((-0.55, 0.25, -0.35), (1.5, 0.6, 1.0)),
+                    visibility=visibility_mask(specular=False))
+    return sc, cam
+
+
+def sphere_vis(api=None):
+    """``cornell_sphere`` (the flagship plus a rough diffuse UV sphere, 376
+    triangles) with the sphere's instance hidden from camera rays: it
+    shows only in shadows and bounce light.  Flatten mode: the masked
+    8-wide walk (``wrows`` with its visibility column); tlas mode:
+    ``wrows_tlas`` with ray masks.  Returns (Scene, Camera)."""
+    api = api or port_api()
+    sc, cam = api.cornell_scene("emissive_quad")
+    _instance_all(sc)
+    m = sc.add_material(api.MaterialDesc(
+        type=api.ShadingNode.DIFFUSE, base_color=(0.2, 0.3, 0.8),
+        roughness=0.5))
+    v, idx, n, uv = make_uv_sphere(center=(0.4, -0.64, -0.3), radius=0.35,
+                                   rings=12, segments=16)
+    sphere = sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)
+    sc.add_instance(sphere, visibility=visibility_mask(camera=False))
+    return sc, cam
+
+
+# the environment map of env_map: latlong, width x height
+ENV_MAP_RES = (512, 256)
+
+
+def env_map_image(seed: int = 11, res=ENV_MAP_RES):
+    """A (H, W, 3) float32 latlong sky made from ``seed``: a gradient from
+    a pale horizon to a deep zenith, a dim ground below the horizon, a
+    bright spot (a sun of radiance ~40) at a random direction above the
+    horizon, and faint noise."""
+    w, h = res
+    r = np.random.default_rng(seed)
+    v = (np.arange(h, dtype=np.float64) + 0.5) / h          # 0 zenith, 1 nadir
+    u = (np.arange(w, dtype=np.float64) + 0.5) / w
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None]
+    zenith = np.array([0.15, 0.3, 0.8])
+    horizon = np.array([0.8, 0.85, 0.9])
+    sky = horizon + (zenith - horizon) * up[..., None] ** 0.5
+    ground = np.array([0.25, 0.22, 0.2])
+    img = np.where((v < 0.5)[:, None, None], sky,
+                   np.broadcast_to(ground, (h, 1, 3)))
+    img = np.broadcast_to(img, (h, w, 3)).copy()
+    su, sv = r.uniform(0.0, 1.0), r.uniform(0.1, 0.35)
+    du = np.minimum(np.abs(u - su), 1.0 - np.abs(u - su))[None, :]
+    d2 = (du * 2.0) ** 2 + (v[:, None] - sv) ** 2
+    img += 40.0 * np.exp(-d2 / (2 * 0.01 ** 2))[..., None]
+    img *= 1.0 + 0.05 * r.standard_normal((h, w, 1))
+    return np.maximum(img, 0.0).astype(np.float32)
+
+
+def env_map(api=None, portal: bool = False):
+    """``scene_dir_env`` (a ground plane, a PRINCIPLED ball, a directional
+    light; 2,210 triangles: the 8-wide walk) with its constant environment
+    replaced by :func:`env_map_image` as a 512x256 latlong map
+    (``generate_mips=False``, ``rotation=0.7``): importance-sampled
+    environment NEE and MIS.  ``portal``: a 1.6 x 1.2 rect sky portal
+    facing down over the ball as well.  Returns (Scene, Camera)."""
+    api = api or port_api()
+    sc, cam = api.scene_dir_env()
+    tex = sc.add_texture(env_map_image(), srgb=False, generate_mips=False)
+    sc.set_environment((1.0, 1.0, 1.0), map_id=tex, rotation=0.7)
+    if portal:
+        sc.add_light(api.LightDesc(
+            type=api.LightType.RECT, color=(1.0, 1.0, 1.0),
+            position=(0.0, 2.0, 0.0), axis_u=(1.0, 0.0, 0.0),
+            axis_v=(0.0, 0.0, 1.0), width=1.6, height=1.2,
+            sky_portal=True))
+    return sc, cam

@@ -20,7 +20,9 @@
   equal XLA hits in ``prim`` on these scenes, so both port tiles are held
   to that one.
 * Routing: ≤ 40 triangles → brute, ≤ 512 rows → bvh, binned slabs →
-  binned, ``wrows`` → wide; per-triangle visibility raises item 20.
+  binned, ``wrows`` → wide, else the BVH2 walk at any size; a trace with
+  per-triangle visibility takes the masked wide walk (``wrows``) or the
+  masked BVH2 walk, never the binned kernel.
 """
 
 import dataclasses
@@ -287,24 +289,33 @@ def test_wide_tile_matches_ray_tpu(sphere_tiles):
 def test_routing_follows_ray_tpu(sphere_tiles, monkeypatch):
     """ray_tpu's ``_pallas_mode`` order, on a TPU: ≤ 40 triangles brute,
     ≤ 512 node and triangle rows bvh, binned slabs binned, ``wrows`` the
-    8-wide walk; ``tri_vis`` raises (ROADMAP Queue 1 item 20)."""
+    8-wide walk, and without it the BVH2 walk (``_traverse``) at any size;
+    ``tri_vis`` takes ``ray_tpu``'s ``mode=None`` route: the masked 8-wide
+    walk where ``wrows`` exists (even beside binned slabs), else the masked
+    BVH2 walk."""
     assert tt._trace_mode(100, 40, True, True) == "brute"
     assert tt._trace_mode(512, 512, True, True) == "bvh"
     assert tt._trace_mode(238, 1496, True, True) == "binned"
     assert tt._trace_mode(238, 1496, False, True) == "wide"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        tt._trace_mode(238, 1496, False, False)
+    assert tt._trace_mode(238, 1496, False, False) == "bvh"
     seen = []
     for name in ("trace_brute", "trace_bvh", "trace_binned", "trace_wide"):
-        monkeypatch.setattr(tt, name, lambda *a, _n=name, **k: seen.append(_n))
+        monkeypatch.setattr(
+            tt, name, lambda *a, _n=name, **k: seen.append((_n, sorted(k))))
     ro = torch.zeros((4, 3))
     rd = torch.ones((4, 3))
     rays = (ro, rd, torch.zeros(4), torch.ones(4), torch.ones(4, dtype=bool))
     for key in ("scene", "wide"):
         sc = sphere_tiles[key]
         tt.trace_closest_soa(sc.bvh_soa, sc.tri_soa, *rays)
-    assert seen == ["trace_binned", "trace_wide"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 20"):
-        sc = sphere_tiles["scene"]
-        tt.trace_occlusion_soa(sc.bvh_soa, sc.tri_soa, *rays,
-                               tri_vis=sc.tri_vis)
+    assert [n for n, _ in seen] == ["trace_binned", "trace_wide"]
+    seen.clear()
+    sc = sphere_tiles["scene"]
+    mask = torch.full((4,), 1, dtype=torch.int32)
+    tt.trace_closest_soa(sc.bvh_soa, sc.tri_soa, *rays, tri_vis=sc.tri_vis,
+                         ray_mask=mask)
+    no_wide = {k: v for k, v in sc.bvh_soa.items() if k != "wrows"}
+    tt.trace_closest_soa(no_wide, sc.tri_soa, *rays, tri_vis=sc.tri_vis,
+                         ray_mask=mask)
+    assert seen == [("trace_wide", ["any_hit", "has_vis", "ray_mask"]),
+                    ("trace_bvh", ["any_hit", "ray_mask", "tri_vis"])]

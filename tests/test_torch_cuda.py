@@ -12,7 +12,11 @@ colonnade ``trace_tlas``, a big flatten scene ``trace_tlas`` over its
 ``trace_binned``.  The shading slice's scenes (the four CPU goldens' and
 the alpha box) hold every trace launch of a tile, the transparency
 marches' included, bit-exact against the plain version, and one golden
-renders at its 400 samples within the goldens' gate.
+renders at its 400 samples within the goldens' gate.  The traversal
+slice: ``trace_tlas_bin`` (the binary two-level walk of tlas scenes of
+≤ 256 unique triangles), the masked ``trace_bvh`` and wide-route
+instantiations and ``trace_tlas`` at ``max_leaf`` 6 and 7 (padded rows)
+bit-exact, and every launch of a tile of the slice's scenes.
 """
 
 import numpy as np
@@ -162,8 +166,19 @@ def test_trace_bvh_rejects_bad_inputs():
         trace_bvh(nodes.double(), tris, *rays, ml, ss)
     with pytest.raises(ValueError):
         trace_bvh(nodes.cpu(), tris, *rays, ml, ss)
-    with pytest.raises(ValueError):
-        trace_bvh(nodes, _case(513, 64, 0)[0], *rays, ml, ss)
+    # the 512-row cap is gone (a TPU's VMEM): masks of the wrong shape,
+    # type or device, or a ray mask without per-triangle masks, raise
+    vis = torch.full((tris.shape[0],), 31, dtype=torch.int32, device="cuda")
+    mask = torch.full((64,), 1, dtype=torch.int32, device="cuda")
+    for bad in (dict(tri_vis=vis[:-1], ray_mask=mask),
+                dict(tri_vis=vis, ray_mask=mask[:-1]),
+                dict(tri_vis=vis.cpu(), ray_mask=mask),
+                dict(ray_mask=mask)):
+        with pytest.raises((ValueError, TypeError)):
+            trace_bvh(nodes, tris, *rays, ml, ss, **bad)
+    with pytest.raises(TypeError):
+        trace_bvh(nodes, tris, *rays, ml, ss, tri_vis=vis.float(),
+                  ray_mask=mask)
     for bad_leaf, bad_stack in ((0, ss), (16, ss), (ml, 0), (ml, 65)):
         with pytest.raises(ValueError):
             trace_bvh(nodes, tris, *rays, bad_leaf, bad_stack)
@@ -411,19 +426,35 @@ def test_kernels_bit_exact_under_stress(stress, label, any_hit):
 
 
 def test_trace_tlas_rejects_rows_it_cannot_read_as_float4():
+    """Rows the kernel cannot read as 16-byte loads raised here until the
+    wrapper padded them: a width that is not a multiple of 4 floats
+    (``max_leaf`` 6, 7, 9-11, 13-15) or a base that is not 16-byte aligned
+    now runs on a cached padded copy, bit-exact; a table narrower than
+    ``tlas_width(max_leaf)`` still raises."""
     _need_cuda()
-    from ray_tpu_torch.ops.traverse import tlas_width, trace_tlas
+    from ray_tpu_torch.ops.traverse import (
+        tlas_width, trace_tlas, trace_tlas_plain)
+    from ray_tpu_torch.utils.test_scenes import instanced_scene
 
-    rows, base, ro, rd, tmin, tmax, act, _, ml, ss = _tlas_case(6, 64, 0)
+    rows, base, ro, rd, tmin, tmax, act, _, ml, ss = _tlas_case(6, 20_000, 0)
     rays = (ro, rd, tmin, tmax, act)
-    with pytest.raises(ValueError):   # width 66 (max_leaf 6)
-        trace_tlas(torch.zeros((rows.shape[0], tlas_width(6)),
-                               device="cuda"), base, *rays, None, 6, ss)
     shifted = torch.zeros(rows.numel() + 1, device="cuda")[1:].view(
         rows.shape)
     shifted.copy_(rows)
-    with pytest.raises(ValueError):   # base not 16-byte aligned
-        trace_tlas(shifted, base, *rays, None, ml, ss)
+    _bit_exact(trace_tlas(shifted, base, *rays, None, ml, ss),
+               trace_tlas_plain(rows, base, *rays, None, ml, ss), "shifted")
+    for max_leaf in (6, 7):
+        sc = instanced_scene(n_inst=6).finalize(max_leaf=max_leaf)
+        args = (sc.bvh_soa["wrows_tlas"], int(sc.bvh_soa["winst_base"]),
+                *rays, None, max_leaf, sc.stack_size)
+        assert args[0].shape[1] == tlas_width(max_leaf)
+        for any_hit in (False, True):
+            p = trace_tlas_plain(*args, any_hit=any_hit)
+            assert int((p.prim >= 0).sum()) > 0
+            _bit_exact(trace_tlas(*args, any_hit=any_hit), p,
+                       f"max_leaf {max_leaf}")
+    with pytest.raises(ValueError):
+        trace_tlas(rows[:, :55].contiguous(), base, *rays, None, ml, ss)
 
 
 def test_trace_binned_rejects_bad_inputs():
@@ -644,9 +675,10 @@ def test_shading_scene_launches_bit_exact(name, kernel):
     calls = []
     real = getattr(traverse, kernel)
 
-    def recording(*args, any_hit=False):
+    def recording(*args, any_hit=False, **kw):
         calls.append(([a.clone() if hasattr(a, "clone") else a
                        for a in args], any_hit))
+        assert not any(kw.values()), kw  # no visibility masks here
         return real(*args, any_hit=any_hit)
 
     integrator.march_counts.clear()
@@ -701,3 +733,179 @@ def test_golden_at_400_samples_on_the_card():
     psnr = -10.0 * np.log10(max(float((diff ** 2).mean()), 1e-12) / 255.0 ** 2)
     assert psnr >= 28.0, psnr
     assert int((diff > 32).any(axis=-1).sum()) <= 40
+
+
+# ---- the traversal slice --------------------------------------------------
+
+
+def _slice_rays(n_rays, seed, half):
+    r = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    ro = r.uniform(-half, half, (n_rays, 3)).astype(np.float32)
+    rd = r.normal(size=(n_rays, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(ro), t(rd), torch.zeros(n_rays, device=dev),
+            t(np.where(r.rand(n_rays) < 0.8, 1e30,
+                       r.rand(n_rays) * 2.0).astype(np.float32)),
+            t(r.rand(n_rays) < 0.93))
+
+
+def _slice_scene(name, mode):
+    from ray_tpu_torch.utils import test_scenes
+
+    sc, cam = getattr(test_scenes, name)()
+    return sc.finalize(**({} if mode is None else dict(instancing=mode))), cam
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("mask", [None, 1, 16])
+@pytest.mark.parametrize("name", ["cornell_tlas", "cornell_vis"])
+def test_trace_tlas_bin_kernel_bit_exact(name, mask, any_hit):
+    """The binary two-level walk on the flagship in tlas mode and on
+    ``cornell_vis`` (three instances of a box, one scaled non-uniformly,
+    each hidden from one ray type), with no ray mask, RAY_CAMERA and
+    RAY_SHADOW."""
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.ops.traverse import trace_tlas_bin, trace_tlas_bin_plain
+
+    scene, _ = _slice_scene(name, "tlas")
+    assert "wrows_tlas" not in scene.bvh_soa
+    rays = _slice_rays(300_001, 7, 0.95)
+    m = None if mask is None else torch.full(
+        (rays[0].shape[0],), mask, dtype=torch.int32, device="cuda")
+    args = (scene.bvh_soa["packed"], scene.tri_soa["packed"], scene.inst,
+            *rays, m, scene.max_leaf, scene.stack_size)
+    key = f"trace_tlas_bin_{'anyhit' if any_hit else 'closest'}"
+    before = cuda_build.launch_counts[key]
+    k = trace_tlas_bin(*args, any_hit=any_hit)
+    p = trace_tlas_bin_plain(*args, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts[key] == before + 1
+    assert 0 < int((p.prim >= 0).sum()) < p.prim.shape[0]
+    _bit_exact(k, p, name)
+
+
+def test_trace_tlas_bin_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops.traverse import trace_tlas_bin
+
+    scene, _ = _slice_scene("cornell_vis", "tlas")
+    rays = _slice_rays(64, 1, 0.9)
+    nodes, tris, inst = (scene.bvh_soa["packed"], scene.tri_soa["packed"],
+                         scene.inst)
+    ml, ss = scene.max_leaf, scene.stack_size
+    with pytest.raises(ValueError):
+        trace_tlas_bin(nodes[:, :13].contiguous(), tris, inst, *rays, None,
+                       ml, ss)
+    with pytest.raises(ValueError):
+        trace_tlas_bin(nodes, tris, dict(inst, vis=inst["vis"][:-1]), *rays,
+                       None, ml, ss)
+    with pytest.raises(TypeError):
+        trace_tlas_bin(nodes, tris, dict(inst, inv00=inst["inv00"].double()),
+                       *rays, None, ml, ss)
+    with pytest.raises(ValueError):
+        trace_tlas_bin(nodes, tris, dict(inst, vis=inst["vis"].cpu()),
+                       *rays, None, ml, ss)
+    with pytest.raises(ValueError):
+        trace_tlas_bin(nodes, tris, inst, *rays,
+                       torch.ones(63, dtype=torch.int32, device="cuda"), ml,
+                       ss)
+    for bad_leaf, bad_stack in ((0, ss), (16, ss), (ml, 0), (ml, 65)):
+        with pytest.raises(ValueError):
+            trace_tlas_bin(nodes, tris, inst, *rays, None, bad_leaf,
+                           bad_stack)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("mask", [1, 2, 16])
+@pytest.mark.parametrize("name", ["cornell_vis", "sphere_vis"])
+def test_masked_kernels_bit_exact(name, mask, any_hit):
+    """The masked instantiations: ``trace_bvh`` with per-triangle masks
+    (``cornell_vis`` flatten: 60 triangles, no ``wrows``) and the wide
+    route with its visibility column (``sphere_vis`` flatten: ``wrows``),
+    counted under their own names."""
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build, traverse
+
+    scene, _ = _slice_scene(name, "flatten")
+    rays = _slice_rays(300_001, 11, 0.95)
+    m = torch.full((rays[0].shape[0],), mask, dtype=torch.int32,
+                   device="cuda")
+    if name == "cornell_vis":
+        args = (scene.bvh_soa["packed"], scene.tri_soa["packed"], *rays,
+                scene.max_leaf, scene.stack_size)
+        kw = dict(tri_vis=scene.tri_vis, ray_mask=m)
+        fn, plain, key = (traverse.trace_bvh, traverse.trace_bvh_plain,
+                          "trace_bvh_vis")
+    else:
+        args = (scene.bvh_soa["wrows"], 0, *rays, m, scene.max_leaf,
+                scene.stack_size)
+        kw = dict(has_vis=True)
+        fn, plain, key = (traverse.trace_tlas, traverse.trace_tlas_plain,
+                          "trace_tlas_vis")
+    key += "_anyhit" if any_hit else "_closest"
+    before = cuda_build.launch_counts[key]
+    k = fn(*args, any_hit=any_hit, **kw)
+    p = plain(*args, any_hit=any_hit, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts[key] == before + 1
+    assert 0 < int((p.prim >= 0).sum()) < p.prim.shape[0]
+    _bit_exact(k, p, name)
+
+
+SLICE_TILES = {
+    ("cornell_tlas", "tlas"): {"trace_tlas_bin"},
+    ("cornell_vis", "flatten"): {"trace_bvh"},
+    ("cornell_vis", "tlas"): {"trace_tlas_bin"},
+    ("sphere_vis", "flatten"): {"trace_tlas"},
+    ("sphere_vis", "tlas"): {"trace_tlas"},
+    ("env_map", None): {"trace_tlas"},
+}
+
+
+@pytest.mark.parametrize("name,mode", sorted(SLICE_TILES, key=str))
+def test_slice_scene_tile_launches_bit_exact(name, mode):
+    """Every trace launch of a 256x128 tile of the slice's scenes, on the
+    kernel its tables pick (with masks where the scene has per-instance
+    visibility), equals the plain version's: 6 closest-hit and 6 any-hit."""
+    _need_cuda()
+    from ray_tpu_torch.ops import traverse
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+
+    scene, cam = _slice_scene(name, mode)
+    calls = []
+    real = {k: getattr(traverse, k)
+            for k in ("trace_brute", "trace_bvh", "trace_tlas",
+                      "trace_tlas_bin", "trace_binned")}
+
+    def recorder(kernel):
+        def recording(*args, any_hit=False, **kw):
+            calls.append((kernel, [a.clone() if hasattr(a, "clone") else a
+                                   for a in args], any_hit, kw))
+            return real[kernel](*args, any_hit=any_hit, **kw)
+        return recording
+
+    for k in real:
+        setattr(traverse, k, recorder(k))
+    try:
+        render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                    height=1080, tile_w=256, tile_h=128,
+                    settings=PassSettings(max_total_depth=5,
+                                          min_total_depth=2),
+                    use_filter_table=False)
+    finally:
+        for k, fn in real.items():
+            setattr(traverse, k, fn)
+    assert {c[0] for c in calls} == SLICE_TILES[(name, mode)]
+    assert len(calls) == 12 and sum(c[2] for c in calls) == 6
+    for kernel, args, any_hit, kw in calls:
+        if scene.has_visibility:
+            mask = (kw.get("ray_mask") if kernel == "trace_bvh"
+                    else args[8 if kernel == "trace_tlas_bin" else 7])
+            assert mask is not None, kernel
+        k = real[kernel](*args, any_hit=any_hit, **kw)
+        p = getattr(traverse, f"{kernel}_plain")(*args, any_hit=any_hit,
+                                                 **kw)
+        _bit_exact(k, p, f"{name} {mode} {kernel}")

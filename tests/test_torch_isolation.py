@@ -1,9 +1,11 @@
 """ray_tpu_torch stands alone: no JAX, no ray_tpu, CUDA by default.
 
-(a) A fresh interpreter imports ray_tpu_torch, renders a tiny CPU tile and
-    a CPU renderer's frame through the user's entry point
-    (``create_renderer`` → ``render`` → ``pixels``); afterwards neither
-    ``jax`` nor any ``ray_tpu`` module is loaded.
+(a) A fresh interpreter imports ray_tpu_torch, renders a tiny CPU tile,
+    one of a scene with visibility masks in tlas mode (the binary
+    two-level walk) and one under an environment map, and a CPU
+    renderer's frame through the user's entry point (``create_renderer``
+    → ``render`` → ``pixels``); afterwards neither ``jax`` nor any
+    ``ray_tpu`` module is loaded.
 (b) No file under ``ray_tpu_torch/`` imports ``jax`` or ``ray_tpu``.
 (c) On a machine without CUDA, ``finalize()`` with no device raises
     ``RuntimeError`` instead of falling back to the CPU; so do
@@ -33,6 +35,14 @@ out = render_tile(sc.finalize(device="cpu"), cam, None, 0, 0, 1, 0,
                   settings=PassSettings(max_total_depth=2),
                   use_filter_table=False)
 assert out["color"].shape == (192, 3)
+from ray_tpu_torch.utils.test_scenes import cornell_vis, env_map
+for build, kw in ((cornell_vis, dict(instancing="tlas")), (env_map, {})):
+    sc2, cam2 = build()
+    out = render_tile(sc2.finalize(device="cpu", **kw), cam2, None, 0, 0, 1,
+                      0, width=8, height=6, tile_w=8, tile_h=6,
+                      settings=PassSettings(max_total_depth=2),
+                      use_filter_table=False)
+    assert out["color"].shape == (48, 3)
 import ray_tpu_torch as ray_tpu
 r = ray_tpu.create_renderer(ray_tpu.RenderSettings(width=8, height=6),
                             ray_tpu.PassSettings(max_total_depth=2),
@@ -195,3 +205,51 @@ def test_binned_wrapper_never_falls_back():
         trace_binned(binned, *cpu_rays, 4, sort_rays=False)
     with pytest.raises(ValueError):
         trace_binned(binned, *cpu_rays, 4)
+
+
+def test_tlas_bin_wrapper_never_falls_back():
+    """The binary two-level wrapper, likewise: a non-CPU, non-CUDA device,
+    or tables, instance columns or rays split across devices, raise rather
+    than running ``trace_tlas_bin_plain``."""
+    from ray_tpu_torch.ops.traverse import INST_XFORM_COLS, trace_tlas_bin
+
+    def inst(device):
+        cols = {k: torch.zeros(3, device=device) for k in INST_XFORM_COLS}
+        cols["vis"] = torch.zeros(3, dtype=torch.int32, device=device)
+        cols["blas_root"] = torch.zeros(3, dtype=torch.int32, device=device)
+        return cols
+
+    m = torch.device("meta")
+    ro = torch.empty((8, 3), device=m)
+    rays = (ro, ro, torch.empty(8, device=m), torch.empty(8, device=m),
+            torch.empty(8, dtype=torch.bool, device=m))
+    with pytest.raises(ValueError):
+        trace_tlas_bin(torch.empty((5, 14), device=m),
+                       torch.empty((6, 9), device=m), inst(m), *rays, None,
+                       4, 16)
+    cpu_rays = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8),
+                torch.zeros(8), torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        trace_tlas_bin(torch.zeros(5, 14), torch.zeros(6, 9), inst(m),
+                       *cpu_rays, None, 4, 16)
+    with pytest.raises(ValueError):
+        trace_tlas_bin(torch.zeros(5, 14), torch.zeros(6, 9), inst("cpu"),
+                       *cpu_rays, torch.empty(8, dtype=torch.int32, device=m),
+                       4, 16)
+
+
+def test_masked_bvh_wrapper_never_falls_back():
+    """The masked BVH2 walk: masks on another device than the rays raise
+    rather than being moved."""
+    from ray_tpu_torch.ops.traverse import trace_bvh
+
+    m = torch.device("meta")
+    rays = (torch.zeros(8, 3), torch.zeros(8, 3), torch.zeros(8),
+            torch.zeros(8), torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        trace_bvh(torch.zeros(3, 14), torch.zeros(50, 9), *rays, 4, 8,
+                  tri_vis=torch.empty(50, dtype=torch.int32, device=m))
+    with pytest.raises(ValueError):
+        trace_bvh(torch.zeros(3, 14), torch.zeros(50, 9), *rays, 4, 8,
+                  tri_vis=torch.zeros(50, dtype=torch.int32),
+                  ray_mask=torch.empty(8, dtype=torch.int32, device=m))

@@ -19,8 +19,10 @@ given is built here, and these tests hold it:
   arithmetic (``binned_sort_key_plain``'s) likewise.
 * ``binned_rows``: the row-major slab copy holds exactly the bits of
   ``slab_f`` / ``slab_i``; the wrapper builds it once per scene.
-* ``check_tlas_rows``: ``trace_tlas``'s wrapper refuses a width that is
-  not a multiple of 4 floats or a base that is not 16-byte aligned.
+* ``check_tlas_rows``: ``trace_tlas``'s kernel reads 16-byte rows, so a
+  width that is not a multiple of 4 floats (or a base that is not 16-byte
+  aligned) gets a cached copy padded with zero columns; every ``max_leaf``
+  in [1, 15] is taken.
 * ``cuda_build.source_hash``: a kernel library's name covers its source
   and every ``csrc/*.cuh`` header, so an edited header is rebuilt.
 """
@@ -218,14 +220,19 @@ def test_kernel_tables_are_built_once_per_scene(cloud):
 
 
 def test_check_tlas_rows_wants_float4_rows():
-    for max_leaf in (4, 5, 8, 12):
-        tt.check_tlas_rows(torch.zeros((16, tt.tlas_width(max_leaf))))
-    for max_leaf in (6, 7, 9, 15):
-        with pytest.raises(ValueError, match="multiple of 4"):
-            tt.check_tlas_rows(torch.zeros((16, tt.tlas_width(max_leaf))))
-    shifted = torch.zeros(16 * 56 + 1)[1:].view(16, 56)
-    with pytest.raises(ValueError, match="aligned"):
-        tt.check_tlas_rows(shifted)
+    for max_leaf in range(1, 16):
+        rows = torch.rand((16, tt.tlas_width(max_leaf)))
+        table = tt.check_tlas_rows(rows)
+        W = rows.shape[1]
+        assert table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0
+        assert table.shape[1] - W < 4
+        assert (table is rows) == (W % 4 == 0)
+        assert torch.equal(table[:, :W], rows) and not table[:, W:].any()
+    shifted = torch.rand(16 * 56 + 1)[1:].view(16, 56)
+    table = tt.check_tlas_rows(shifted)
+    assert table.data_ptr() % 16 == 0 and torch.equal(table, shifted)
+    with pytest.raises(ValueError, match="rows"):
+        tt.check_tlas_rows(torch.zeros((16, 40)))
 
 
 def test_source_hash_covers_headers(tmp_path):

@@ -4,8 +4,9 @@ The port's ``Scene.finalize(device="cpu")`` of the Cornell scenes (flatten
 mode) and of instanced scenes (tlas mode, with ``wrows_tlas``) must give
 every table and static field of ``ray_tpu``'s ``SceneFlat``, textures
 must pack into ``ray_tpu``'s texel table, and ``SceneFlat.from_numpy``
-must carry a finalized ``ray_tpu`` scene across unchanged.  (The
-colonnade's tables: tests/test_torch_tlas.py.)
+must carry a finalized ``ray_tpu`` scene across unchanged — the traversal
+slice's scenes too (tlas without ``wrows_tlas``, visibility masks, an
+environment map).  (The colonnade's tables: tests/test_torch_tlas.py.)
 """
 
 import dataclasses
@@ -150,14 +151,22 @@ def test_unported_finalize_paths_raise():
     sc, _ = t_cornell()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sc.add_texture(np.zeros((4, 4, 3), np.float32), compress=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.set_environment((1, 1, 1), map_id=0)
-    # the two-level finalize is ported; its binary walk (≤ 256 unique
-    # triangles, no wrows_tlas) raises at render time: tests/test_torch_tlas.py
+    # environment maps (item 31) raised here until they were ported; the
+    # HLBVH and SBVH builders (items 15, 18) still raise
+    with pytest.raises(NotImplementedError, match="item 15"):
+        sc.finalize(device="cpu", fast_build=True)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        sc.finalize(device="cpu", spatial_splits=True)
+    sc.set_environment((1, 1, 1),
+                       map_id=sc.add_texture(np.ones((4, 8, 3), np.float32)))
+    # the two-level finalize of ≤ 256 unique triangles carries no
+    # wrows_tlas: its traces take the binary walk
+    # (tests/test_torch_tlas_binary.py)
     sc.add_instance(0)
     sc.add_instance(0)
     scene = sc.finalize(device="cpu", instancing="tlas")
     assert scene.mode == "tlas" and "wrows_tlas" not in scene.bvh_soa
+    assert (scene.env_tab_h, scene.env_tab_w) == (4, 8)
 
 
 @pytest.mark.parametrize("n_inst", [2, 6, 64])
@@ -180,6 +189,36 @@ def test_tlas_from_numpy_round_trip():
     port = SceneFlat.from_numpy(arrays, static, device="cpu")
     _assert_scene_equal(port, ref)
     assert port.bvh_soa["wrows_tlas"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("cornell_tlas", "tlas"), ("cornell_vis", "flatten"),
+    ("cornell_vis", "tlas"), ("sphere_vis", "flatten"), ("sphere_vis", "tlas"),
+    ("env_map", None)])
+def test_slice_scenes_match_ray_tpu_and_carry_across(name, mode):
+    """The traversal slice's scenes — a tlas scene without ``wrows_tlas``,
+    per-triangle ``tri_vis`` and ``has_visibility``, the environment map's
+    importance tables — finalize to ray_tpu's every table, and
+    ``SceneFlat.from_numpy`` carries ray_tpu's scene across unchanged."""
+    import types
+
+    from cpu_golden_scenes import SCENES
+    from ray_tpu.scene.lights import LightDesc, LightType
+    from ray_tpu_torch.utils import test_scenes
+
+    japi = types.SimpleNamespace(
+        cornell_scene=j_cornell, scene_dir_env=SCENES["dir_env"],
+        MaterialDesc=JMaterialDesc, ShadingNode=JShadingNode,
+        LightDesc=LightDesc, LightType=LightType)
+    kw = {} if mode is None else {"instancing": mode}
+    build = getattr(test_scenes, name)
+    ref = build(japi)[0].finalize(**kw)
+    _assert_scene_equal(build()[0].finalize(device="cpu", **kw), ref)
+    arrays = {n: jax.tree_util.tree_map(np.asarray, getattr(ref, n))
+              for n in _ARRAYS}
+    static = {n: getattr(ref, n) for n in _STATIC}
+    _assert_scene_equal(SceneFlat.from_numpy(arrays, static, device="cpu"),
+                        ref)
 
 
 @pytest.mark.parametrize("shape,dtype,srgb,mips", [

@@ -320,14 +320,18 @@ def _render_small(sc, cam):
 @pytest.mark.parametrize("kind", ["rect", "dir"])
 def test_unported_light_kinds_raise(kind):
     """The rect and directional lights raised here until ROADMAP Queue 1
-    item 30 was ported; now they render, and the environment map beside
-    them (item 31) still raises, naming its item."""
+    item 30 was ported, and an environment map beside them until item 31
+    was; now both render, and a compressed map (item 16) still raises,
+    naming its item."""
     sc, cam = t_cornell(kind)
     out = _render_small(sc, cam)
     assert bool(torch.isfinite(out["color"]).all())
     tex = sc.add_texture(np.ones((4, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="item 31"):
-        sc.set_environment((1.0, 1.0, 1.0), map_id=tex)
+    sc.set_environment((1.0, 1.0, 1.0), map_id=tex)
+    out = _render_small(sc, cam)
+    assert bool(torch.isfinite(out["color"]).all())
+    with pytest.raises(NotImplementedError, match="item 16"):
+        sc.add_texture(np.ones((4, 8, 3), np.float32), compress="rgbe")
 
 
 @pytest.mark.parametrize("node", [ShadingNode.REFRACTIVE,
@@ -353,14 +357,18 @@ def test_unported_render_options_raise():
             render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
                         tile_w=8, tile_h=8, settings=PassSettings(**opt),
                         use_filter_table=False)
-    # a line light raised here until ROADMAP Queue 1 item 30 was ported;
-    # per-ray-type visibility masks (item 20) still raise
+    # a line light raised here until ROADMAP Queue 1 item 30 was ported,
+    # and per-ray-type visibility masks until item 20 was; the radiance
+    # cache (item 24) still raises
     sc2, cam2 = t_cornell()
     sc2.add_light(LightDesc(type=LightType.LINE, radius=0.1, height=0.5))
     assert bool(torch.isfinite(_render_small(sc2, cam2)["color"]).all())
     sc2.add_instance(0, visibility=1)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        _render_small(sc2, cam2)
+    assert bool(torch.isfinite(_render_small(sc2, cam2)["color"]).all())
+    with pytest.raises(NotImplementedError, match="item 24"):
+        render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
+                    tile_w=8, tile_h=8, settings=PassSettings(),
+                    use_filter_table=False, cache_mode="update")
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,34 @@ def test_trace_tlas_wrapper_runs_plain_on_cpu():
             assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_trace_tlas_plain_padded_rows(any_hit):
+    """``max_leaf`` 6 gives ``wrows_tlas`` width 66, not a multiple of 4
+    floats: the kernel reads the cached copy padded to 68 columns
+    (``check_tlas_rows``).  The plain walk on the padded and the unpadded
+    table gives the same hits, bit for bit."""
+    from ray_tpu_torch.utils.test_scenes import instanced_scene
+
+    sc = instanced_scene(n_inst=6).finalize(device="cpu", max_leaf=6)
+    rows = sc.bvh_soa["wrows_tlas"]
+    padded = ttrav.check_tlas_rows(rows)
+    assert rows.shape[1] == 66 and padded.shape[1] == 68
+    assert torch.equal(padded[:, :66].view(torch.int32),
+                       rows.view(torch.int32))
+    assert not padded[:, 66:].any()
+    assert ttrav.check_tlas_rows(rows) is padded  # cached
+    rays = tuple(_t(a) for a in _rays(512, 4))
+    a, b = (ttrav.trace_tlas_plain(r, int(sc.bvh_soa["winst_base"]), *rays,
+                                   None, 6, sc.stack_size, any_hit=any_hit)
+            for r in (rows, padded))
+    assert int((a.prim >= 0).sum()) > 0
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f
+
+
 def test_trace_tlas_plain_counts_work():
     """The work counts the bound is computed from: one per node step,
     instance entry and valid triangle slot tested."""
@@ -242,10 +270,12 @@ def test_from_numpy_colonnade_renders_like_the_port(colonnade, port_tile):
         assert np.array_equal(out[k], port_tile[k]), k
 
 
-def test_small_tlas_scene_raises_for_the_binary_walk():
+def test_small_tlas_scene_raises_for_the_binary_walk(monkeypatch):
     """A two-level scene of ≤ 256 unique triangles carries no
-    ``wrows_tlas``; ray_tpu walks it with the binary ``_traverse_tlas``,
-    which the port does not carry yet."""
+    ``wrows_tlas``; ray_tpu walks it with the binary ``_traverse_tlas``.
+    The port raised here until ROADMAP Queue 1 item 19 was ported; now its
+    traces take ``trace_tlas_bin`` (held against ray_tpu in
+    tests/test_torch_tlas_binary.py)."""
     from ray_tpu_torch.utils.test_scenes import cornell_scene
 
     sc, cam = cornell_scene()
@@ -253,7 +283,11 @@ def test_small_tlas_scene_raises_for_the_binary_walk():
     sc.add_instance(0)
     scene = sc.finalize(device="cpu")
     assert scene.mode == "tlas" and "wrows_tlas" not in scene.bvh_soa
-    with pytest.raises(NotImplementedError, match="item 19"):
-        render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
-                    tile_w=8, tile_h=8, settings=PassSettings(),
-                    use_filter_table=False)
+    calls = []
+    real = ttrav.trace_tlas_bin
+    monkeypatch.setattr(ttrav, "trace_tlas_bin",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
+                      tile_w=8, tile_h=8, settings=PassSettings(),
+                      use_filter_table=False)
+    assert bool(torch.isfinite(out["color"]).all()) and len(calls) >= 2

@@ -237,11 +237,14 @@ def test_bvh_work_counts():
 
 
 def test_bigger_scenes_raise():
-    """Past 512 node or triangle rows ray_tpu takes its 8-wide walk, which
-    is not ported: the router raises and names the ROADMAP item."""
-    _, (tb, tt_) = _scene(513, 0)
-    ro, rd, tmin, tmax, act = (torch.from_numpy(a) for a in _rays(10, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        tt.trace_closest_soa(tb, tt_, ro, rd, tmin, tmax, act)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        tt.trace_occlusion_soa(tb, tt_, ro, rd, tmin, tmax, act)
+    """Past 512 node or triangle rows without an 8-wide table (only
+    hand-built tables: finalize adds ``wrows`` past 256 triangles) the
+    router raised until ROADMAP Queue 1 item 19 was ported; now it takes
+    the BVH2 walk, as ray_tpu's XLA ``_traverse`` does, and matches it."""
+    (jb, jt, ml, j), (tb, tt_, t) = _both(513, 0, n_rays=2000)
+    assert tt._trace_mode(tb["code0"].shape[0], 513) == "bvh"
+    _check_closest(tt.trace_closest_soa(tb, tt_, *t, max_leaf=ml),
+                   j_closest(jb, jt, *j, max_leaf=ml))
+    np.testing.assert_array_equal(
+        tt.trace_occlusion_soa(tb, tt_, *t, max_leaf=ml).numpy(),
+        np.asarray(j_occlusion(jb, jt, *j, max_leaf=ml)))

@@ -5,10 +5,12 @@ SASS instructions of their loops.
     python3 tools/ptxas_report.py [REPO_DIR ...]
 
 For each repository checkout given (default: this one), compiles its
-``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,binned}.cu`` with the port's own
+``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,tlas_bin,binned}.cu`` (those it
+has) with the port's own
 nvcc flags (``ray_tpu_torch/ops/cuda_build.py`` NVCC_FLAGS) plus
 ``-Xptxas -v`` into ``build/ptxas_report/`` and prints, per kernel entry,
-its registers, stack frame, spill stores / loads and shared memory.  Then,
+its registers, stack frame, spill stores / loads and shared memory (a
+masked instantiation marked "masked").  Then,
 from ``cuobjdump -sass`` of ``trace_brute`` and ``trace_bvh``, each loop of
 each kernel entry (a backward branch and the instructions from its target
 to it): its instruction count, its float instructions (F*: FADD, FMUL,
@@ -28,7 +30,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("trace_brute", "trace_bvh", "trace_binned", "trace_tlas")
+SOURCES = ("trace_brute", "trace_bvh", "trace_binned", "trace_tlas",
+           "trace_tlas_bin")
 # the sources whose loops are counted
 SASS_SOURCES = ("trace_brute", "trace_bvh")
 # one SASS line: /*address*/ [@predicate] OPCODE operands ;
@@ -37,18 +40,22 @@ INSN = re.compile(
 
 
 def _kind(entry: str, name: str) -> str:
-    return ("binned_sort_key" if "sort_key" in entry
-            else f"{name} any-hit" if "ILb1E" in entry
-            else f"{name} closest" if "ILb0E" in entry
-            else entry)
+    # template <bool kAnyHit[, bool kVis]> mangles as ILb<0|1>E[Lb<0|1>E]E
+    m = re.search(r"ILb([01])E(?:Lb([01])E)?E", entry)
+    if "sort_key" in entry:
+        return "binned_sort_key"
+    if m is None:
+        return entry
+    kind = f"{name} {'any-hit' if m.group(1) == '1' else 'closest'}"
+    return kind + (" masked" if m.group(2) == "1" else "")
 
 
-def build(repo: pathlib.Path, out_dir: pathlib.Path):
-    """{name: (ptxas log, library path)} of ``repo``'s sources."""
+def build(repo: pathlib.Path, out_dir: pathlib.Path, names):
+    """{name: (ptxas log, library path)} of ``repo``'s sources ``names``."""
     from ray_tpu_torch.ops import cuda_build
 
     jobs = []
-    for name in SOURCES:
+    for name in names:
         src = repo / "ray_tpu_torch" / "csrc" / f"{name}.cu"
         target = out_dir / f"{repo.name}-{name}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
@@ -120,7 +127,8 @@ def main() -> int:
     out_dir = ROOT / "build" / "ptxas_report"
     out_dir.mkdir(parents=True, exist_ok=True)
     for repo in repos:
-        built = build(repo, out_dir)
+        built = build(repo, out_dir, [n for n in SOURCES if (
+            repo / "ray_tpu_torch" / "csrc" / f"{n}.cu").exists()])
         for name, (log, _) in built.items():
             for line in ptxas_lines(repo, name, log):
                 print(line)
