@@ -45,7 +45,17 @@ flatten mode (the masked ``trace_bvh``) and tlas mode (``trace_tlas_bin``
 with ray masks), ``sphere_vis`` (``cornell_sphere`` with a
 camera-invisible sphere) in flatten mode (the masked wide route) and tlas
 mode (``trace_tlas`` with ray masks), and ``env_map`` (``dir_env`` under a
-512x256 latlong environment map: importance-sampled environment NEE).
+512x256 latlong environment map: importance-sampled environment NEE);
+
+and the sky and texture slice's four (``SKY``): ``physical_sky``
+(``samples/05_physical_sky.py``'s scene: a 2-triangle floor under the
+physical sky baked at 256x128 with clouds, moon, stars and cirrus, and
+the sun as a directional light: ``trace_brute``), ``tex_features``
+(``env_map``'s layout with an RGBE environment map, a BC1 base, BC4
+roughness and BC5 normal map on an anisotropic, turned PRINCIPLED ball,
+a raw ground texture: the wide route of ``trace_tlas``), ``sphere_hlbvh``
+(``cornell_sphere`` finalized ``fast_build=True``: the HLBVH tree on
+``trace_bvh``) and the flagship with ``output_sh`` (``trace_brute``).
 
 Phases:
 
@@ -81,12 +91,14 @@ Phases:
    stress rays and with a stack of 3; the masked ``trace_bvh`` and wide
    route with random masks; ``trace_tlas`` at ``max_leaf`` 6 and 7, whose
    rows it pads) and on every launch of one frame of each ``SLICE``
-   scene;
+   scene, and of one frame of each ``SKY`` scene;
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
    terrain and floor; the alpha box's lies on the box, which stands in the
    floor's plane, and the same box lifted 2 mm is held beside it; the
-   slice's at ``SLICE_TILES``);
+   slice's at ``SLICE_TILES``, the sky slice's at ``SKY_TILES``), and the
+   sky bake at 64x32 on the card against the CPU (``SKY_BAKE_SHARE`` of
+   texels within ``SKY_BAKE_REL``, the worst printed);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
@@ -100,7 +112,11 @@ Phases:
    each ``SLICE`` scene's frames (``cornell_tlas`` ``FRAMES``, the others
    ``SHADING_FRAMES``; the colonnades' 2x2 lines ``COLONNADE_FRAMES``), and
    the ``cornell_tlas`` frame against the flatten flagship's at one
-   iteration (means within ``TLAS_VS_FLATTEN_REL``);
+   iteration (means within ``TLAS_VS_FLATTEN_REL``); ``SKY_FRAMES`` frames
+   of each ``SKY`` scene, the SH frame's L0 band against 0.282095 x its
+   color; ``samples/05_physical_sky``'s ``main()`` on the port's API
+   (``create_renderer`` → 16 samples → ``pixels(AGX)`` at 256x256, its TGA
+   in ``OUT_DIR``);
    then the goldens: each golden scene through ``create_renderer`` at the
    golden's 64x64, pass settings and 400 samples, through ``pixels`` to
    uint8, against the committed ``.npz``: ≥ 28 dB PSNR, ≤ 40 fireflies
@@ -119,11 +135,12 @@ Phases:
    finite and non-zero for ``base_color`` and ``env_col``, each launching
    its forward's traces, marches included, and none in backward), and the
    two policies' gradient columns within ``REMAT_NOISE_MULT`` times the
-   gap between two stored-residual runs at 1080p (or 1e-4) and within 1e-4
-   on a 480x270 tile with deterministic reductions; ``cornell_tlas`` (1x1)
+   largest gap between two of ``REMAT_NOISE_RUNS`` stored-residual runs at
+   1080p (or 1e-4) and within 1e-4 on a 480x270 tile with deterministic
+   reductions; ``cornell_tlas`` (1x1)
    and ``env_map`` (2x2) fwd+bwd with stored residuals over
    ``SLICE_BWD_FRAMES`` frames, each with a 64x48 gradient tile card vs
-   CPU;
+   CPU; ``tex_features`` (2x2) likewise over ``SKY_BWD_FRAMES``;
 7. the colonnade's fwd+bwd: ``COLONNADE_BWD_FRAMES`` 2x2 frames with remat
    (each tile its own backward, the gradients summed; 24 + 24
    ``trace_tlas`` launches a frame, none in backward), one frame with
@@ -134,7 +151,10 @@ Phases:
    1920x1080 → ``pixels`` with AgX (LUT) and filmic, then 8 adaptive
    samples (ms a sample, Mray/s, 6 + 6 ``trace_brute`` launches a sample);
    a 64x48 adaptive renderer on the card against the CPU; the README
-   quickstart at 512x512, 16 samples;
+   quickstart at 512x512, 16 samples; then the sky bake at ``SKY_BAKE``:
+   forward ms, its CUDA kernel count, fwd+bwd ms w.r.t.
+   ``atmosphere_density`` and ``clouds_density`` and the backward's peak
+   memory, beside the sky scene's finalize;
 9. profiles one forward and one fwd+bwd flagship frame and one forward
    960x540 tile (the top-right one) of the instanced and of the binned
    colonnade with ``torch.profiler``: device time, its share of the
@@ -172,9 +192,9 @@ WIDTH, HEIGHT = 1920, 1080
 FRAMES = 10
 # the colonnades' 2x2 forward lines (cut from FRAMES to keep the script
 # inside its time limit as it grows; the spread of a line is printed)
-COLONNADE_FRAMES = 5
+COLONNADE_FRAMES = 3
 BWD_FRAMES = 5
-COLONNADE_BWD_FRAMES = 3  # bench.py's iters
+COLONNADE_BWD_FRAMES = 2  # bench.py runs 3; cut for the time limit
 FRAMES_1X1 = 3
 GRID = (2, 2)  # bench.py renders the big scene as 2x2 tiles
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -1330,7 +1350,12 @@ def check_remat_against_stored(scene, cam, settings):
 # by up to 1.9e-5.  Measured on the card (PR 4) at this tile: 4 of 3,072
 # pixels past the 1e-6 bound on the flattened colonnade, 2 on the binned
 # one, 1 on the instanced one; depth and base color all within 1e-5.
-WORLD_NORMAL_ATOL = {"colonnade flatten": 1e-4, "colonnade binned": 1e-4}
+# tex_features bends its ball's normals by a BC5 normal map fetched at the
+# hit's uv and mip (the ray cone's log2), in the frame of the same ill-
+# conditioned barycentrics: measured on an H100 4 of 3,072 pixels past
+# 1e-6, the largest 2.5e-6.
+WORLD_NORMAL_ATOL = {"colonnade flatten": 1e-4, "colonnade binned": 1e-4,
+                     "tex_features": 1e-5}
 
 
 def check_tile_against_cpu(make_scene, label, x0, y0, settings):
@@ -1448,8 +1473,10 @@ SHADING_BWD = {"tri_glass": (1, 1), "alpha_box": GRID}
 # deterministic reductions: (x0, y0, w, h), over the Cornell box's tall box
 REMAT_TILE = (960, 540, 480, 270)
 # the 1080p remat gradients may differ from the stored ones by this many
-# times the gap between two stored-residual runs (atomic summation order)
+# times the largest gap between two of ``REMAT_NOISE_RUNS`` stored-residual
+# runs (atomic summation order)
 REMAT_NOISE_MULT = 4.0
+REMAT_NOISE_RUNS = 3
 # the scenes whose every launch of one frame phase 3 holds against the
 # plain version (the alpha box's march traces included)
 SHADING_PARITY = ("tri_glass", "dir_env", "alpha_box")
@@ -1654,9 +1681,11 @@ def shading_fwd_bwd(label, scene, cam, settings, kernel, grid=(1, 1)):
     sums millions of terms a row with atomics, in any order, which alone
     moves a 1080p tri_glass column by ~1e-4 of its scale, so at 1080p the
     remat gradients are held against the stored ones within
-    ``REMAT_NOISE_MULT`` times the gap between two stored-residual runs of
-    the same frame (the noise floor, measured here), or 1e-4 where that is
-    larger.  On ``REMAT_TILE`` with deterministic reductions they are held
+    ``REMAT_NOISE_MULT`` times the noise floor measured here from the
+    reference policy alone — the largest gap between any two of
+    ``REMAT_NOISE_RUNS`` stored-residual runs of the same frame — or 1e-4
+    where that is larger.  On ``REMAT_TILE`` with deterministic reductions
+    they are held
     within 1e-4 (the deterministic kernels are ~20x slower: ~9 minutes for
     the alpha box's two 2x2 frames on a card run, too slow for whole
     frames)."""
@@ -1703,11 +1732,18 @@ def shading_fwd_bwd(label, scene, cam, settings, kernel, grid=(1, 1)):
     if loss_r != loss_s:
         fail(f"{label} remat loss {loss_r!r} differs from the stored-residual"
              f" loss {loss_s!r}")
-    loss_s2, _, g_s2, _, _ = fwd_bwd(scene, cam, settings, 2, tiles)
-    if loss_s2 != loss_s:
-        fail(f"{label} a second stored-residual loss {loss_s2!r} differs from"
-             f" the first {loss_s!r}")
-    noise = grad_diff(g_s2, g_s, f"{label} stored again")
+    # the noise floor, from the reference policy alone: the largest gap
+    # between any two of ``REMAT_NOISE_RUNS`` stored-residual runs
+    stored = [g_s]
+    for _ in range(REMAT_NOISE_RUNS - 1):
+        loss_2, _, g_2, _, _ = fwd_bwd(scene, cam, settings, 2, tiles)
+        if loss_2 != loss_s:
+            fail(f"{label} another stored-residual loss {loss_2!r} differs "
+                 f"from the first {loss_s!r}")
+        stored.append(g_2)
+    gaps = [grad_diff(stored[j], stored[i], f"{label} stored again")
+            for i in range(len(stored)) for j in range(i + 1, len(stored))]
+    noise = max(gaps)
     spread = grad_diff(g_r, g_s, f"{label} remat")
     limit = max(REMAT_NOISE_MULT * noise, 1e-4)
     det = {}
@@ -1726,7 +1762,9 @@ def shading_fwd_bwd(label, scene, cam, settings, kernel, grid=(1, 1)):
     print(f"{label} fwd+bwd remat vs stored residuals: loss bit-identical at "
           f"1080p ({loss_r:.9e}); worst column max |diff| / max |g| "
           f"{spread:.2e} at 1080p with atomic reductions (stored vs stored "
-          f"again {noise:.2e}; limit {limit:.2e}), {worst:.2e} on the "
+          f"again, {len(stored)} runs: "
+          f"{', '.join(f'{g:.2e}' for g in gaps)}; limit {limit:.2e}), "
+          f"{worst:.2e} on the "
           f"{REMAT_TILE[2]}x{REMAT_TILE[3]} tile at {REMAT_TILE[:2]} with "
           f"deterministic ones (limit 1e-4)")
     if spread > limit:
@@ -1942,6 +1980,267 @@ def masked_vs_unmasked(label, calls):
               f"{calls[0][0]} {statistics.fmean(masked):.4f} ms, unmasked "
               f"{pairs[calls[0][0]][0]} {statistics.fmean(plain):.4f} ms a "
               f"launch on the same rays (mean of {len(masked)}) [{CARD}]")
+
+
+# ---- the sky and texture slice: the physical sky, compressed textures,
+# normal maps with tangent rotation, the SH-L1 output, the HLBVH builder ---
+# label -> (builder in ray_tpu_torch.utils.test_scenes, finalize keywords,
+# the kernel family every trace takes, pass settings beyond the frame's)
+SKY = {
+    "physical_sky": ("physical_sky", {}, "trace_brute", {}),
+    "tex_features": ("tex_features", {}, "trace_tlas", {}),
+    "sphere_hlbvh": ("sphere_hlbvh", dict(fast_build=True), "trace_bvh", {}),
+    "flagship output_sh": ("cornell_scene", {}, "trace_brute",
+                           dict(output_sh=True)),
+}
+FINALIZE.update({label: kw for label, (_, kw, _, _) in SKY.items()})
+SKY_FRAMES = 3
+# 64x48 card-vs-CPU tiles: across the sky scene's horizon, on the textured
+# ball, on the HLBVH sphere, on the flagship's light
+SKY_TILES = {"physical_sky": (928, 748), "tex_features": (928, 600),
+             "sphere_hlbvh": (900, 840), "flagship output_sh": (928, 516)}
+# fwd+bwd with stored residuals: tex_features as 2x2 tiles (its parent
+# env_map peaked at 71.2 GiB as one 1080p tile), each its own backward
+SKY_BWD = {"tex_features": GRID}
+SKY_BWD_FRAMES = 3
+# the sky bake at samples/05_physical_sky.py's settings (set_physical_sky's
+# 256x128 map, the full sky, 10 cloud steps), and the size of the
+# card-vs-CPU bake
+SKY_BAKE = dict(width=256, height=128, full=True, cloud_steps=10)
+SKY_BAKE_CPU = dict(width=64, height=32, full=True, cloud_steps=10)
+# the card's bake against the CPU's: this share of texels within this
+# relative gap (PyTorch's CUDA and CPU transcendentals differ in the last
+# ulps, which the march's (1 - e^-x) / ext and the planet-scale heights
+# amplify, tests/test_torch_sky.py)
+SKY_BAKE_SHARE, SKY_BAKE_REL = 0.999, 1e-3
+# shl1's L0 band is 0.282095 x color (tests/test_passes_tonemap.py:115)
+SH_RTOL, SH_ATOL = 1e-4, 1e-5
+# samples/05_physical_sky.py's main(): size, samples, depth
+SAMPLE05 = dict(size=256, samples=16, max_total_depth=3)
+
+
+def sky_scene(label):
+    """(Scene, Camera) of a ``SKY`` scene, from the public API."""
+    from ray_tpu_torch.utils import test_scenes
+
+    return getattr(test_scenes, SKY[label][0])()
+
+
+def sky_settings(settings, label):
+    return dataclasses.replace(settings, **SKY[label][3])
+
+
+def sky_scenes(settings, errs):
+    """Build and finalize each ``SKY`` scene on the card (the sky's bake
+    runs in its builder: ``set_physical_sky``), capture every launch of one
+    1080p frame and hold each against its plain version.  Returns {label:
+    (scene, cam, kernel, calls)} and the physical sky's build and finalize
+    seconds."""
+    import torch
+
+    out, sky_s = {}, None
+    for label, (_, kw, kernel, _) in SKY.items():
+        torch.cuda.synchronize()
+        t_build = time.perf_counter()
+        sc, cam = sky_scene(label)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t_build
+        t_fin = time.perf_counter()
+        scene = sc.finalize(**kw)
+        torch.cuda.synchronize()
+        t_fin = time.perf_counter() - t_fin
+        if label == "physical_sky":
+            sky_s = (t_build, t_fin)
+        soa = scene.bvh_soa
+        tex = scene.textures
+        print(f"scene {label}: mode {scene.mode}, {scene.num_tris} tris, "
+              f"{soa['code0'].shape[0]} BVH2 nodes"
+              f"{', wrows ' + str(tuple(soa['wrows'].shape)) if 'wrows' in soa else ''}"
+              f", env map {scene.env_tab_w}x{scene.env_tab_h}, lights "
+              f"{[k for k, *_ in scene.light_kinds]}, block rows "
+              f"{tex['blocks_t'].shape[1] if 'blocks_t' in tex else 0}, RGBE "
+              f"words {tex['rgbe_t'].shape[1] if 'rgbe_t' in tex else 0}, "
+              f"normal maps {scene.has_normal_maps}, tangent rotation "
+              f"{scene.has_aniso_rotation}; build {t_build:.3f} s, finalize "
+              f"{t_fin:.3f} s")
+        _, calls = capture_frame(scene, cam, sky_settings(settings, label), 1)
+        torch.cuda.synchronize()
+        if len(calls) != 12 or any(c[0] != kernel for c in calls):
+            fail(f"a {label} frame made {[c[0] for c in calls]}, expected 12 "
+                 f"{kernel} calls")
+        for i, (k, args, any_hit) in enumerate(calls):
+            check_parity(k, args, (any_hit,), f"{label} launch {i}", errs)
+        out[label] = (scene, cam, kernel, calls)
+    return out, sky_s
+
+
+def check_sh(scene, cam, settings):
+    """The SH frame's L0 band against 0.282095 x its color, and |L1| within
+    the L0 band's bound (tests/test_passes_tonemap.py:106-121)."""
+    import torch
+
+    out = render(scene, cam, settings, 7)
+    sh, color = out["shl1"], out["color"]
+    if tuple(sh.shape) != (WIDTH * HEIGHT, 4, 3):
+        fail(f"shl1 has shape {tuple(sh.shape)}")
+    err = (sh[:, 0, :] - 0.282095 * color).abs()
+    bad = int((err > SH_ATOL + SH_RTOL * (0.282095 * color).abs()).sum())
+    l0 = sh[:, 0, :].abs()
+    l1 = sh[:, 1:, :].abs().amax(dim=1)
+    over = int((l1 > l0 * (0.488603 / 0.282095) + 1e-5).sum())
+    print(f"flagship output_sh: shl1 {tuple(sh.shape)}, L0 vs 0.282095 x "
+          f"color max |diff| {float(err.max()):.3e} ({bad} values past rtol "
+          f"{SH_RTOL:g} / atol {SH_ATOL:g}), {over} pixels with |L1| past "
+          f"the L0 bound; mean L1 {float(sh[:, 1:].mean()):.6f}")
+    if bad or over or not bool(torch.isfinite(sh).all()):
+        fail("the SH-L1 output disagrees with the color")
+
+
+def sample05():
+    """``samples/05_physical_sky.py``'s ``main()`` on the port's API: the
+    sample's scene (``physical_sky``), ``create_renderer`` → 16 samples →
+    ``pixels(AGX)`` at 256x256; its TGA into ``OUT_DIR``.  4 + 4
+    ``trace_brute`` launches a sample (depth 3, NEE every bounce)."""
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.utils.image_io import write_tga
+    from ray_tpu_torch.utils.test_scenes import physical_sky
+
+    size, samples = SAMPLE05["size"], SAMPLE05["samples"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc, cam = physical_sky()
+    scene = sc.finalize()
+    r = ray_tpu.create_renderer(
+        ray_tpu.RenderSettings(width=size, height=size),
+        ray_tpu.PassSettings(max_total_depth=SAMPLE05["max_total_depth"]),
+    )
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = r.render(scene, cam, samples=samples)
+    px = r.pixels(cam, ray_tpu.ViewTransform.AGX)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launch_counts)
+    check_counts("samples/05_physical_sky", counts, "trace_brute", samples,
+                 SAMPLE05["max_total_depth"] + 1)
+    if not (tuple(px.shape) == (size, size, 3)
+            and bool(torch.isfinite(img).all())
+            and bool(((px >= 0) & (px <= 1)).all())
+            and float(px.mean()) > 0.0):
+        fail("samples/05_physical_sky's image is not finite, out of [0, 1] "
+             "or black")
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "05_physical_sky.tga"
+    write_tga(str(path), px)
+    print(f"samples/05_physical_sky {size}x{size}, {samples} samples: scene "
+          f"and renderer {t_setup * 1e3:.1f} ms, render + pixels "
+          f"{wall * 1e3:.1f} ms ({wall / samples * 1e3:.2f} ms a sample), "
+          f"radiance mean {float(img.mean()):.6f}, pixels(AGX) mean "
+          f"{float(px.mean()):.6f}; launch counts {counts}; wrote {path} "
+          f"[{CARD}]")
+    return counts
+
+
+def sky_bake_timings(sky_s):
+    """The sky bake at ``SKY_BAKE`` on the card: forward ms, fwd+bwd ms of
+    the mean w.r.t. ``atmosphere_density`` and ``clouds_density``, the
+    backward's peak memory (and its rise over what the earlier phases left
+    resident), and the forward's CUDA kernel count
+    (``torch.profiler``); against the sky scene's finalize."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.render import sky
+
+    sd = (0.99, 0.139, 0.15)
+    col = (30.0, 30.0, 30.0)
+
+    def forward():
+        with torch.no_grad():
+            return sky.bake_sky_env(sky.AtmosphereParams(), sd, col,
+                                    include_sun_disk=False, device="cuda",
+                                    **SKY_BAKE)
+
+    forward()
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        img = forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
+        fail("the sky bake is not finite, or black")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    grads = None
+    bwd_s = []
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    for _ in range(2):
+        dens = torch.tensor(1.0, device="cuda", requires_grad=True)
+        cloud = torch.tensor(0.5, device="cuda", requires_grad=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = sky.bake_sky_env(
+            sky.AtmosphereParams(atmosphere_density=dens,
+                                 clouds_density=cloud),
+            sd, col, include_sun_disk=False, device="cuda", **SKY_BAKE)
+        img.mean().backward()
+        torch.cuda.synchronize()
+        bwd_s.append(time.perf_counter() - t0)
+        grads = (float(dens.grad), float(cloud.grad))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(g != 0.0 and g == g for g in grads):
+        fail(f"the sky bake's gradients are zero or NaN: {grads}")
+    build_s, fin_s = sky_s
+    print(f"sky bake {SKY_BAKE['width']}x{SKY_BAKE['height']} full sky, "
+          f"{SKY_BAKE['cloud_steps']} cloud steps: forward {fwd_ms:.1f} ms "
+          f"(mean of {reps}), {n_kernels} CUDA kernels; fwd+bwd "
+          f"{bwd_s[-1] * 1e3:.1f} ms, peak memory {peak / 2**30:.3f} GiB "
+          f"({(peak - resident) / 2**30:.3f} GiB above the "
+          f"{resident / 2**30:.3f} GiB resident before it), "
+          f"d mean / d atmosphere_density {grads[0]:.6e}, d mean / d "
+          f"clouds_density {grads[1]:.6e}; the sky scene's build (bake, "
+          f"sun) {build_s * 1e3:.1f} ms and finalize {fin_s * 1e3:.1f} ms "
+          f"[{CARD}]")
+    if fwd_ms > fin_s * 1e3:
+        print("  the forward bake takes longer than the scene's finalize")
+
+
+def check_sky_bake_against_cpu():
+    """The bake at ``SKY_BAKE_CPU`` on the card against the CPU:
+    ``SKY_BAKE_SHARE`` of texels within ``SKY_BAKE_REL``, the worst texel
+    printed."""
+    import numpy as np
+
+    from ray_tpu_torch.render import sky
+
+    imgs = [sky.bake_sky_env(sky.AtmosphereParams(), (0.99, 0.139, 0.15),
+                             (30.0, 30.0, 30.0), include_sun_disk=False,
+                             device=dev, **SKY_BAKE_CPU).cpu().numpy()
+            for dev in ("cuda", "cpu")]
+    g, c = imgs
+    rel = np.abs(g - c) / np.maximum(np.abs(c), 1e-30)
+    texel = rel.max(-1)
+    share = float((texel <= SKY_BAKE_REL).mean())
+    y, x = np.unravel_index(int(texel.argmax()), texel.shape)
+    print(f"sky bake {SKY_BAKE_CPU['width']}x{SKY_BAKE_CPU['height']} card "
+          f"vs cpu: {share:.5f} of texels within {SKY_BAKE_REL:g} relative; "
+          f"worst texel row {y} col {x}: {texel[y, x]:.3e} ({g[y, x]} vs "
+          f"{c[y, x]}); median {float(np.median(texel)):.3e}")
+    if not (share >= SKY_BAKE_SHARE and np.isfinite(g).all()):
+        fail("the card's sky bake disagrees with the CPU's")
 
 
 def profile_frames(cases):
@@ -2371,6 +2670,8 @@ def main() -> int:
         del calls
     # the traversal slice's scenes: every launch of one 1080p frame
     slices = slice_scenes(settings, errs)
+    # the sky and texture slice's scenes: likewise
+    skies, sky_s = sky_scenes(settings, errs)
 
     phase("card vs CPU tiles", t_start)
     # ---- small tiles: card vs the port's plain CPU path ---------------
@@ -2396,6 +2697,10 @@ def main() -> int:
     for label, (x0, y0) in SLICE_TILES.items():
         check_tile_against_cpu(lambda lb=label: slice_scene(lb), label, x0,
                                y0, settings)
+    for label, (x0, y0) in SKY_TILES.items():
+        check_tile_against_cpu(lambda lb=label: sky_scene(lb), label, x0,
+                               y0, sky_settings(settings, label))
+    check_sky_bake_against_cpu()
 
     phase("forward paths", t_start)
     # ---- the forward main paths ---------------------------------------
@@ -2435,6 +2740,18 @@ def main() -> int:
             launches[key] = launches.get(key, 0) + counts[key]
     tlas_against_flatten(scenes["flagship"][0], slices["cornell_tlas"][0],
                          scenes["flagship"][1], settings)
+    for label, (scene, cam, kernel, _) in skies.items():
+        counts, frame_ms[label] = forward_path(
+            label, scene, cam, sky_settings(settings, label), kernel,
+            frames=SKY_FRAMES)
+        for mode in ("closest", "anyhit"):
+            key = f"{kernel}_{mode}"
+            launches[key] = launches.get(key, 0) + counts[key]
+    check_sh(*skies["flagship output_sh"][:2],
+             sky_settings(settings, "flagship output_sh"))
+    counts = sample05()
+    for mode in ("closest", "anyhit"):
+        launches[f"trace_brute_{mode}"] += counts[f"trace_brute_{mode}"]
 
     phase("goldens", t_start)
     golden_gate()
@@ -2457,6 +2774,12 @@ def main() -> int:
                                      grid, SLICE_BWD_FRAMES)
         check_grad_tile_against_cpu(lambda lb=label: slice_scene(lb), label,
                                     *SLICE_TILES[label], settings)
+    for label, grid in SKY_BWD.items():
+        scene, cam, kernel, _ = skies[label]
+        bwd_ms[label] = fwd_bwd_path(label, scene, cam, settings, kernel,
+                                     grid, SKY_BWD_FRAMES)
+        check_grad_tile_against_cpu(lambda lb=label: sky_scene(lb), label,
+                                    *SKY_TILES[label], settings)
 
     phase("colonnade fwd+bwd", t_start)
     # ---- the colonnade's fwd+bwd frame: bench.py's settings_big (remat),
@@ -2478,6 +2801,9 @@ def main() -> int:
     renderer_path(settings)
     check_renderer_against_cpu(settings)
     quickstart()
+
+    phase("sky bake", t_start)
+    sky_bake_timings(sky_s)
 
     phase("profiles", t_start)
     flag = scenes["flagship"]

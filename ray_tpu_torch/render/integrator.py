@@ -64,6 +64,10 @@ it the replay launches every trace again.
 one-hot matmul outputs with it, and the port's bounce has no matrix
 product (the table reads are ``index_select``).
 
+``output_sh`` adds ``ray_tpu``'s SH-L1 radiance output (``shl1``): three
+more state tensors that the bounce carries, compaction off, as in
+``ray_tpu``; path replay replays them with the rest.
+
 Render options and scene features the port does not carry yet raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
@@ -171,6 +175,23 @@ class _PathState(NamedTuple):
     cone_width: torch.Tensor  # (R,) ray-cone width at the ray origin
     cone_spread: torch.Tensor  # (R,) ray-cone spread angle
     seed: torch.Tensor        # (R,) per-lane RNG seed
+    # output_sh only (else None): the first real vertex's BSDF direction,
+    # whether the lane has yet to shade that vertex, and the (R, 4, 3)
+    # SH-L1 radiance
+    sh_dir: torch.Tensor = None
+    sh_open: torch.Tensor = None
+    aux_sh: torch.Tensor = None
+
+
+def _sh_l1_basis(w):
+    """The SH L1 basis at unit directions w (R, 3) → (R, 4), in the
+    {L0, L1_y, L1_z, L1_x} order of the reference's shl1_data_t
+    (Types.h:51-54, 4 coefficients × RGB)."""
+    return torch.stack(
+        [torch.full(w.shape[:-1], 0.282095, dtype=w.dtype, device=w.device),
+         0.488603 * w[..., 1], 0.488603 * w[..., 2], 0.488603 * w[..., 0]],
+        dim=-1,
+    )
 
 
 def _clamp_contribution(col, limit: float):
@@ -180,11 +201,6 @@ def _clamp_contribution(col, limit: float):
     s = col.sum(dim=-1, keepdim=True)
     scale = torch.where(s > limit, limit / torch.clamp_min(s, 1e-12), 1.0)
     return col * scale
-
-
-def _add(acc, contrib, mask):
-    """Masked radiance add."""
-    return acc + torch.where(mask[:, None], contrib, 0.0)
 
 
 def _slot_mask(slot, n=4):
@@ -236,8 +252,6 @@ def _peek_ior(stack, skip_first, default=1.0):
 def _check_supported(settings: PassSettings, cache_mode: str) -> None:
     if settings.tex_filter not in _TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
-    if settings.output_sh:
-        raise not_ported("the SH-L1 radiance output", "Queue 1 item 33")
     if cache_mode != "off":
         raise not_ported("the spatial radiance cache", "Queue 1 item 24")
 
@@ -265,8 +279,11 @@ def render_tile(
     ``iteration`` (≥ 1) and ``rand_seed`` are ints: a sample is a pure
     function of (pixel, iteration, dimension, seed).  ``pixel_mask``:
     optional (R,) bool — False lanes trace nothing.  Returns a dict with
-    'color' (R,3) radiance, 'base_color' (R,3), 'depth_normal' (R,4) and
-    'rays_traced' (closest + shadow rays, a 0-dim int64 tensor)."""
+    'color' (R,3) radiance, 'base_color' (R,3), 'depth_normal' (R,4),
+    'rays_traced' (closest + shadow rays, a 0-dim int64 tensor) and with
+    ``output_sh`` 'shl1' (R,4,3): each contribution projected on the SH-L1
+    basis of the direction it arrives from at the pixel's first real
+    vertex (compaction is off then, as in ``ray_tpu``)."""
     _check_supported(settings, cache_mode)
     device = scene.device
     rays = generate_primary_rays(
@@ -300,6 +317,11 @@ def render_tile(
         cone_spread=rays.cone_spread.to(torch.float32).expand(R).contiguous(),
         seed=rng.pixel_seed(rays.px, rays.py, rand_seed),
     )
+    if settings.output_sh:
+        st = st._replace(
+            sh_dir=rays.rd,
+            sh_open=torch.ones((R,), dtype=torch.bool, device=device),
+            aux_sh=f32((R, 4, 3), 0.0))
     totals = {"n": torch.zeros((), dtype=torch.int64, device=device),
               "bad": torch.zeros((), dtype=torch.int64, device=device)}
 
@@ -318,7 +340,7 @@ def render_tile(
     n_iters = settings.max_total_depth + 1
     c = settings.compact_after
     do_compact = (0 < c < n_iters and settings.compact_factor > 1
-                  and R >= 1024)
+                  and not settings.output_sh and R >= 1024)
     if not do_compact:
         st = run(st, range(n_iters))
     else:
@@ -329,8 +351,10 @@ def render_tile(
             # lane's state scatters back to its own pixel afterwards
             perm = torch.argsort((~st.active).to(torch.int32), stable=True)
             idx = perm[:K]
-            head = run(_PathState(*(a[idx] for a in st)), range(c, n_iters))
-            st = _PathState(*(torch.index_copy(full, 0, idx, h)
+            head = run(_PathState(*(None if a is None else a[idx]
+                                    for a in st)), range(c, n_iters))
+            st = _PathState(*(None if full is None
+                              else torch.index_copy(full, 0, idx, h)
                               for full, h in zip(st, head)))
         else:
             st = run(st, range(c, n_iters))
@@ -343,6 +367,9 @@ def render_tile(
     }
     if settings.nan_check:
         out["nonfinite"] = totals["bad"]
+    if settings.output_sh:
+        # shl1_data_t analogue (Types.h:51): 4 SH-L1 coefficients × RGB
+        out["shl1"] = st.aux_sh
     return out
 
 
@@ -594,6 +621,21 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     is_first = bounce == 0
     has_portal = any(p for (_k, _v, _d, p) in scene.light_kinds)
     limit0 = settings.clamp_direct if is_first else settings.clamp_indirect
+    aux_sh = st.aux_sh
+
+    def add(acc, contrib, mask, w_dir=None):
+        """Masked radiance add; with ``output_sh`` the contribution is also
+        projected on the SH-L1 basis of the direction toward its source
+        at the pixel's first real vertex: ``w_dir`` (NEE's light
+        direction), else the ray direction (a light or the environment
+        hit), and past that vertex the BSDF direction sampled there."""
+        nonlocal aux_sh
+        c = torch.where(mask[:, None], contrib, 0.0)
+        if aux_sh is not None:
+            w = torch.where(st.sh_open[:, None],
+                            rd if w_dir is None else w_dir, st.sh_dir)
+            aux_sh = aux_sh + _sh_l1_basis(w)[:, :, None] * c[:, None, :]
+        return acc + c
 
     total_depth = depth[:, 0] + depth[:, 1] + depth[:, 2]
     # closest hit, marching through Transparent surfaces (which updates the
@@ -642,7 +684,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             lw = torch.where(indirect, power_heuristic(bsdf_pdf, al_pdf), 1.0)
             lcol = lcol * lw[:, None]
         l_contrib = _clamp_contribution(throughput * lcol, limit0)
-        accum = _add(accum, l_contrib, light_first & hit_keep)
+        accum = add(accum, l_contrib, light_first & hit_keep)
 
     # ---------- environment on miss (ShadeRef.cpp:1192-1216) ----------
     env_col = light_sampling.env_color(scene, rd)
@@ -663,7 +705,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     env_keep = hit_keep
     if settings.no_background:
         env_keep = env_keep & indirect
-    accum = _add(accum, env_contrib, active & miss & (~light_first) & env_keep)
+    accum = add(accum, env_contrib, active & miss & (~light_first) & env_keep)
 
     alive = active & (~miss) & (~light_first)
 
@@ -740,7 +782,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     emis_contrib = _clamp_contribution(
         throughput * params.emission * (mix_weight * mis_w)[:, None], limit0
     )
-    accum = _add(accum, emis_contrib, emis_mask & hit_keep)
+    accum = add(accum, emis_contrib, emis_mask & hit_keep)
 
     # AUX from the primary hit
     if is_first:
@@ -800,7 +842,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
                 factor = torch.where(pblock[:, None], 0.0, factor)
             sh_contrib = _clamp_contribution(throughput * nee_col * factor,
                                              limit0)
-            accum = _add(accum, sh_contrib, nee_valid)
+            accum = add(accum, sh_contrib, nee_valid, w_dir=ls.L)
         else:
             occluded = traced(_trace_occlusion, scene, sh_o, sh_d,
                               sh_dist * 0.999, shadow_active)
@@ -808,7 +850,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             if pblock is not None:
                 visible = visible & (~pblock)
             sh_contrib = _clamp_contribution(throughput * nee_col, limit0)
-            accum = _add(accum, sh_contrib, visible)
+            accum = add(accum, sh_contrib, visible, w_dir=ls.L)
         n_shadow = shadow_active.sum()
 
     # ---------- BSDF sampling / next bounce ----------
@@ -895,9 +937,17 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             bad = bad + (nf & next_active).sum()
         for arr in (accum, aux_base, aux_dn):
             bad = bad + (~torch.isfinite(arr)).any(dim=-1).sum()
+    sh_dir, sh_open = st.sh_dir, st.sh_open
+    if aux_sh is not None:
+        # the first real (non-transparent) shaded vertex closes sh_open
+        # and pins the direction of deeper contributions
+        real_vtx = can_shade & sh_open
+        sh_dir = torch.where(real_vtx[:, None], bs.dir, sh_dir)
+        sh_open = sh_open & (~real_vtx)
     new = _PathState(ro=ro, rd=rd, t_max=t_max, throughput=throughput,
                      bsdf_pdf=bsdf_pdf, active=next_active, depth=depth,
                      ior_stack=ior_stack, accum=accum, aux_base=aux_base,
                      aux_dn=aux_dn, ray_mask=ray_mask, cone_width=cone_width,
-                     cone_spread=cone_spread, seed=seed)
+                     cone_spread=cone_spread, seed=seed, sh_dir=sh_dir,
+                     sh_open=sh_open, aux_sh=aux_sh)
     return new, n, bad

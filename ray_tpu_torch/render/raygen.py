@@ -16,7 +16,7 @@ import torch
 from ray_tpu_torch.ops import rng
 from ray_tpu_torch.ops.linalg import dot, normalize
 from ray_tpu_torch.render.bsdf.microfacet import PI
-from ray_tpu_torch.scene.scene import resolve_device
+from ray_tpu_torch.utils.device import resolve_device
 
 
 class PrimaryRays(NamedTuple):

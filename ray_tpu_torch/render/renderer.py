@@ -33,7 +33,7 @@ from ray_tpu_torch.render.tonemap import (
     reversible_tonemap,
 )
 from ray_tpu_torch.scene.camera import Camera, PixelFilter, build_filter_table
-from ray_tpu_torch.scene.scene import resolve_device
+from ray_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,18 +14,19 @@ resolve stochastically to a leaf material (:func:`resolve_mix`, with the
 Fresnel factor in the shade stage and without it in the trace stage), and
 shadow rays through transparent surfaces take the deterministic
 Mix-weighted transparency color (:func:`shadow_transmittance`).  Normal
-mapping and the per-material tangent rotation stay the pass-throughs they
-are in ``ray_tpu`` when the scene has none; a scene that has them raises
-(ROADMAP Queue 1 item 32).
+maps (:func:`apply_normal_map`) and the per-material tangent rotation
+(:func:`apply_tangent_rotation`) bend the frame after Mix resolution, in
+that order, and are the static pass-throughs they are in ``ray_tpu`` when
+no material has them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops.linalg import cross, dot, safe_div_pos, safe_normalize
 from ray_tpu_torch.render.bsdf.microfacet import fresnel_dielectric_cos
 from ray_tpu_torch.scene.materials import MAT_FLAG_MIX_ADD, ShadingNode
@@ -235,11 +236,25 @@ def compute_surface(scene, prim, u, v, backface, ro, rd, t, inst=None,
 
 
 def apply_tangent_rotation(scene, mat_id, surf: Surface):
-    """Per-material tangent rotation: a static no-op when no material
-    rotates."""
-    if scene.has_aniso_rotation:
-        raise not_ported("anisotropic tangent rotation", "Queue 1 item 32")
-    return surf
+    """Per-material tangent rotation about the (possibly normal-mapped)
+    shading normal, then the frame rebuilt — ShadeRef.cpp:1362-1366 with
+    tangent_rotation = 2π·anisotropic_rotation (SceneCPU.cpp:226,263).
+    A static no-op when no material rotates."""
+    if not scene.has_aniso_rotation:
+        return surf
+    rot = scene.materials["anisotropic_rotation"].index_select(
+        0, torch.clamp_min(mat_id, 0).long())
+    angle = 2.0 * math.pi * torch.clamp(rot, 0.0, 1.0)
+    n = surf.N
+    t = surf.raw_tangent
+    c = torch.cos(angle)[:, None]
+    s = torch.sin(angle)[:, None]
+    ndt = dot(n, t)
+    t_rot = t * c + cross(n, t) * s + n * ndt * (1.0 - c)
+    tangent = torch.where((angle != 0.0)[:, None], t_rot, t)
+    B = safe_normalize(cross(tangent, n))
+    T = cross(n, B)
+    return surf._replace(T=T, B=B)
 
 
 def pick_hit_material(scene, prim, backface, row=None):
@@ -342,8 +357,40 @@ def shadow_transmittance(scene, mat_id, uv, lam=None,
 
 def apply_normal_map(scene, mat_id, surf: Surface, I, tex_rand, lam=None,
                      fetch_kw=None):
-    """Tangent-space normal mapping: a static no-op when no material has a
-    normal map."""
-    if scene.has_normal_maps:
-        raise not_ported("normal maps", "Queue 1 item 32")
-    return surf
+    """Tangent-space normal mapping (z rebuilt from x and y, as a BC5 map
+    stores them), blended toward the interpolated normal by
+    ``normal_map_intensity``, then ``ray_tpu``'s lite form of Cycles'
+    ensure_valid_reflection (the reference's iterative one:
+    ShadeRef.cpp:252-352): where the reflection of ``I`` about the new
+    normal would dip under the geometric plane, the geometric normal is
+    taken.  The frame is rebuilt around the result.  A static no-op when
+    no material has a normal map."""
+    if not scene.has_normal_maps:
+        return surf
+    mats = scene.materials
+    i = torch.clamp_min(mat_id, 0).long()
+    nm = mats["normal_map"][i]
+    nm_k = mats["normal_map_intensity"].index_select(0, i)
+    has = nm >= 0
+    lod = None if lam is None else texture_lod(scene.textures, nm, lam)
+    tex = sample_bilinear(scene.textures, nm, surf.uv, lod,
+                          **(fetch_kw or {}))
+    n_ts = tex[:, :3] * 2.0 - 1.0
+    x, y = n_ts[:, 0], n_ts[:, 1]
+    z = torch.sqrt(torch.clamp_min(1.0 - x * x - y * y, 0.0))
+    N_new = safe_normalize(
+        x[:, None] * surf.T + z[:, None] * surf.N + y[:, None] * surf.B)
+    k = nm_k[:, None]
+    N_new = safe_normalize(surf.N + (N_new - surf.N) * k)
+
+    # keep reflections valid: fall back to the geometric normal where the
+    # reflected view direction would dip below the surface
+    refl = I - 2.0 * dot(N_new, I) * N_new
+    bad = (dot(surf.plane_N, refl, False)
+           < 0.01 * torch.abs(dot(surf.plane_N, I, False)))
+    N_fixed = torch.where(bad[:, None], surf.plane_N, N_new)
+
+    N_out = torch.where(has[:, None], N_fixed, surf.N)
+    B = safe_normalize(cross(surf.T, N_out))
+    T = cross(N_out, B)
+    return surf._replace(N=N_out, B=B, T=T)

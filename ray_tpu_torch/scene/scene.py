@@ -14,14 +14,16 @@ subtree slabs of the binned trace (``bvh_soa["binned_*"]``,
 :mod:`.binned`).  Tlas mode (a mesh
 instanced more than once) builds one object-space BVH per mesh and a TLAS
 over the instances, and past 256 unique triangles the unified 8-wide table
-``bvh_soa["wrows_tlas"]`` that the traversal walks.  Uncompressed textures
-pack into ``ray_tpu``'s flat texel table (:mod:`.textures`).  A principled
+``bvh_soa["wrows_tlas"]`` that the traversal walks.  Textures pack into
+``ray_tpu``'s flat texel table and, stored compressed, its block and RGBE
+tables (:mod:`.textures`).  A principled
 material with ``alpha`` < 1 or an alpha texture expands, as in
 ``ray_tpu``, into Mix(Transparent, root) nodes.  A latlong environment map
 (``set_environment(map_id=...)``) gets ``ray_tpu``'s importance tables
-(:mod:`.env`).  Not ported yet, and raising ``NotImplementedError`` with
-the ROADMAP entry that will port it: compressed textures, the physical sky
-and the SBVH/HLBVH builders.
+(:mod:`.env`); ``set_physical_sky`` bakes one from the procedural
+atmosphere.  ``finalize(fast_build=True)`` builds with the HLBVH builder
+(:mod:`.hlbvh`).  Not ported yet, and raising ``NotImplementedError`` with
+the ROADMAP entry that will port it: the SBVH builder.
 """
 
 from __future__ import annotations
@@ -48,11 +50,13 @@ from ray_tpu_torch.scene.bvh import (
 )
 from ray_tpu_torch.scene.camera import Camera
 from ray_tpu_torch.scene.env import build_env_cdf
+from ray_tpu_torch.scene.hlbvh import build_hlbvh
 from ray_tpu_torch.scene.lights import LightDesc, LightType, pack_lights
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode, pack_materials
 from ray_tpu_torch.scene.textures import TexturePacker
 from ray_tpu_torch.scene.visibility import RAY_ALL
 from ray_tpu_torch.scene.wbvh import build_wbvh, build_wtlas, finish_wtlas
+from ray_tpu_torch.utils.device import resolve_device
 
 # ray_tpu adds an 8-wide BVH layout ("wrows"/"wrows_tlas") above this many
 # triangles
@@ -60,20 +64,6 @@ WIDE_BVH_MIN_TRIS = 256
 # ray_tpu's BVH-kernel limit (T_MAX_BVH): a flatten scene past it in node or
 # triangle rows may carry binned subtree slabs
 BVH_MAX_ROWS = 512
-
-
-def resolve_device(device=None) -> torch.device:
-    """The render device: CUDA unless the caller names another.  With no
-    CUDA device and no explicit ``device`` this raises instead of falling
-    back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "ray_tpu_torch renders on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path"
-        )
-    return torch.device("cuda")
 
 
 def _to_torch(x, device):
@@ -244,8 +234,8 @@ class Scene:
     def add_texture(self, image, srgb: bool = False,
                     generate_mips: bool = True, compress: bool = False) -> int:
         """Add an image (H, W, C float in [0, 1] or uint8); returns its
-        texture id.  ``compress`` (BC1/BC4/BC5/RGBE storage) is not ported
-        yet."""
+        texture id.  ``compress``: False, True or "bc1", "bc4", "bc5",
+        "rgbe" (:mod:`.textures`)."""
         return self._textures.add(image, srgb=srgb,
                                   generate_mips=generate_mips,
                                   compress=compress)
@@ -342,11 +332,53 @@ class Scene:
         full_sky: bool = False,
         **sky_features,
     ):
-        """``ray_tpu``'s physical sky: bakes the atmosphere into an
-        environment map and adds the sun as a directional light.  Not
-        ported yet (it needs env maps and directional lights first)."""
-        raise not_ported("the physical sky (Scene.set_physical_sky)",
-                         "Queue 1 item 23")
+        """Bake the procedural atmosphere (:mod:`ray_tpu_torch.render.sky`)
+        into a latlong environment map and add the sun as a directional
+        light with transmittance-attenuated color (``ray_tpu``'s method:
+        the reference's PrepareSkyEnvMap, SceneCPU.cpp:1017, and its sun
+        registration, SceneCommon.cpp:314-327).  ``sun_direction`` points
+        toward the sun.  The bake runs on ``sky_features["device"]``
+        (default: CUDA, raising without it) and its image becomes an
+        uncompressed texture.  Returns the parameters used."""
+        from ray_tpu_torch.render import sky as sky_mod
+
+        if params is None:
+            params = sky_mod.AtmosphereParams()
+        sd = np.asarray(sun_direction, np.float64)
+        sd = sd / np.linalg.norm(sd)
+        w, h = env_res
+        with torch.no_grad():
+            # with the sun as its own light, the bake leaves the disk out
+            img = sky_mod.bake_sky_env(
+                params, sd, sun_color, width=w, height=h,
+                include_sun_disk=not add_sun_light, full=full_sky,
+                **sky_features,
+            )
+            device = img.device
+            tex = self.add_texture(img[..., :3].cpu().numpy(),
+                                   generate_mips=False)
+            self.set_environment((1.0, 1.0, 1.0), map_id=tex)
+            if add_sun_light:
+                p = params.torch_params(device=device)
+                lut = sky_mod.build_transmittance_lut(p)
+                r0 = p.planet_radius + p.viewpoint_height
+                T = sky_mod.lookup_transmittance(
+                    p, lut, r0[None],
+                    torch.tensor([sd[1]], dtype=torch.float32, device=device),
+                )[0].cpu().numpy()
+        if add_sun_light:
+            sun_rad = np.asarray(sun_color, np.float64) * T
+            # radiance over the solid angle of the disk
+            ang = np.radians(sun_angle) * 0.5
+            sun_rad = sun_rad / (np.pi * ang * ang)
+            self.add_light(LightDesc(
+                type=LightType.DIR,
+                color=tuple(float(c) for c in sun_rad),
+                # LightDesc takes the direction the light travels
+                direction=tuple(float(-c) for c in sd),
+                angle=float(sun_angle),
+            ))
+        return params
 
     # -- finalize ----------------------------------------------------------
     def finalize(self, max_leaf: int | None = None,
@@ -366,12 +398,11 @@ class Scene:
         in ``ray_tpu``.  ``pallas_binned``: a flatten scene past 512 node or
         triangle rows also carries the subtree slabs that route its traces
         to the binned kernel (``ray_tpu``'s opt-in of the same name).
-        ``fast_build`` (the HLBVH builder) and ``spatial_splits`` (SBVH)
-        are not ported yet."""
-        if fast_build:
-            raise not_ported("the HLBVH builder (fast_build=True)",
-                             "Queue 1 item 15")
-        if spatial_splits:
+        ``fast_build`` builds every BVH2 with the HLBVH builder
+        (:mod:`.hlbvh`) instead of the SAH one, as ``ray_tpu`` does; it
+        takes precedence over ``spatial_splits`` (SBVH), which is not
+        ported yet."""
+        if spatial_splits and not fast_build:
             raise not_ported("the SBVH builder (spatial_splits=True)",
                              "Queue 1 item 18")
         device = resolve_device(device)
@@ -386,13 +417,13 @@ class Scene:
         if instancing == "tlas":
             return self._finalize_tlas(
                 max_leaf if max_leaf is not None else 4,
-                light_tree_min_lights, has_vis, device,
+                light_tree_min_lights, has_vis, device, fast_build,
             )
         if instancing != "flatten":
             raise ValueError(f"unknown instancing mode {instancing!r}")
         return self._finalize_flatten(
             max_leaf if max_leaf is not None else 8,
-            light_tree_min_lights, has_vis, device, pallas_binned,
+            light_tree_min_lights, has_vis, device, pallas_binned, fast_build,
         )
 
     def _material_solidity(self) -> np.ndarray:
@@ -445,7 +476,7 @@ class Scene:
         return col, d.two_sided
 
     def _finalize_flatten(self, max_leaf, light_tree_min_lights, has_vis,
-                          device, pallas_binned=False):
+                          device, pallas_binned=False, fast_build=False):
         verts, norms, uvs, tris, tri_mat, tri_vis = [], [], [], [], [], []
         tan_q, tan_q0 = [], []
         voffset = 0
@@ -496,7 +527,10 @@ class Scene:
         # BVH over world-space triangles; permute tri arrays to leaf order so
         # the traversal kernel indexes them directly (no extra indirection).
         lo, hi = tri_bounds(vertices, tri_vidx)
-        bvh = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True)
+        if fast_build:
+            bvh = build_hlbvh(lo, hi, max_leaf=max_leaf)
+        else:
+            bvh = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True)
         perm = bvh.prim_indices
         tri_vidx = tri_vidx[perm]
         tri_mats = tri_mats[perm]
@@ -568,7 +602,7 @@ class Scene:
         return SceneFlat.from_numpy(arrays, static, device)
 
     def _finalize_tlas(self, max_leaf, light_tree_min_lights, has_vis,
-                       device):
+                       device, fast_build=False):
         """Two-level compile (``ray_tpu``'s ``_finalize_tlas``): one
         object-space BVH per mesh shared by its instances, a TLAS over the
         instance boxes, all binary nodes in one code space (TLAS rows
@@ -584,7 +618,11 @@ class Scene:
         for mi in mesh_used:
             m = meshes[mi]
             lo, hi = tri_bounds(m.vertices, m.indices)
-            blas[mi] = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True)
+            if fast_build:
+                blas[mi] = build_hlbvh(lo, hi, max_leaf=max_leaf)
+            else:
+                blas[mi] = build_bvh2(lo, hi, max_leaf=max_leaf,
+                                      fat_leaves=True)
 
         # --- concatenated object-space geometry in BLAS leaf order ---
         verts, norms, uvs, tris, tri_mat = [], [], [], [], []

@@ -4,10 +4,12 @@ Cornell box (the scene of the flagship frame) and the instanced colonnade
 sphere lights), the instanced generator scene of the traversal tests, the
 four scenes of ``ray_tpu``'s committed CPU goldens
 (``tests/cpu_golden_scenes.py``: ``GOLDEN_SCENES``), ``alpha_box``, a
-Cornell box whose tall box has principled alpha, and the traversal slice's
-scenes (``cornell_tlas``, ``cornell_vis``, ``sphere_vis``, ``env_map``),
-which take a package's scene API (:func:`port_api`, or ``ray_tpu``'s in
-the tests), so that one function builds the scene in either package."""
+Cornell box whose tall box has principled alpha, ``furnace_scene``, the
+traversal slice's scenes (``cornell_tlas``, ``cornell_vis``,
+``sphere_vis``, ``env_map``) and the sky and texture slice's
+(``physical_sky``, ``tex_features``, ``sphere_hlbvh``), which take a
+package's scene API (:func:`port_api`, or ``ray_tpu``'s in the tests), so
+that one function builds the scene in either package."""
 
 from __future__ import annotations
 
@@ -21,6 +23,18 @@ from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.scene.scene import Scene
 from ray_tpu_torch.scene.visibility import visibility_mask
 from ray_tpu_torch.utils.geometry import make_box, make_quad, make_uv_sphere
+
+
+def furnace_scene(material: MaterialDesc, env=(1.0, 1.0, 1.0), radius=1.0):
+    """A single sphere in a constant environment — the classic furnace
+    test.  For a *convex* diffuse body L_out = albedo × L_env exactly."""
+    sc = Scene()
+    mat = sc.add_material(material)
+    v, idx, n, uv = make_uv_sphere(radius=radius)
+    sc.add_mesh(v, idx, normals=n, uvs=uv, material=mat)
+    sc.set_environment(env)
+    cam = make_camera(origin=(0, 0, -4), look_at=(0, 0, 0), fov=40.0)
+    return sc, cam
 
 
 def cornell_scene(
@@ -348,10 +362,12 @@ def instanced_scene(meshes=((12, 16),), n_inst: int = 6, seed: int = 3):
 
 def port_api():
     """The scene API the slice's builders take: this package's
-    ``cornell_scene``, ``scene_dir_env``, ``MaterialDesc``, ``ShadingNode``,
-    ``LightDesc`` and ``LightType`` (a test passes ``ray_tpu``'s)."""
+    ``cornell_scene``, ``scene_dir_env``, ``Scene``, ``make_camera``,
+    ``MaterialDesc``, ``ShadingNode``, ``LightDesc`` and ``LightType`` (a
+    test passes ``ray_tpu``'s)."""
     return types.SimpleNamespace(
         cornell_scene=cornell_scene, scene_dir_env=scene_dir_env,
+        Scene=Scene, make_camera=make_camera,
         MaterialDesc=MaterialDesc, ShadingNode=ShadingNode,
         LightDesc=LightDesc, LightType=LightType)
 
@@ -466,4 +482,108 @@ def env_map(api=None, portal: bool = False):
             position=(0.0, 2.0, 0.0), axis_u=(1.0, 0.0, 0.0),
             axis_v=(0.0, 0.0, 1.0), width=1.6, height=1.2,
             sky_portal=True))
+    return sc, cam
+
+
+# ---- the sky and texture slice's scenes ----------------------------------
+
+
+def physical_sky(api=None, full: bool = True, env_res=(256, 128),
+                 **sky_features):
+    """``samples/05_physical_sky.py``'s scene: a 60x60 DIFFUSE quad (2
+    triangles: the brute-force kernel) under ``set_physical_sky`` with the
+    sun 8 degrees up, sun color 30, the full sky (moon, stars, cirrus,
+    clouds at ``cloud_steps=10``) baked at ``env_res``, and the sample's
+    camera.  ``sky_features`` go to ``set_physical_sky`` (the port's takes
+    ``device``, where the bake runs).  Returns (Scene, Camera)."""
+    api = api or port_api()
+    sc = api.Scene()
+    sc.add_material(api.MaterialDesc(type=api.ShadingNode.DIFFUSE,
+                                     base_color=(0.35, 0.3, 0.25)))
+    v, idx, uv = make_quad((0, 0, 0), (0, 0, 60), (60, 0, 0))
+    sc.add_mesh(v, idx, uvs=uv, material=0)
+    el = np.radians(8.0)
+    sky = dict(cloud_steps=10, **sky_features)
+    sc.set_physical_sky(sun_direction=(np.cos(el), np.sin(el), 0.15),
+                        sun_color=(30.0, 30.0, 30.0), env_res=env_res,
+                        full_sky=full, **sky)
+    cam = api.make_camera(origin=(0, 1.5, -4), look_at=(8, 3.5, 0), fov=60)
+    return sc, cam
+
+
+def tex_features_images(seed: int = 23, res: int = 256):
+    """The images of :func:`tex_features`, made from ``seed``: an sRGB
+    base color (uint8 noise over stripes), a one-channel roughness map,
+    a tangent-space normal map of bumps (xy in [0, 1], z left to the
+    decode) and a 64x64 ground texture."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    stripes = 0.5 + 0.5 * np.sin(xx * (2 * np.pi / 32.0))
+    base = np.stack([0.25 + 0.6 * stripes, 0.3 + 0.3 * (yy / res),
+                     0.2 + 0.2 * (1.0 - stripes)], -1)
+    base = base + 0.08 * r.standard_normal((res, res, 3))
+    base = (np.clip(base, 0.0, 1.0) * 255.0).astype(np.uint8)
+    rough = np.clip(0.2 + 0.6 * r.random((res // 8, res // 8)), 0.0, 1.0)
+    rough = np.kron(rough, np.ones((8, 8))).astype(np.float32)
+    bx = np.sin(xx * (2 * np.pi / 16.0)) * np.cos(yy * (2 * np.pi / 24.0))
+    by = np.cos(xx * (2 * np.pi / 20.0)) * np.sin(yy * (2 * np.pi / 16.0))
+    normal = np.stack([0.5 + 0.35 * bx, 0.5 + 0.35 * by,
+                       np.ones_like(bx)], -1).astype(np.float32)
+    ground = r.random((64, 64, 3)).astype(np.float32) * 0.5 + 0.25
+    return base, rough, normal, ground
+
+
+def tex_features(api=None):
+    """``env_map``'s layout (a ground quad, a 2,208-triangle PRINCIPLED UV
+    ball, a directional light: 2,210 triangles, the 8-wide walk) with every
+    texture feature: the 512x256 latlong map stored ``compress="rgbe"``;
+    on the ball a 256x256 sRGB base texture stored as BC1 with mips, a BC4
+    roughness map, a BC5 normal map at ``normal_map_intensity=0.8`` and
+    ``anisotropic=0.6`` turned by ``anisotropic_rotation=0.25``; on the
+    ground an uncompressed texture, so raw and compressed records share
+    one pack.  Returns (Scene, Camera)."""
+    api = api or port_api()
+    base, rough, normal, ground = tex_features_images()
+    sc = api.Scene()
+    t_ground = sc.add_texture(ground)
+    t_base = sc.add_texture(base, srgb=True, compress="bc1")
+    t_rough = sc.add_texture(rough, compress="bc4")
+    t_normal = sc.add_texture(normal, compress="bc5")
+    grey = sc.add_material(api.MaterialDesc(
+        type=api.ShadingNode.DIFFUSE, base_color=(0.6, 0.6, 0.6),
+        base_texture=t_ground))
+    ball = sc.add_material(api.MaterialDesc(
+        type=api.ShadingNode.PRINCIPLED, base_color=(1.0, 1.0, 1.0),
+        base_texture=t_base, roughness=0.5, roughness_texture=t_rough,
+        normal_map=t_normal, normal_map_intensity=0.8, anisotropic=0.6,
+        anisotropic_rotation=0.25))
+    sc.add_mesh(vertices=[[-8, 0, -8], [8, 0, -8], [8, 0, 8], [-8, 0, 8]],
+                indices=[[0, 1, 2], [0, 2, 3]],
+                uvs=[[0, 0], [4, 0], [4, 4], [0, 4]], material=grey)
+    v, idx, n, uv = make_uv_sphere(radius=0.5)
+    sc.add_mesh(v + [0.0, 0.5, 0.0], idx, normals=n, uvs=uv, material=ball)
+    sc.add_light(api.LightDesc(
+        type=api.LightType.DIR, color=(6.0, 5.5, 5.0),
+        direction=(0.45, -0.8, 0.4), angle=8.0))
+    env = sc.add_texture(env_map_image(), generate_mips=False,
+                         compress="rgbe")
+    sc.set_environment((1.0, 1.0, 1.0), map_id=env, rotation=0.7)
+    cam = api.make_camera(origin=(0, 1.6, -4.0), look_at=(0, 0.4, 0),
+                          fov=40.0)
+    return sc, cam
+
+
+def sphere_hlbvh(api=None):
+    """``cornell_sphere`` (the flagship plus a rough diffuse UV sphere, 376
+    triangles), to be finalized with ``fast_build=True``: the HLBVH tree
+    of at most 512 rows, so every trace takes the BVH2 kernel.  Returns
+    (Scene, Camera)."""
+    api = api or port_api()
+    sc, cam = api.cornell_scene("emissive_quad")
+    m = sc.add_material(api.MaterialDesc(
+        type=api.ShadingNode.DIFFUSE, base_color=(0.2, 0.3, 0.8),
+        roughness=0.5))
+    v, idx, n, uv = make_uv_sphere(center=(0.4, -0.64, -0.3), radius=0.35,
+                                   rings=12, segments=16)
+    sc.add_mesh(v, idx, normals=n, uvs=uv, material=m)
     return sc, cam

@@ -16,7 +16,11 @@ renders at its 400 samples within the goldens' gate.  The traversal
 slice: ``trace_tlas_bin`` (the binary two-level walk of tlas scenes of
 ≤ 256 unique triangles), the masked ``trace_bvh`` and wide-route
 instantiations and ``trace_tlas`` at ``max_leaf`` 6 and 7 (padded rows)
-bit-exact, and every launch of a tile of the slice's scenes.
+bit-exact, and every launch of a tile of the slice's scenes.  The sky
+and texture slice: every launch of a tile of ``physical_sky``,
+``tex_features``, ``sphere_hlbvh`` (``fast_build=True``) and the flagship
+with ``output_sh``, and the compressed-texture decode on the card against
+the CPU.
 """
 
 import numpy as np
@@ -865,16 +869,12 @@ SLICE_TILES = {
 }
 
 
-@pytest.mark.parametrize("name,mode", sorted(SLICE_TILES, key=str))
-def test_slice_scene_tile_launches_bit_exact(name, mode):
-    """Every trace launch of a 256x128 tile of the slice's scenes, on the
-    kernel its tables pick (with masks where the scene has per-instance
-    visibility), equals the plain version's: 6 closest-hit and 6 any-hit."""
-    _need_cuda()
+def _tile_launches(scene, cam, settings):
+    """Every trace launch of a 256x128 tile as (kernel, args, any_hit, kw),
+    and the wrappers themselves."""
     from ray_tpu_torch.ops import traverse
-    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.render.integrator import render_tile
 
-    scene, cam = _slice_scene(name, mode)
     calls = []
     real = {k: getattr(traverse, k)
             for k in ("trace_brute", "trace_bvh", "trace_tlas",
@@ -891,13 +891,26 @@ def test_slice_scene_tile_launches_bit_exact(name, mode):
         setattr(traverse, k, recorder(k))
     try:
         render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
-                    height=1080, tile_w=256, tile_h=128,
-                    settings=PassSettings(max_total_depth=5,
-                                          min_total_depth=2),
+                    height=1080, tile_w=256, tile_h=128, settings=settings,
                     use_filter_table=False)
     finally:
         for k, fn in real.items():
             setattr(traverse, k, fn)
+    return calls, real
+
+
+@pytest.mark.parametrize("name,mode", sorted(SLICE_TILES, key=str))
+def test_slice_scene_tile_launches_bit_exact(name, mode):
+    """Every trace launch of a 256x128 tile of the slice's scenes, on the
+    kernel its tables pick (with masks where the scene has per-instance
+    visibility), equals the plain version's: 6 closest-hit and 6 any-hit."""
+    _need_cuda()
+    from ray_tpu_torch.ops import traverse
+    from ray_tpu_torch.render.integrator import PassSettings
+
+    scene, cam = _slice_scene(name, mode)
+    calls, real = _tile_launches(
+        scene, cam, PassSettings(max_total_depth=5, min_total_depth=2))
     assert {c[0] for c in calls} == SLICE_TILES[(name, mode)]
     assert len(calls) == 12 and sum(c[2] for c in calls) == 6
     for kernel, args, any_hit, kw in calls:
@@ -909,3 +922,73 @@ def test_slice_scene_tile_launches_bit_exact(name, mode):
         p = getattr(traverse, f"{kernel}_plain")(*args, any_hit=any_hit,
                                                  **kw)
         _bit_exact(k, p, f"{name} {mode} {kernel}")
+
+
+# the sky and texture slice: builder, finalize keywords, pass settings and
+# the one kernel its traces take
+SKY_TILES = {
+    "physical_sky": ("physical_sky", {}, {}, "trace_brute"),
+    "tex_features": ("tex_features", {}, {}, "trace_tlas"),
+    "sphere_hlbvh": ("sphere_hlbvh", dict(fast_build=True), {}, "trace_bvh"),
+    "flagship output_sh": ("cornell_scene", {}, dict(output_sh=True),
+                           "trace_brute"),
+}
+
+
+@pytest.mark.parametrize("label", sorted(SKY_TILES))
+def test_sky_slice_tile_launches_bit_exact(label):
+    """Every trace launch of a 256x128 tile of the sky and texture slice's
+    scenes — the baked physical sky over its 2-triangle floor, the
+    compressed textures and normal maps over 2,210 triangles, the HLBVH
+    ``cornell_sphere``, the flagship with the SH-L1 output — equals the
+    plain version's, on the kernel its tables pick."""
+    _need_cuda()
+    from ray_tpu_torch.ops import traverse
+    from ray_tpu_torch.render.integrator import PassSettings
+    from ray_tpu_torch.utils import test_scenes
+
+    name, fin, st, kernel = SKY_TILES[label]
+    sc, cam = getattr(test_scenes, name)()
+    scene = sc.finalize(**fin)
+    calls, real = _tile_launches(scene, cam, PassSettings(
+        max_total_depth=5, min_total_depth=2, **st))
+    assert {c[0] for c in calls} == {kernel}
+    assert len(calls) == 12 and sum(c[2] for c in calls) == 6
+    for k_name, args, any_hit, kw in calls:
+        k = real[k_name](*args, any_hit=any_hit, **kw)
+        p = getattr(traverse, f"{k_name}_plain")(*args, any_hit=any_hit,
+                                                 **kw)
+        _bit_exact(k, p, f"{label} {k_name}")
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "stochastic"])
+def test_compressed_decode_on_the_card(mode):
+    """``sample_bilinear`` over a pack of raw, BC1, BC4, BC5 and RGBE
+    records on the card against the CPU: within 1e-6, the RGBE taps
+    exact."""
+    _need_cuda()
+    from ray_tpu_torch.scene.textures import TexturePacker, sample_bilinear
+
+    r = np.random.default_rng(4)
+    p = TexturePacker()
+    p.add(r.random((8, 8, 3)).astype(np.float32))
+    for k, fmt in enumerate(("bc1", "bc4", "bc5", "rgbe")):
+        img = r.random((19 - k, 13 + k, 3)).astype(np.float32)
+        p.add(img * (30.0 if fmt == "rgbe" else 1.0), compress=fmt)
+    pack = p.pack()
+    R = 100_000
+    ids = r.integers(-1, 5, R).astype(np.int32)
+    uv = r.uniform(-1.0, 2.0, (R, 2)).astype(np.float32)
+    lod = r.uniform(0.0, 4.0, R).astype(np.float32)
+    rand = r.random((R, 2)).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        tex = {k: t(v) for k, v in pack.items()}
+        kw = {"rand": t(rand)} if mode == "stochastic" else {}
+        outs.append(sample_bilinear(tex, t(ids), t(uv), t(lod), **kw).cpu())
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), rtol=0,
+                               atol=1e-6)
+    fmt = pack["tex_fmt"][pack["tex_mip0"][np.maximum(ids, 0)]]
+    rgbe = torch.from_numpy((fmt == 4) & (ids >= 0))
+    assert torch.equal(outs[0][rgbe], outs[1][rgbe])

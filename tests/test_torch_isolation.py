@@ -2,14 +2,17 @@
 
 (a) A fresh interpreter imports ray_tpu_torch, renders a tiny CPU tile,
     one of a scene with visibility masks in tlas mode (the binary
-    two-level walk) and one under an environment map, and a CPU
-    renderer's frame through the user's entry point (``create_renderer``
-    → ``render`` → ``pixels``); afterwards neither ``jax`` nor any
-    ``ray_tpu`` module is loaded.
+    two-level walk), one under an environment map, one under the baked
+    physical sky (``render/sky.py``), one of compressed textures and
+    normal maps, one of an HLBVH scene (``scene/hlbvh.py``) with the
+    SH-L1 output, and a CPU renderer's frame through the user's entry
+    point (``create_renderer`` → ``render`` → ``pixels``); afterwards
+    neither ``jax`` nor any ``ray_tpu`` module is loaded.
 (b) No file under ``ray_tpu_torch/`` imports ``jax`` or ``ray_tpu``.
 (c) On a machine without CUDA, ``finalize()`` with no device raises
     ``RuntimeError`` instead of falling back to the CPU; so do
-    ``create_renderer()`` and ``Renderer()`` with no device.
+    ``create_renderer()``, ``Renderer()`` and ``set_physical_sky()`` with
+    no device.
 """
 
 import ast
@@ -35,12 +38,17 @@ out = render_tile(sc.finalize(device="cpu"), cam, None, 0, 0, 1, 0,
                   settings=PassSettings(max_total_depth=2),
                   use_filter_table=False)
 assert out["color"].shape == (192, 3)
-from ray_tpu_torch.utils.test_scenes import cornell_vis, env_map
-for build, kw in ((cornell_vis, dict(instancing="tlas")), (env_map, {})):
+from ray_tpu_torch.utils.test_scenes import (
+    cornell_vis, env_map, physical_sky, sphere_hlbvh, tex_features)
+for build, kw, st in (
+        (cornell_vis, dict(instancing="tlas"), {}), (env_map, {}, {}),
+        (lambda: physical_sky(env_res=(16, 8), device="cpu"), {}, {}),
+        (tex_features, {}, {}),
+        (sphere_hlbvh, dict(fast_build=True), dict(output_sh=True))):
     sc2, cam2 = build()
     out = render_tile(sc2.finalize(device="cpu", **kw), cam2, None, 0, 0, 1,
                       0, width=8, height=6, tile_w=8, tile_h=6,
-                      settings=PassSettings(max_total_depth=2),
+                      settings=PassSettings(max_total_depth=2, **st),
                       use_filter_table=False)
     assert out["color"].shape == (48, 3)
 import ray_tpu_torch as ray_tpu
@@ -94,6 +102,15 @@ def test_finalize_without_cuda_raises():
     sc, _ = cornell_scene()
     with pytest.raises(RuntimeError, match="CUDA"):
         sc.finalize()
+
+
+def test_set_physical_sky_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the bake would use it")
+    from ray_tpu_torch.scene.scene import Scene
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scene().set_physical_sky(env_res=(8, 4))
 
 
 def test_create_renderer_without_cuda_raises():

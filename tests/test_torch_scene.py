@@ -149,16 +149,16 @@ def test_from_numpy_rejects_unknown_fields():
 
 def test_unported_finalize_paths_raise():
     sc, _ = t_cornell()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.add_texture(np.zeros((4, 4, 3), np.float32), compress=True)
-    # environment maps (item 31) raised here until they were ported; the
-    # HLBVH and SBVH builders (items 15, 18) still raise
-    with pytest.raises(NotImplementedError, match="item 15"):
-        sc.finalize(device="cpu", fast_build=True)
+    # compressed textures (item 16), environment maps (item 31) and the
+    # HLBVH builder (item 15) raised here until they were ported; the SBVH
+    # builder (item 18) still raises
+    assert sc.add_texture(np.zeros((4, 4, 3), np.float32), compress=True) == 0
+    assert sc.finalize(device="cpu", fast_build=True).num_tris == 24
     with pytest.raises(NotImplementedError, match="item 18"):
         sc.finalize(device="cpu", spatial_splits=True)
     sc.set_environment((1, 1, 1),
-                       map_id=sc.add_texture(np.ones((4, 8, 3), np.float32)))
+                       map_id=sc.add_texture(np.ones((4, 8, 3), np.float32),
+                                             compress="rgbe"))
     # the two-level finalize of ≤ 256 unique triangles carries no
     # wrows_tlas: its traces take the binary walk
     # (tests/test_torch_tlas_binary.py)
@@ -167,6 +167,7 @@ def test_unported_finalize_paths_raise():
     scene = sc.finalize(device="cpu", instancing="tlas")
     assert scene.mode == "tlas" and "wrows_tlas" not in scene.bvh_soa
     assert (scene.env_tab_h, scene.env_tab_w) == (4, 8)
+    assert {"blocks_t", "rgbe_t"} <= set(scene.textures)
 
 
 @pytest.mark.parametrize("n_inst", [2, 6, 64])

@@ -320,9 +320,8 @@ def _render_small(sc, cam):
 @pytest.mark.parametrize("kind", ["rect", "dir"])
 def test_unported_light_kinds_raise(kind):
     """The rect and directional lights raised here until ROADMAP Queue 1
-    item 30 was ported, and an environment map beside them until item 31
-    was; now both render, and a compressed map (item 16) still raises,
-    naming its item."""
+    item 30 was ported, an environment map beside them until item 31 was,
+    and an RGBE-compressed map until item 16 was; now all three render."""
     sc, cam = t_cornell(kind)
     out = _render_small(sc, cam)
     assert bool(torch.isfinite(out["color"]).all())
@@ -330,33 +329,37 @@ def test_unported_light_kinds_raise(kind):
     sc.set_environment((1.0, 1.0, 1.0), map_id=tex)
     out = _render_small(sc, cam)
     assert bool(torch.isfinite(out["color"]).all())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        sc.add_texture(np.ones((4, 8, 3), np.float32), compress="rgbe")
+    tex = sc.add_texture(np.ones((4, 8, 3), np.float32), compress="rgbe")
+    sc.set_environment((1.0, 1.0, 1.0), map_id=tex)
+    out = _render_small(sc, cam)
+    assert bool(torch.isfinite(out["color"]).all())
 
 
 @pytest.mark.parametrize("node", [ShadingNode.REFRACTIVE,
                                   ShadingNode.TRANSPARENT, ShadingNode.MIX])
 def test_unported_node_types_raise(node):
     """These node types raised here until ROADMAP Queue 1 item 29 was
-    ported; now they render, and a normal map on them (item 32) still
-    raises, naming its item."""
+    ported, and a normal map on them until item 32 was; now both render."""
     sc, cam = t_cornell(box_material=MaterialDesc(type=node))
     out = _render_small(sc, cam)
     assert bool(torch.isfinite(out["color"]).all())
     sc, cam = t_cornell(box_material=MaterialDesc(type=node, normal_map=0))
     assert sc.add_texture(np.full((4, 4, 3), 0.5, np.float32)) == 0
-    with pytest.raises(NotImplementedError, match="item 32"):
-        _render_small(sc, cam)
+    out = _render_small(sc, cam)
+    assert bool(torch.isfinite(out["color"]).all())
 
 
 def test_unported_render_options_raise():
     sc, cam = t_cornell()
     scene = sc.finalize(device="cpu")
-    for opt in (dict(output_sh=True),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
-                        tile_w=8, tile_h=8, settings=PassSettings(**opt),
-                        use_filter_table=False)
+    # the SH-L1 output raised here until ROADMAP Queue 1 item 33 was ported
+    # (tests/test_torch_sh_output.py)
+    out = render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
+                      tile_w=8, tile_h=8,
+                      settings=PassSettings(output_sh=True),
+                      use_filter_table=False)
+    assert tuple(out["shl1"].shape) == (64, 4, 3)
+    assert bool(torch.isfinite(out["shl1"]).all())
     # a line light raised here until ROADMAP Queue 1 item 30 was ported,
     # and per-ray-type visibility masks until item 20 was; the radiance
     # cache (item 24) still raises

@@ -43,8 +43,6 @@ from ray_tpu.scene.scene import Scene as JScene
 from ray_tpu.utils.test_scenes import cornell_scene as j_cornell
 from ray_tpu_torch.ops import traverse as ttrav
 from ray_tpu_torch.render.integrator import PassSettings, render_tile
-from ray_tpu_torch.scene.camera import make_camera as t_camera
-from ray_tpu_torch.scene.scene import Scene as TScene
 from ray_tpu_torch.scene.visibility import (
     RAY_CAMERA,
     RAY_SHADOW,
@@ -62,8 +60,7 @@ J_API = types.SimpleNamespace(
     cornell_scene=j_cornell, MaterialDesc=JMaterialDesc,
     ShadingNode=JShadingNode, LightDesc=JLightDesc, LightType=JLightType,
     Scene=JScene, make_camera=j_camera)
-T_API = types.SimpleNamespace(
-    **vars(ts.port_api()), Scene=TScene, make_camera=t_camera)
+T_API = ts.port_api()  # its Scene and make_camera too
 
 
 def _xform(t, scale=(1.0, 1.0, 1.0)):
