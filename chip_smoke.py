@@ -55,13 +55,22 @@ the sun as a directional light: ``trace_brute``), ``tex_features``
 roughness and BC5 normal map on an anisotropic, turned PRINCIPLED ball,
 a raw ground texture: the wide route of ``trace_tlas``), ``sphere_hlbvh``
 (``cornell_sphere`` finalized ``fast_build=True``: the HLBVH tree on
-``trace_bvh``) and the flagship with ``output_sh`` (``trace_brute``).
+``trace_bvh``) and the flagship with ``output_sh`` (``trace_brute``);
+
+and the cache and denoising slice's (``SBVH``): ``cornell_sphere`` and
+the instanced colonnade finalized with ``spatial_splits=True`` (the SBVH
+under ``trace_bvh`` and ``trace_tlas``; the colonnade's ~41 s numpy
+finalize runs in a worker process, ``chip_smoke.py --sbvh-scene PATH``,
+beside the card's phases), the flagship through ``create_renderer`` with
+``use_spatial_cache=True`` (the spatial radiance cache and
+``radcache_accumulate``), ``samples/04_denoising.py``'s ``main()`` and the
+NLM and UNet denoisers at 1080p.
 
 Phases:
 
 1. the card's name and power limit (``nvidia-smi``); exits non-zero when
    CUDA is absent;
-2. builds the six CUDA sources of ``ray_tpu_torch/csrc`` (one ``nvcc``
+2. builds the seven CUDA sources of ``ray_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version: the
    gather probe's ``gather_table`` on the probe's own inputs, on a table
@@ -91,14 +100,19 @@ Phases:
    stress rays and with a stack of 3; the masked ``trace_bvh`` and wide
    route with random masks; ``trace_tlas`` at ``max_leaf`` 6 and 7, whose
    rows it pads) and on every launch of one frame of each ``SLICE``
-   scene, and of one frame of each ``SKY`` scene;
+   scene, and of one frame of each ``SKY`` scene; every launch of a
+   1080p frame of each ``SBVH`` scene (the colonnade's 2x2 grid), with
+   its finalize seconds against the SAH one's; ``radcache_accumulate``
+   on ``COLLIDE`` (64 entries, 20,000 lanes);
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
    terrain and floor; the alpha box's lies on the box, which stands in the
    floor's plane, and the same box lifted 2 mm is held beside it; the
    slice's at ``SLICE_TILES``, the sky slice's at ``SKY_TILES``), and the
    sky bake at 64x32 on the card against the CPU (``SKY_BAKE_SHARE`` of
-   texels within ``SKY_BAKE_REL``, the worst printed);
+   texels within ``SKY_BAKE_REL``, the worst printed); the ``SBVH``
+   scenes' tiles (the colonnade's CPU copy loaded from the worker's
+   file);
 5. the forward main paths: ``FRAMES`` frames of each scene after a warm-up
    frame, the launch counts set to 0 just before each and read just after
    (6 closest-hit + 6 any-hit launches a tile of its kernel, none of the
@@ -116,7 +130,7 @@ Phases:
    of each ``SKY`` scene, the SH frame's L0 band against 0.282095 x its
    color; ``samples/05_physical_sky``'s ``main()`` on the port's API
    (``create_renderer`` → 16 samples → ``pixels(AGX)`` at 256x256, its TGA
-   in ``OUT_DIR``);
+   in ``OUT_DIR``); ``SBVH_FRAMES`` frames of each ``SBVH`` scene;
    then the goldens: each golden scene through ``create_renderer`` at the
    golden's 64x64, pass settings and 400 samples, through ``pixels`` to
    uint8, against the committed ``.npz``: ≥ 28 dB PSNR, ≤ 40 fireflies
@@ -151,7 +165,16 @@ Phases:
    1920x1080 → ``pixels`` with AgX (LUT) and filmic, then 8 adaptive
    samples (ms a sample, Mray/s, 6 + 6 ``trace_brute`` launches a sample);
    a 64x48 adaptive renderer on the card against the CPU; the README
-   quickstart at 512x512, 16 samples; then the sky bake at ``SKY_BAKE``:
+   quickstart at 512x512, 16 samples; then the cache and denoising:
+   ``CACHE_SAMPLES`` cached samples of the flagship at 1920x1080 (update
+   pass, resolve, query sample ms; warm entries; the longest accumulate
+   segment; every ``radcache_accumulate`` launch bit-exact against the
+   plain version on its inputs copied to the CPU; the mean within
+   ``CACHE_MEAN_REL`` of an uncached renderer's; two runs of
+   ``CACHE_DET_SAMPLES`` samples bit-identical), a 64x48 cached renderer
+   card vs CPU, ``samples/04_denoising``'s ``main()`` (its TGAs in
+   ``OUT_DIR``) with NLM and UNet card vs CPU on its buffers, NLM and UNet
+   at 1080p (ms, peak memory); then the sky bake at ``SKY_BAKE``:
    forward ms, its CUDA kernel count, fwd+bwd ms w.r.t.
    ``atmosphere_density`` and ``clouds_density`` and the backward's peak
    memory, beside the sky scene's finalize;
@@ -170,9 +193,10 @@ Phases:
    bound); the slice's kernels on the launches of a ``cornell_tlas``
    (``trace_tlas_bin``), a ``cornell_vis`` flatten (``trace_bvh_vis``) and
    a ``sphere_vis`` flatten frame (``trace_tlas_vis``), each masked
-   kernel beside its unmasked one on the same rays; and prints one
-   ``kernels`` JSON line (16 entries), the card line, and last the
-   ``{"ok": true, ...}`` line.
+   kernel beside its unmasked one on the same rays; ``radcache_accumulate``
+   on the last update pass's lanes beside its plain version and
+   ``index_add_``; and prints one ``kernels`` JSON line (17 entries), the
+   card line, and last the ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
 """
@@ -189,12 +213,13 @@ import time
 import warnings
 
 WIDTH, HEIGHT = 1920, 1080
-FRAMES = 10
-# the colonnades' 2x2 forward lines (cut from FRAMES to keep the script
-# inside its time limit as it grows; the spread of a line is printed)
-COLONNADE_FRAMES = 3
+# frame counts, cut as the script grows to keep it inside its time limit
+# (the spread of each line is printed): FRAMES 10 -> 6, the colonnades'
+# 2x2 forward lines 10 -> 3 -> 2, their fwd+bwd 3 -> 2 -> 1
+FRAMES = 6
+COLONNADE_FRAMES = 2
 BWD_FRAMES = 5
-COLONNADE_BWD_FRAMES = 2  # bench.py runs 3; cut for the time limit
+COLONNADE_BWD_FRAMES = 1  # bench.py runs 3
 FRAMES_1X1 = 3
 GRID = (2, 2)  # bench.py renders the big scene as 2x2 tiles
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -220,7 +245,7 @@ KERNELS = {
 }
 # the CUDA sources to build, one nvcc each
 SOURCES = ("trace_brute", "trace_bvh", "trace_tlas", "trace_tlas_bin",
-           "trace_binned", "gather_table")
+           "trace_binned", "gather_table", "radcache_accumulate")
 # the wrapper each kernel family launches through (the masked ones: their
 # unmasked wrapper with the masks as keywords)
 WRAPPER = {"trace_bvh_vis": "trace_bvh", "trace_tlas_vis": "trace_tlas"}
@@ -341,6 +366,7 @@ def colonnade_binned():
 FINALIZE = {
     "colonnade flatten": dict(instancing="flatten"),
     "colonnade binned": dict(instancing="flatten", pallas_binned=True),
+    "cornell_sphere sbvh": dict(spatial_splits=True),
 }
 
 
@@ -1355,21 +1381,30 @@ def check_remat_against_stored(scene, cam, settings):
 # conditioned barycentrics: measured on an H100 4 of 3,072 pixels past
 # 1e-6, the largest 2.5e-6.
 WORLD_NORMAL_ATOL = {"colonnade flatten": 1e-4, "colonnade binned": 1e-4,
-                     "tex_features": 1e-5}
+                     "colonnade sbvh": 1e-4, "tex_features": 1e-5}
 
 
 def check_tile_against_cpu(make_scene, label, x0, y0, settings):
     """A 64x48 tile on the card against the same tile on the port's plain
-    CPU path.  The card's transcendentals differ from the CPU's by ulps,
-    which rarely flips a Russian-roulette decision — hence the per-pixel
-    fraction bounds (and ``WORLD_NORMAL_ATOL``)."""
+    CPU path (the scene built by ``make_scene`` and finalized on each)."""
+    scenes = []
+    for dev in ("cuda", "cpu"):
+        sc, cam = make_scene()
+        scenes.append(sc.finalize(device=dev, **FINALIZE.get(label, {})))
+    compare_tiles(label, *scenes, cam, x0, y0, settings)
+
+
+def compare_tiles(label, scene, cpu_scene, cam, x0, y0, settings):
+    """A 64x48 tile of ``scene`` (on the card) against the same tile of
+    ``cpu_scene`` (the port's plain CPU path).  The card's transcendentals
+    differ from the CPU's by ulps, which rarely flips a Russian-roulette
+    decision — hence the per-pixel fraction bounds (and
+    ``WORLD_NORMAL_ATOL``)."""
     import numpy as np
 
     outs = []
-    for dev in ("cuda", "cpu"):
-        sc, cam = make_scene()
-        scene = sc.finalize(device=dev, **FINALIZE.get(label, {}))
-        o = render(scene, cam, settings, 1, x0, y0, 64, 48)
+    for s in (scene, cpu_scene):
+        o = render(s, cam, settings, 1, x0, y0, 64, 48)
         outs.append({k: v.cpu().numpy() for k, v in o.items()})
     g, c = outs
     close = np.isclose(g["color"], c["color"], rtol=1e-3, atol=1e-4).all(-1)
@@ -1463,7 +1498,7 @@ SHADING = {
     "tri_glass": "trace_brute",
     "alpha_box": "trace_brute",
 }
-SHADING_FRAMES = 3
+SHADING_FRAMES = 2
 # the fwd+bwd frames and their grids: the alpha box's principled lobes
 # store more than the card holds for one 1080p tile (stored residuals ran
 # out of its 80 GB), so it is 2x2 tiles, each its own backward, as
@@ -1808,7 +1843,7 @@ SLICE_TILES = {"cornell_tlas": (928, 516), "cornell_vis flatten": (1020, 540),
 # ball's residuals, as the alpha box's), so it runs as 2x2 tiles, each its
 # own backward
 SLICE_BWD = {"cornell_tlas": (1, 1), "env_map": GRID}
-SLICE_BWD_FRAMES = 3
+SLICE_BWD_FRAMES = 2
 # the tlas frame against the flatten flagship frame: means within this
 # relative gap (tests/test_instancing.py holds ray_tpu's within 2e-3 of
 # each pixel at 8 spp)
@@ -1994,7 +2029,7 @@ SKY = {
                            dict(output_sh=True)),
 }
 FINALIZE.update({label: kw for label, (_, kw, _, _) in SKY.items()})
-SKY_FRAMES = 3
+SKY_FRAMES = 2
 # 64x48 card-vs-CPU tiles: across the sky scene's horizon, on the textured
 # ball, on the HLBVH sphere, on the flagship's light
 SKY_TILES = {"physical_sky": (928, 748), "tex_features": (928, 600),
@@ -2002,7 +2037,7 @@ SKY_TILES = {"physical_sky": (928, 748), "tex_features": (928, 600),
 # fwd+bwd with stored residuals: tex_features as 2x2 tiles (its parent
 # env_map peaked at 71.2 GiB as one 1080p tile), each its own backward
 SKY_BWD = {"tex_features": GRID}
-SKY_BWD_FRAMES = 3
+SKY_BWD_FRAMES = 2
 # the sky bake at samples/05_physical_sky.py's settings (set_physical_sky's
 # 256x128 map, the full sky, 10 cloud steps), and the size of the
 # card-vs-CPU bake
@@ -2493,6 +2528,446 @@ def quickstart():
           f"{float(pixels.mean()):.6f}")
 
 
+# ---------------------------------------------------------------------------
+# The cache and denoising slice: the SBVH builder, the spatial radiance
+# cache with radcache_accumulate, the NLM and UNet denoisers
+# ---------------------------------------------------------------------------
+
+ACCUMULATE = dict(source="ray_tpu_torch/csrc/radcache_accumulate.cu",
+                  replaces="ray_tpu/render/radcache.py:232")
+# the SBVH scenes: builder, kernel, grid, pass settings' name, tile origin
+SBVH = {
+    "cornell_sphere sbvh": ("cornell_sphere", "trace_bvh", (1, 1), (900, 840)),
+    "colonnade sbvh": ("colonnade", "trace_tlas", GRID, (912, 500)),
+}
+SBVH_FRAMES = 2
+SBVH_WORKER_TIMEOUT = 600   # seconds the colonnade's SBVH finalize may take
+# where the worker leaves the finalized scene (the build directory, which
+# git ignores; removed once loaded)
+SBVH_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the cached renderer: samples, the uncached mean's bound
+# (tests/test_radcache.py:121), the determinism runs' samples
+CACHE_SAMPLES = 8
+CACHE_MEAN_REL = 0.08
+CACHE_DET_SAMPLES = 3
+# the forced-collision case: entries, lanes
+COLLIDE = (1 << 6, 20_000)
+# radcache_accumulate's bound: a valid lane reads its entry (4 B), its
+# radiance (12 B), its count (4 B) and its sort index (4 B); a touched
+# entry reads and writes its radiance and count (32 B)
+ACC_BYTES_PER_LANE = 24
+ACC_BYTES_PER_ENTRY = 32
+SAMPLE04 = dict(size=256, samples=8, max_total_depth=4)
+DENOISE_REPS = 3
+# the UNet on the card against the CPU, TF32 off: the largest |diff| over
+# the output's largest value
+UNET_REL = 1e-4
+
+
+def sbvh_worker(path) -> int:
+    """``chip_smoke.py --sbvh-scene PATH``: the colonnade finalized with
+    ``spatial_splits=True`` on the CPU (numpy SBVHs of its meshes: most of
+    a minute of host time, run beside the card's phases), written with
+    ``save_scene``; the SBVH and SAH finalize seconds as the last line."""
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+
+    torch.set_num_threads(1)
+    sc, _ = colonnade()
+    t0 = time.perf_counter()
+    sc.finalize(device="cpu")
+    sah_s = time.perf_counter() - t0
+    sc, _ = colonnade()
+    t0 = time.perf_counter()
+    scene = sc.finalize(device="cpu", spatial_splits=True)
+    sbvh_s = time.perf_counter() - t0
+    ray_tpu.save_scene(path, scene)
+    print(json.dumps({"sbvh_s": sbvh_s, "sah_s": sah_s}))
+    return 0
+
+
+def start_sbvh_worker():
+    """Start the SBVH worker; it is killed at exit if still running."""
+    import atexit
+
+    path = SBVH_DIR / "colonnade_sbvh.npz"
+    SBVH_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--sbvh-scene", str(path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, path
+
+
+def sbvh_scenes(worker, settings, settings_big, errs):
+    """The SBVH scenes: ``cornell_sphere`` finalized here, the colonnade by
+    the worker; each one's finalize seconds against the SAH one's, its
+    route and rows, and every launch of one 1080p frame (the colonnade's
+    2x2 grid) bit-exact against the plain version.  Returns {label:
+    (scene, cam, kernel, grid, settings, cpu scene or None)}."""
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+
+    out = {}
+    for label, (name, kernel, grid, _) in SBVH.items():
+        cpu_scene = None
+        if name == "cornell_sphere":
+            st = settings
+            sc, cam = cornell_sphere()
+            t0 = time.perf_counter()
+            sc.finalize()
+            sah_s = time.perf_counter() - t0
+            sc, cam = cornell_sphere()
+            t0 = time.perf_counter()
+            scene = sc.finalize(spatial_splits=True)
+            sbvh_s = time.perf_counter() - t0
+        else:
+            st = settings_big
+            proc, path = worker
+            try:
+                stdout, stderr = proc.communicate(timeout=SBVH_WORKER_TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if proc.returncode != 0:
+                fail(f"the SBVH worker exited {proc.returncode}: "
+                     f"{stderr.strip()[-2000:]}")
+            times = json.loads(stdout.strip().splitlines()[-1])
+            sah_s, sbvh_s = times["sah_s"], times["sbvh_s"]
+            _, cam = colonnade()
+            scene = ray_tpu.load_scene(str(path))
+            cpu_scene = ray_tpu.load_scene(str(path), device="cpu")
+            path.unlink()
+        soa = scene.bvh_soa
+        rows = soa.get("wrows_tlas", soa.get("wrows"))
+        print(f"scene {label}: mode {scene.mode}, {scene.num_tris} leaf "
+              f"triangle references, {soa['code0'].shape[0]} BVH2 node rows"
+              f"{'' if rows is None else f', wide rows {tuple(rows.shape)}'}"
+              f", route {kernel}; finalize {sbvh_s:.3f} s with spatial "
+              f"splits against {sah_s:.3f} s SAH (host) [{CARD}]")
+        n_calls = 0
+        for x0, y0, tw, th in grid_tiles(grid):
+            _, calls = capture_frame(scene, cam, st, 1, x0, y0, tw, th)
+            torch.cuda.synchronize()
+            if len(calls) != 12 or any(c[0] != kernel for c in calls):
+                fail(f"a {label} tile made {[c[0] for c in calls]}, expected "
+                     f"12 {kernel} calls")
+            for i, (k, args, any_hit) in enumerate(calls):
+                check_parity(k, args, (any_hit,),
+                             f"{label} tile ({x0}, {y0}) launch {i}", errs)
+            n_calls += len(calls)
+            del calls
+        print(f"  {label}: all {n_calls} launches of a 1080p frame bit-exact")
+        out[label] = (scene, cam, kernel, grid, st, cpu_scene)
+    return out
+
+
+def check_collisions(errs):
+    """radcache_accumulate on the forced-collision case: ``COLLIDE``
+    entries, lanes; bit-exact against the plain version on the CPU."""
+    import torch
+
+    from ray_tpu_torch.render import radcache
+
+    n_entries, R = COLLIDE
+    g = torch.Generator().manual_seed(11)
+    entry = torch.randint(0, n_entries, (R,), generator=g)
+    valid = torch.rand(R, generator=g) < 0.8
+    rad = torch.randn((R, 3), generator=g) * 1e3
+    cnt = torch.randint(0, 4, (R,), generator=g, dtype=torch.int32)
+    table = torch.randn((n_entries + 1, 3), generator=g)
+    counts = torch.randint(0, 9, (n_entries + 1,), generator=g,
+                           dtype=torch.int32)
+    args = (table, counts, entry, rad, cnt, valid)
+    out = radcache.accumulate_segments(*(a.cuda() for a in args))
+    ref = radcache.accumulate_plain(*args)
+    check_accumulate(out, ref, "the forced-collision case", errs)
+    print(f"  parity forced collisions ({n_entries} entries, {R} lanes, "
+          f"{int(valid.sum())} valid, longest segment "
+          f"{int(torch.bincount(entry[valid]).max())}): bit-exact")
+
+
+def check_accumulate(out, ref, label, errs):
+    for o, r, name in zip(out, ref, ("rad_curr", "cnt_curr")):
+        o = o.cpu()
+        errs["radcache_accumulate"] = max(errs.get("radcache_accumulate", 0.0),
+                                          max_abs_err(o, r))
+        if not same_bits(o, r):
+            fail(f"radcache_accumulate {name} differs from the plain version "
+                 f"on {label}: max |diff| {max_abs_err(o, r)}")
+
+
+def cache_states_equal(a, b) -> bool:
+    return all(same_bits(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def cached_renderer(settings, errs):
+    """``create_renderer`` on the flagship at 1920x1080 with
+    ``use_spatial_cache`` (default ``cache_entries`` and
+    ``cache_downsample``): ``CACHE_SAMPLES`` samples of update (a 480x270
+    pass) → resolve → query render, the launch counts set to 0 just before
+    and read just after (one ``radcache_accumulate`` an update pass, 12 +
+    12 ``trace_brute`` a sample); every accumulate launch held bit-exact
+    against the plain version on its inputs copied to the CPU; the image
+    mean against an uncached renderer's within ``CACHE_MEAN_REL``; two runs
+    of ``CACHE_DET_SAMPLES`` samples give bit-identical caches.  Returns
+    (the renderer, the launch counts, the last update pass's accumulate
+    inputs)."""
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render import radcache
+
+    sc, cam = flagship()
+    scene = sc.finalize()
+
+    def renderer(cache=True):
+        return ray_tpu.create_renderer(
+            ray_tpu.RenderSettings(width=WIDTH, height=HEIGHT,
+                                   use_spatial_cache=cache,
+                                   collect_stats=cache), settings)
+
+    renderer().render(scene, cam, 1)    # warm-up
+    real = radcache.accumulate_segments
+    captured = []
+
+    def recording(*args):
+        out = real(*args)
+        captured.append((tuple(a.clone() for a in args),
+                         tuple(o.clone() for o in out)))
+        return out
+
+    r = renderer()
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    radcache.accumulate_segments = recording
+    try:
+        t0 = time.perf_counter()
+        img = r.render(scene, cam, CACHE_SAMPLES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        radcache.accumulate_segments = real
+    counts = dict(cuda_build.launch_counts)
+    n_acc = counts.pop("radcache_accumulate", 0)
+    if n_acc != CACHE_SAMPLES or len(captured) != CACHE_SAMPLES:
+        fail(f"the cached renderer launched radcache_accumulate {n_acc} "
+             f"times in {CACHE_SAMPLES} samples")
+    check_counts("cached renderer", counts, "trace_brute", CACHE_SAMPLES, 12)
+    longest, n_valid = 0, []
+    for i, (args, out) in enumerate(captured):
+        ref = radcache.accumulate_plain(*(a.cpu() for a in args))
+        check_accumulate(out, ref, f"update pass {i + 1}", errs)
+        e = args[2][args[5]]
+        n_valid.append(int(e.numel()))
+        longest = max(longest, int(torch.bincount(e).max()))
+    stats = r.get_stats()
+    warm = int((r.cache.cnt_prev >= radcache.RAD_CACHE_SAMPLE_COUNT_MIN).sum())
+    used = int(((r.cache.key_lo != 0) | (r.cache.key_hi != 0)).sum())
+    plain = renderer(cache=False)
+    ref_img = plain.render(scene, cam, CACHE_SAMPLES)
+    rel = abs(float(img.mean()) - float(ref_img.mean())) / float(
+        ref_img.mean())
+    print(f"cached renderer flagship 1920x1080 depth5, {CACHE_SAMPLES} "
+          f"samples (update {WIDTH // 4}x{HEIGHT // 4} -> resolve -> query): "
+          f"{wall / CACHE_SAMPLES * 1e3:.1f} ms a sample; update pass "
+          f"{stats['time_cache_update_us'] / CACHE_SAMPLES / 1e3:.1f} ms, "
+          f"resolve {stats['time_cache_resolve_us'] / CACHE_SAMPLES / 1e3:.2f}"
+          f" ms, query sample {stats['time_render_us'] / CACHE_SAMPLES / 1e3:.1f}"
+          f" ms; {used} entries used of {r.settings.cache_entries}, {warm} "
+          f"warm (>= {radcache.RAD_CACHE_SAMPLE_COUNT_MIN} samples); valid "
+          f"lanes an update pass {min(n_valid)}..{max(n_valid)}, longest "
+          f"accumulate segment {longest} lanes; every accumulate launch "
+          f"bit-exact; mean {float(img.mean()):.6f} against uncached "
+          f"{float(ref_img.mean()):.6f} (rel {rel:.4f}, bound "
+          f"{CACHE_MEAN_REL}) [{CARD}]")
+    print(f"  launch counts over {CACHE_SAMPLES} samples: "
+          f"{dict(counts, radcache_accumulate=n_acc)}")
+    if not (warm > 0 and rel < CACHE_MEAN_REL
+            and bool(torch.isfinite(img).all())):
+        fail("the cached renderer's image strays from the uncached one, or "
+             "no entry warmed")
+    runs = []
+    for _ in range(2):
+        d = renderer()
+        d.render(scene, cam, CACHE_DET_SAMPLES)
+        runs.append(d.cache)
+    if not cache_states_equal(*runs):
+        fail("two runs of the cached renderer gave different caches")
+    print(f"  two runs of {CACHE_DET_SAMPLES} cached samples: bit-identical "
+          f"cache states")
+    return r, dict(counts, radcache_accumulate=n_acc), captured[-1][0]
+
+
+def check_cached_renderer_against_cpu(settings):
+    """A 64x48 cached renderer (update at 32x24 -> resolve -> query, 3
+    samples) on the card against the CPU: radiance within rtol 1e-3 /
+    atol 1e-4 on >= 99% of pixels, the mean within 1e-3."""
+    import numpy as np
+
+    import ray_tpu_torch as ray_tpu
+
+    outs = []
+    for backend in ("gpu", "cpu"):
+        sc, cam = flagship()
+        r = ray_tpu.create_renderer(
+            ray_tpu.RenderSettings(width=64, height=48, use_spatial_cache=True,
+                                   cache_entries=1 << 16, cache_downsample=2),
+            settings, enabled_types=(backend,))
+        img = r.render(sc.finalize(device=r.device), cam, 3)
+        outs.append(img.cpu().numpy())
+    g, c = outs
+    close = np.isclose(g, c, rtol=1e-3, atol=1e-4).all(-1).mean()
+    rel = abs(g.mean() - c.mean()) / c.mean()
+    print(f"cached renderer 64x48 (3 samples) card vs cpu: radiance close "
+          f"{close:.4f}, mean rel diff {rel:.2e}")
+    if not (close >= 0.99 and rel < 1e-3 and np.isfinite(g).all()):
+        fail("the card's 64x48 cached renderer disagrees with the CPU path")
+
+
+def sample04():
+    """``samples/04_denoising.py``'s ``main()`` on the port's API: the
+    flagship through ``create_renderer`` at 256x256, 8 samples, depth 4 →
+    ``denoise_image("nlm")`` → view transform 0 → TGA into ``OUT_DIR``;
+    then NLM and UNet of those buffers on the card against the CPU.
+    5 + 5 ``trace_brute`` launches a sample."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.tonemap import apply_view_transform
+    from ray_tpu_torch.utils.image_io import write_tga
+
+    size, samples = SAMPLE04["size"], SAMPLE04["samples"]
+    sc, cam = flagship()
+    scene = sc.finalize()
+    r = ray_tpu.create_renderer(
+        ray_tpu.RenderSettings(width=size, height=size),
+        ray_tpu.PassSettings(max_total_depth=SAMPLE04["max_total_depth"]))
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    r.render(scene, cam, samples=samples)
+    noisy = r.pixels(cam)
+    t1 = time.perf_counter()
+    den = apply_view_transform(r.denoise_image("nlm"), 0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(cuda_build.launch_counts)
+    check_counts("samples/04_denoising", counts, "trace_brute", samples,
+                 SAMPLE04["max_total_depth"] + 1)
+    if not (tuple(den.shape) == (size, size, 3) and den.device.type == "cuda"
+            and bool(torch.isfinite(den).all()) and float(den.mean()) > 0):
+        fail("samples/04_denoising's image is not finite, black or not on "
+             "the card")
+    OUT_DIR.mkdir(exist_ok=True)
+    write_tga(str(OUT_DIR / "04_denoising_noisy.tga"), noisy)
+    write_tga(str(OUT_DIR / "04_denoising.tga"), den)
+    print(f"samples/04_denoising {size}x{size}, {samples} samples: render + "
+          f"pixels {(t1 - t0) * 1e3:.1f} ms ({(t1 - t0) / samples * 1e3:.2f} "
+          f"ms a sample), denoise_image('nlm') + view transform "
+          f"{(t2 - t1) * 1e3:.1f} ms; launch counts {counts}; wrote "
+          f"04_denoising.tga [{CARD}]")
+    # the same buffers on the CPU
+    cpu = ray_tpu.Renderer(r.settings, r.pass_settings, device="cpu")
+    for k in ray_tpu.Renderer._STATE_KEYS:
+        setattr(cpu, k, getattr(r, k).cpu())
+    rows = {}
+    for mode in ("nlm", "unet"):
+        g = r.denoise_image(mode).cpu().numpy()
+        c = cpu.denoise_image(mode).numpy()
+        rows[mode] = (np.isclose(g, c, rtol=1e-5, atol=1e-7).mean(),
+                      float(np.abs(g - c).max()), float(np.abs(c).max()))
+    nlm_share, nlm_max, _ = rows["nlm"]
+    _, unet_max, unet_scale = rows["unet"]
+    print(f"  denoise card vs cpu on those buffers: NLM {nlm_share:.6f} of "
+          f"values within 1e-5 relative (max |diff| {nlm_max:.3e}); UNet max "
+          f"|diff| {unet_max:.3e} of an output up to {unet_scale:.3f} "
+          f"({unet_max / unet_scale:.2e}, bound {UNET_REL:g}; TF32 off)")
+    if not (nlm_share >= 0.999 and unet_max <= UNET_REL * unet_scale):
+        fail("the card's denoisers disagree with the CPU's")
+    return counts
+
+
+def denoise_timings(r):
+    """NLM and UNet of a 1080p renderer's buffers: ms (mean of
+    ``DENOISE_REPS`` after a warm-up) and the peak memory above what was
+    allocated before."""
+    import torch
+
+    for mode in ("nlm", "unet"):
+        r.denoise_image(mode)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(DENOISE_REPS):
+            out = r.denoise_image(mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / DENOISE_REPS * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        if not (tuple(out.shape) == (HEIGHT, WIDTH, 3)
+                and bool(torch.isfinite(out).all())):
+            fail(f"denoise_image('{mode}') at 1080p is misshapen or not "
+                 f"finite")
+        print(f"denoise_image('{mode}') 1920x1080 on the cached flagship's "
+              f"buffers: {ms:.1f} ms (mean of {DENOISE_REPS}), peak "
+              f"{peak / 2**30:.3f} GiB above the resident "
+              f"{base / 2**30:.3f} GiB [{CARD}]")
+
+
+def accumulate_timing(args):
+    """radcache_accumulate at an update pass's inputs: the kernel (the
+    wrapper's own launch, ``launch_sorted``, on the lanes ``sort_lanes``
+    ordered), the plain version and ``index_add_`` (the library call: the
+    same sums in atomics' order), and the bound."""
+    import torch
+
+    from ray_tpu_torch.render import radcache
+
+    rad_curr, cnt_curr, entry, rad, cnt, valid = args
+    n_rows, R = rad_curr.shape[0], entry.shape[0]
+    keys, order = radcache.sort_lanes(entry, valid, n_rows)
+    rad_out, cnt_out = rad_curr.clone(), cnt_curr.clone()
+
+    def kernel():
+        radcache.launch_sorted(keys, order, rad, cnt, rad_out, cnt_out)
+
+    idx = entry[valid]
+    rv, cv = rad[valid], cnt[valid]
+
+    def library():
+        rad_out.index_add_(0, idx, rv)
+        cnt_out.index_add_(0, idx, cv)
+
+    n_valid = int(idx.numel())
+    touched = int(torch.unique(idx).numel())
+    bound = (ACC_BYTES_PER_LANE * n_valid + ACC_BYTES_PER_ENTRY * touched) / (
+        PEAK_BYTES_PER_S) * 1e3
+    row = dict(ms=time_launches(kernel, 50),
+               plain_ms=time_launches(
+                   lambda: radcache.accumulate_plain(*args), 20),
+               library_ms=time_launches(library, 50), bound_ms=bound)
+    print(f"radcache_accumulate on an update pass's {R} lanes ({n_valid} "
+          f"valid, {touched} entries touched): kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, index_add_ x2 "
+          f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms (bytes) "
+          f"[{CARD}]")
+    return row
+
+
 def phase(name: str, t_start: float) -> None:
     """Mark where a phase starts, in seconds since the script began."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {name}")
@@ -2523,6 +2998,9 @@ def main() -> int:
     for k in SOURCES:
         cuda_build.load(k)
     print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.3f} s")
+    # the colonnade's SBVH finalize (a minute of numpy) runs beside the
+    # card's phases, in a worker process
+    worker = start_sbvh_worker()
 
     device = torch.device("cuda")
     settings = PassSettings(max_total_depth=5, min_total_depth=2)
@@ -2672,6 +3150,10 @@ def main() -> int:
     slices = slice_scenes(settings, errs)
     # the sky and texture slice's scenes: likewise
     skies, sky_s = sky_scenes(settings, errs)
+    # the cache and denoising slice: the SBVH scenes' frames, every launch;
+    # radcache_accumulate on forced collisions
+    sbvhs = sbvh_scenes(worker, settings, settings_big, errs)
+    check_collisions(errs)
 
     phase("card vs CPU tiles", t_start)
     # ---- small tiles: card vs the port's plain CPU path ---------------
@@ -2701,6 +3183,12 @@ def main() -> int:
         check_tile_against_cpu(lambda lb=label: sky_scene(lb), label, x0,
                                y0, sky_settings(settings, label))
     check_sky_bake_against_cpu()
+    for label, (scene, cam, _, _, st, cpu_scene) in sbvhs.items():
+        x0, y0 = SBVH[label][3]
+        if cpu_scene is None:   # cornell_sphere: finalized on each device
+            check_tile_against_cpu(cornell_sphere, label, x0, y0, st)
+        else:                   # the colonnade: the worker's, loaded twice
+            compare_tiles(label, scene, cpu_scene, cam, x0, y0, st)
 
     phase("forward paths", t_start)
     # ---- the forward main paths ---------------------------------------
@@ -2752,6 +3240,12 @@ def main() -> int:
     counts = sample05()
     for mode in ("closest", "anyhit"):
         launches[f"trace_brute_{mode}"] += counts[f"trace_brute_{mode}"]
+    for label, (scene, cam, kernel, grid, st, _) in sbvhs.items():
+        counts, frame_ms[label] = forward_path(label, scene, cam, st, kernel,
+                                               grid, SBVH_FRAMES)
+        for mode in ("closest", "anyhit"):
+            key = f"{kernel}_{mode}"
+            launches[key] = launches.get(key, 0) + counts[key]
 
     phase("goldens", t_start)
     golden_gate()
@@ -2801,6 +3295,18 @@ def main() -> int:
     renderer_path(settings)
     check_renderer_against_cpu(settings)
     quickstart()
+
+    phase("cache and denoising", t_start)
+    cached, counts, acc_args = cached_renderer(settings, errs)
+    acc_launches = counts["radcache_accumulate"]
+    for mode in ("closest", "anyhit"):
+        launches[f"trace_brute_{mode}"] += counts[f"trace_brute_{mode}"]
+    check_cached_renderer_against_cpu(settings)
+    counts = sample04()
+    for mode in ("closest", "anyhit"):
+        launches[f"trace_brute_{mode}"] += counts[f"trace_brute_{mode}"]
+    denoise_timings(cached)
+    del cached
 
     phase("sky bake", t_start)
     sky_bake_timings(sky_s)
@@ -2916,6 +3422,14 @@ def main() -> int:
         "bound_ms": statistics.fmean(r["bytes_ms"] for r in key_rows),
         "bound_by": "bytes", "library_ms": None,
     })
+    acc = accumulate_timing(acc_args)
+    kernels.append({
+        "name": "radcache_accumulate", "route": "cuda", **ACCUMULATE,
+        "launches": acc_launches, "max_abs_err": errs["radcache_accumulate"],
+        "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+        "bound_ms": acc["bound_ms"], "bound_by": "bytes",
+        "library_ms": acc["library_ms"],
+    })
     g = gather_rows["frame 2,073,600 lanes"]
     kernels.append({
         "name": "gather_table", "route": "cuda", **GATHER,
@@ -2938,4 +3452,6 @@ CARD = ""
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--golden":
         sys.exit(golden_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sbvh-scene":
+        sys.exit(sbvh_worker(sys.argv[2]))
     sys.exit(main())

@@ -15,6 +15,20 @@ from ray_tpu_torch.ops.linalg import cross, dot
 HIT_EPS = 0.0
 
 
+def intersect_aabb(ro, inv_d, box_lo, box_hi, t_min, t_max):
+    """Slab test.  Returns (hit, t_near); ``inv_d`` from
+    :func:`~ray_tpu_torch.ops.linalg.safe_invert`.  The 1.00000024 factor
+    is the conservative-traversal slack (Ize, "Robust BVH Ray
+    Traversal")."""
+    lo_t = (box_lo - ro) * inv_d
+    hi_t = (box_hi - ro) * inv_d
+    near = torch.minimum(lo_t, hi_t)
+    far = torch.maximum(lo_t, hi_t)
+    tn = torch.maximum(near.amax(dim=-1), t_min)
+    tf = torch.minimum(far.amin(dim=-1), t_max)
+    return tn <= tf * 1.00000024, tn
+
+
 def intersect_tri(ro, rd, p0, p1, p2, t_min, t_max):
     """Möller–Trumbore ray/triangle test.
 

@@ -44,10 +44,32 @@ def safe_normalize(v):
     return torch.where(ok, v / torch.where(ok, l, torch.ones_like(l)), v)
 
 
+def safe_sqrt(x):
+    return torch.sqrt(torch.clamp_min(x, 1e-30))
+
+
+def safe_div(a, b):
+    """a / b, and 3.4e38 where b is 0."""
+    nz = b != 0.0
+    return torch.where(nz, a / torch.where(nz, b, 1.0),
+                       torch.tensor(3.4e38, dtype=torch.float32))
+
+
 def safe_div_pos(a, b):
     if not isinstance(b, torch.Tensor):
         return a / max(b, FLT_EPS)
     return a / torch.clamp_min(b, FLT_EPS)
+
+
+def safe_div_neg(a, b):
+    return a / torch.clamp_max(b, -FLT_EPS)
+
+
+def safe_invert(v):
+    """Per-component 1/v with ±FLT_EPS clamping away from zero, for slab
+    tests."""
+    tiny = torch.where(v >= 0.0, FLT_EPS, -FLT_EPS)
+    return 1.0 / torch.where(torch.abs(v) > FLT_EPS, v, tiny)
 
 
 def sqr(x):
@@ -139,6 +161,13 @@ def offset_ray(p, n):
     p_i_bits = pd.view(torch.int32) + torch.where(pd < 0.0, -of_i, of_i)
     p_i = p_i_bits.view(torch.float32)
     return torch.where(torch.abs(p) < origin, p + float_scale * n, p_i)
+
+
+def srgb_to_linear(c):
+    return torch.where(
+        c > 0.04045,
+        torch.pow((torch.clamp_min(c, 0.04045) + 0.055) / 1.055, 2.4),
+        c / 12.92)
 
 
 def linear_to_srgb(c):

@@ -9,13 +9,15 @@ same code runs on the CPU and on CUDA.
 
 A sample is a pure function of (pixel, iteration, dimension, seed) —
 ``scrambled_2d_rand`` never draws from a generator.  The reference's PMJ02
-table mode (``table=True`` in ``ray_tpu``) is not ported yet: the
-integrator never asks for it.
+table mode (``table=True`` in ``ray_tpu``) is not ported yet (ROADMAP
+Queue 1 item 2): the integrator never asks for it, and asking raises.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ray_tpu_torch._roadmap import not_ported
 
 # Random-sequence dimension map (reference: internal/Constants.inl:31-43).
 RAND_DIM_FILTER = 0
@@ -123,10 +125,15 @@ def _u32_to_unit_float(x):
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def scrambled_2d_rand(dim, seed, sample):
+def scrambled_2d_rand(dim, seed, sample, /, table=False):
     """2-D low-discrepancy sample for (dimension, per-pixel seed, sample
     index): computed Owen-Sobol with the reference's addressing.  Returns
-    two float32 tensors in [0, 1); ``dim``/``seed``/``sample`` broadcast."""
+    two float32 tensors in [0, 1); ``dim``/``seed``/``sample`` broadcast.
+    ``table=True`` (``ray_tpu``'s PMJ02 table mode) raises, naming ROADMAP
+    Queue 1 item 2."""
+    if table:
+        raise not_ported("scrambled_2d_rand(table=True) (the PMJ02 table "
+                         "mode)", "Queue 1 item 2")
     dim = _u32(dim)
     seed = _u32(seed)
     sample = _u32(sample)
@@ -137,6 +144,13 @@ def scrambled_2d_rand(dim, seed, sample):
     rx = nested_uniform_scramble(sx, hash_combine(seed, (dim * 2) & _M32))
     ry = nested_uniform_scramble(sy, hash_combine(seed, (dim * 2 + 1) & _M32))
     return _u32_to_unit_float(rx), _u32_to_unit_float(ry)
+
+
+def scrambled_2d_rand_many(dim_list, seed, sample, /, table=False):
+    """:func:`scrambled_2d_rand` for each dimension of ``dim_list``: a list
+    of (rx, ry) pairs (``ray_tpu`` fetches the table mode's words with one
+    gather; the computed mode is one call a dimension there too)."""
+    return [scrambled_2d_rand(d, seed, sample, table=table) for d in dim_list]
 
 
 def pixel_seed(px, py, rand_seed):

@@ -1553,6 +1553,12 @@ def _binned_key_fn():
     return fn
 
 
+def set_force_xla(value: bool) -> None:
+    """``ray_tpu``'s process-wide opt-out of its Pallas kernels, accepted
+    and inert: a CUDA tensor launches the port's kernels, a CPU tensor
+    runs their plain versions, whatever is set."""
+
+
 def _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active, ray_mask,
                     max_leaf, stack_size, any_hit) -> HitInst:
     rays = (ro.detach().contiguous(), rd.detach().contiguous(),
@@ -1566,23 +1572,28 @@ def _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active, ray_mask,
                       max_leaf, stack_size, any_hit=any_hit)
 
 
-def trace_closest_tlas(bvh, tris, inst, ro, rd, t_min, t_max, active,
+def trace_closest_tlas(nodes, tris, inst, ro, rd, t_min, t_max, active,
                        ray_mask=None, max_leaf: int = 4,
-                       stack_size: int = MAX_STACK_SIZE) -> HitInst:
+                       stack_size: int = MAX_STACK_SIZE,
+                       force_xla: bool = False) -> HitInst:
     """Two-level closest-hit trace (``ray_tpu``'s ``trace_closest_tlas``).
-    ``bvh``: ``SceneFlat.bvh_soa`` of a tlas scene; with ``wrows_tlas``
+    ``nodes``: ``SceneFlat.bvh_soa`` of a tlas scene; with ``wrows_tlas``
     (and ``winst_base``) it runs :func:`trace_tlas`, else
-    :func:`trace_tlas_bin` on ``bvh["packed"]``, ``tris["packed"]`` and
-    the instance columns ``inst``.  Returns a :class:`HitInst`."""
-    return _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active,
+    :func:`trace_tlas_bin` on ``nodes["packed"]``, ``tris["packed"]`` and
+    the instance columns ``inst``.  Returns a :class:`HitInst`.
+    ``force_xla`` (``ray_tpu``'s opt-out of its Pallas kernels) is
+    accepted and inert: the tensors' device picks kernel or plain
+    version."""
+    return _trace_tlas_soa(nodes, tris, inst, ro, rd, t_min, t_max, active,
                            ray_mask, max_leaf, stack_size, False)
 
 
-def trace_occlusion_tlas(bvh, tris, inst, ro, rd, t_min, t_max, active,
+def trace_occlusion_tlas(nodes, tris, inst, ro, rd, t_min, t_max, active,
                          ray_mask=None, max_leaf: int = 4,
-                         stack_size: int = MAX_STACK_SIZE) -> torch.Tensor:
+                         stack_size: int = MAX_STACK_SIZE,
+                         force_xla: bool = False) -> torch.Tensor:
     """Two-level any-hit (shadow) trace: returns (R,) bool ``occluded``."""
-    hit = _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active,
+    hit = _trace_tlas_soa(nodes, tris, inst, ro, rd, t_min, t_max, active,
                           ray_mask, max_leaf, stack_size, True)
     return hit.prim >= 0
 
@@ -1618,7 +1629,7 @@ def _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf, stack_size,
 
 def trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
                       max_leaf: int = 4, stack_size: int = MAX_STACK_SIZE,
-                      tri_vis=None, ray_mask=None) -> Hit:
+                      tri_vis=None, ray_mask=None, force_xla=None) -> Hit:
     """Closest-hit trace against the scene's SoA node and triangle tables.
 
     Args:
@@ -1629,6 +1640,7 @@ def trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
       ro, rd: (R, 3) f32; t_min, t_max: (R,) f32; active: (R,) bool.
       tri_vis/ray_mask: optional (T,)/(R,) i32 per-ray-type visibility —
         triangles whose mask shares no bit with the ray's are skipped.
+      force_xla: accepted and inert (see :func:`trace_closest_tlas`).
     """
     return _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf,
                   stack_size, tri_vis, ray_mask, False)
@@ -1636,7 +1648,8 @@ def trace_closest_soa(bvh, tris, ro, rd, t_min, t_max, active,
 
 def trace_occlusion_soa(bvh, tris, ro, rd, t_min, t_max, active,
                         max_leaf: int = 4, stack_size: int = MAX_STACK_SIZE,
-                        tri_vis=None, ray_mask=None) -> torch.Tensor:
+                        tri_vis=None, ray_mask=None,
+                        force_xla=None) -> torch.Tensor:
     """Any-hit (shadow) trace: returns (R,) bool ``occluded``."""
     hit = _trace(bvh, tris, ro, rd, t_min, t_max, active, max_leaf,
                  stack_size, tri_vis, ray_mask, True)

@@ -97,7 +97,8 @@ from ray_tpu_torch.ops.traverse import (
     trace_occlusion_soa,
     trace_occlusion_tlas,
 )
-from ray_tpu_torch.render import light_sampling, surface as surface_mod, uber
+from ray_tpu_torch.render import light_sampling, radcache
+from ray_tpu_torch.render import surface as surface_mod, uber
 from ray_tpu_torch.render.bsdf.microfacet import PI
 from ray_tpu_torch.render.raygen import generate_primary_rays
 from ray_tpu_torch.scene.materials import ShadingNode
@@ -174,6 +175,7 @@ class _PathState(NamedTuple):
     ray_mask: torch.Tensor    # (R,) i32 the ray type's visibility bit
     cone_width: torch.Tensor  # (R,) ray-cone width at the ray origin
     cone_spread: torch.Tensor  # (R,) ray-cone spread angle
+    vertex_count: torch.Tensor  # (R,) i32 cacheable path vertices so far
     seed: torch.Tensor        # (R,) per-lane RNG seed
     # output_sh only (else None): the first real vertex's BSDF direction,
     # whether the lane has yet to shade that vertex, and the (R, 4, 3)
@@ -249,11 +251,17 @@ def _peek_ior(stack, skip_first, default=1.0):
     return out
 
 
-def _check_supported(settings: PassSettings, cache_mode: str) -> None:
+def _check_supported(settings: PassSettings, cache, cache_mode: str,
+                     rays) -> None:
     if settings.tex_filter not in _TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
-    if cache_mode != "off":
-        raise not_ported("the spatial radiance cache", "Queue 1 item 24")
+    if cache_mode not in ("off", "update", "query"):
+        raise ValueError(f"unknown cache_mode {cache_mode!r}")
+    if cache_mode != "off" and cache is None:
+        raise ValueError(f"cache_mode {cache_mode!r} needs a cache")
+    if rays is not None:
+        raise not_ported("render_tile(rays=...) (the lightmap baker's ray "
+                         "source)", "Queue 1 item 25")
 
 
 def render_tile(
@@ -272,7 +280,9 @@ def render_tile(
     settings: PassSettings,
     use_filter_table: bool,
     pixel_mask=None,
+    cache=None,
     cache_mode: str = "off",
+    rays=None,
 ):
     """Render one sample of a (tile_h, tile_w) tile on the scene's device.
 
@@ -283,8 +293,19 @@ def render_tile(
     'rays_traced' (closest + shadow rays, a 0-dim int64 tensor) and with
     ``output_sh`` 'shl1' (R,4,3): each contribution projected on the SH-L1
     basis of the direction it arrives from at the pixel's first real
-    vertex (compaction is off then, as in ``ray_tpu``)."""
-    _check_supported(settings, cache_mode)
+    vertex (compaction is off then, as in ``ray_tpu``).
+
+    ``cache`` / ``cache_mode``: the spatial radiance cache
+    (:mod:`.radcache`, ``ray_tpu``'s plumbing).  ``"query"`` ends a path
+    at a hit whose ray cone is wider than the cache voxel there with the
+    cached radiance (ShadeRef.cpp:1370-1392); ``"update"`` records each
+    bounce's contribution, throughput and vertex, roughens the lobes to
+    ``RAD_CACHE_MIN_ROUGHNESS`` and back-propagates into the cache after
+    the last bounce: the new state is ``out["cache"]`` (compaction off, as
+    in ``ray_tpu``).  The cache is constant within a call, so a replayed
+    bounce queries what the forward did.  ``rays`` (the lightmap baker's
+    ray source) raises, naming ROADMAP Queue 1 item 25."""
+    _check_supported(settings, cache, cache_mode, rays)
     device = scene.device
     rays = generate_primary_rays(
         cam, filter_table, x0, y0, iteration, rand_seed,
@@ -315,6 +336,7 @@ def render_tile(
                             device=device),
         cone_width=f32((R,), 0.0),
         cone_spread=rays.cone_spread.to(torch.float32).expand(R).contiguous(),
+        vertex_count=torch.zeros((R,), dtype=torch.int32, device=device),
         seed=rng.pixel_seed(rays.px, rays.py, rand_seed),
     )
     if settings.output_sh:
@@ -327,20 +349,26 @@ def render_tile(
 
     bounce_fn = (_replayed_bounce if settings.remat and torch.is_grad_enabled()
                  else _bounce)
+    records = []   # cache_mode "update": each bounce's vertex columns
 
     def run(st, bounces):
         for bounce in bounces:
-            st, n, bad = bounce_fn(scene, settings, feats, st, bounce,
-                                   sample_i)
+            st, n, bad, rec = bounce_fn(scene, settings, feats, st, bounce,
+                                        sample_i, cache, cache_mode)
             totals["n"] = totals["n"] + n
             if bad is not None:
                 totals["bad"] = totals["bad"] + bad
+            if rec is not None:
+                records.append(rec)
         return st
 
     n_iters = settings.max_total_depth + 1
     c = settings.compact_after
+    # compaction is off where every bounce's full-width columns are kept
+    # (the cache update), as in ray_tpu
     do_compact = (0 < c < n_iters and settings.compact_factor > 1
-                  and not settings.output_sh and R >= 1024)
+                  and cache_mode != "update" and not settings.output_sh
+                  and R >= 1024)
     if not do_compact:
         st = run(st, range(n_iters))
     else:
@@ -370,6 +398,11 @@ def render_tile(
     if settings.output_sh:
         # shl1_data_t analogue (Types.h:51): 4 SH-L1 coefficients × RGB
         out["shl1"] = st.aux_sh
+    if cache_mode == "update":
+        delta, t_in, vtx_p, vtx_n, vtx_valid = (torch.stack(c)
+                                                for c in zip(*records))
+        out["cache"] = radcache.propagate_and_accumulate(
+            cache, delta, t_in, vtx_p, vtx_n, vtx_valid)
     return out
 
 
@@ -399,7 +432,8 @@ def _untaped(trace, *args):
 
 
 def _replayed_bounce(scene, settings: PassSettings, feats, st: _PathState,
-                     bounce: int, sample_i: int):
+                     bounce: int, sample_i: int, cache=None,
+                     cache_mode: str = "off"):
     """:func:`_bounce` under non-reentrant ``torch.utils.checkpoint``:
     autograd keeps the input state (and with ``remat_save_trace`` the
     tape's trace outputs) and re-runs the whole body in backward (early
@@ -410,7 +444,7 @@ def _replayed_bounce(scene, settings: PassSettings, feats, st: _PathState,
         if tape is not None:
             tape.pos = 0
         return _bounce(scene, settings, feats, _PathState(*state), bounce,
-                       sample_i, tape)
+                       sample_i, cache, cache_mode, tape)
 
     with checkpoint.set_checkpoint_early_stop(False):
         return checkpoint.checkpoint(body, *st, use_reentrant=False,
@@ -604,17 +638,22 @@ def _trace_closest_through(scene, settings: PassSettings, traced, ro, rd,
 
 
 def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
-            sample_i: int, tape=None):
+            sample_i: int, cache=None, cache_mode: str = "off", tape=None):
     """One wavefront bounce (``ray_tpu``'s ``bounce_step``).  Returns the
-    next state, the number of rays traced (closest + shadow) and, with
-    ``nan_check``, the count of non-finite live-lane values.  ``tape``: a
-    :class:`_TraceTape` that both traces go through."""
+    next state, the number of rays traced (closest + shadow), with
+    ``nan_check`` the count of non-finite live-lane values (else None),
+    and with ``cache_mode="update"`` the bounce's (contribution, incoming
+    throughput, vertex position, geometric normal, cacheable) columns
+    (else None).  ``tape``: a :class:`_TraceTape` that both traces go
+    through."""
     traced = _untaped if tape is None else tape
     ro, rd, t_max, throughput, bsdf_pdf, active, depth = st[:7]
     ior_stack, accum, aux_base, aux_dn = (st.ior_stack, st.accum, st.aux_base,
                                           st.aux_dn)
     ray_mask = st.ray_mask
     cone_width, cone_spread, seed = st.cone_width, st.cone_spread, st.seed
+    vertex_count = st.vertex_count
+    accum_in, throughput_in = accum, throughput
     Rl = ro.shape[0]
     device = ro.device
     have_lights = scene.num_lights > 0
@@ -759,6 +798,10 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     params = uber.gather_uber_params(
         scene, mat_id, surf.uv, rd, surf.N, hit.backface, ext_ior, tex_rand,
         regularize_alpha=reg_alpha, lam=lam, feats=feats, fetch_kw=fetch_kw,
+        # the update pass caches diffuse-ish radiance only: view-dependent
+        # sharp lobes are roughened (ShadeRef.cpp:1450-1452)
+        min_roughness=(radcache.RAD_CACHE_MIN_ROUGHNESS
+                       if cache_mode == "update" else 0.0),
     )
     if settings.lighting_only and is_first:
         # lightmap mode: ignore albedo at the primary vertex
@@ -792,6 +835,18 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             take_aux, torch.cat([surf.N, hit.t[:, None]], dim=-1), aux_dn)
 
     can_shade = alive & (~params.is_emissive) & (~params.is_transparent)
+
+    # ---------- spatial cache query exit (ShadeRef.cpp:1370-1392) ----------
+    if cache_mode == "query":
+        c_r1, c_r2 = rng.scrambled_2d_rand(
+            rand_dim + rng.RAND_DIM_CACHE, seed, sample_i)
+        p_d, n_d = surf.P.detach(), surf.plane_N.detach()
+        vs = radcache.voxel_size(radcache.grid_level(p_d, cache.cam_pos))
+        use_cache = (can_shade & (cw_at_hit.detach() > (1.0 + 0.5 * c_r1) * vs)
+                     & (hit.t > (1.0 + c_r2) * vs))
+        c_rad, c_good = radcache.query(cache, p_d, n_d, use_cache)
+        accum = add(accum, throughput * c_rad, c_good)
+        can_shade = can_shade & (~c_good)
 
     # ---------- NEE (SampleLightSource + eval + shadow ray) ----------
     n_shadow = None
@@ -923,6 +978,11 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     cone_spread = torch.where(next_active, cone_spread + bs.cone_spread_inc,
                               cone_spread)
 
+    # cacheable path vertices: the first PROPAGATION_DEPTH real hits
+    # (SpatialCacheUpdate's path_len cap, RadCacheRef.cpp:201)
+    vtx_valid = alive & (vertex_count < radcache.RAD_CACHE_PROPAGATION_DEPTH)
+    vertex_count = vertex_count + vtx_valid.to(torch.int32)
+
     n = active.sum()
     if n_shadow is not None:
         n = n + n_shadow
@@ -948,6 +1008,10 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
                      bsdf_pdf=bsdf_pdf, active=next_active, depth=depth,
                      ior_stack=ior_stack, accum=accum, aux_base=aux_base,
                      aux_dn=aux_dn, ray_mask=ray_mask, cone_width=cone_width,
-                     cone_spread=cone_spread, seed=seed, sh_dir=sh_dir,
-                     sh_open=sh_open, aux_sh=aux_sh)
-    return new, n, bad
+                     cone_spread=cone_spread, vertex_count=vertex_count,
+                     seed=seed, sh_dir=sh_dir, sh_open=sh_open, aux_sh=aux_sh)
+    rec = None
+    if cache_mode == "update":
+        rec = ((accum - accum_in).detach(), throughput_in.detach(),
+               surf.P.detach(), surf.plane_N.detach(), vtx_valid)
+    return new, n, bad, rec

@@ -12,8 +12,12 @@ restarts it.
 Buffers live on the renderer's device (CUDA unless the caller names
 another) and the images come back as tensors there.  Sampling runs under
 ``torch.no_grad()``: like ``ray_tpu``'s, this driver renders and does not
-differentiate (``render_tile`` does).  The spatial radiance cache and the
-denoisers are not ported and raise, naming their ROADMAP items.
+differentiate (``render_tile`` does).  With ``use_spatial_cache`` each
+sample of :meth:`Renderer.render` runs the cache loop of ``ray_tpu``
+(update pass at 1/``cache_downsample`` resolution → resolve → query
+render, :mod:`.radcache`); :meth:`Renderer.denoise_image` runs the NLM
+(:mod:`ray_tpu_torch.models.nlm`) or UNet (:mod:`ray_tpu_torch.models.unet`)
+denoiser on the renderer's device.
 """
 
 from __future__ import annotations
@@ -25,12 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ray_tpu_torch._roadmap import not_ported
+from ray_tpu_torch.render import radcache
 from ray_tpu_torch.render.integrator import PassSettings, render_tile
 from ray_tpu_torch.render.tonemap import (
     ViewTransform,
     apply_view_transform,
     reversible_tonemap,
+    reversible_tonemap_invert,
 )
 from ray_tpu_torch.scene.camera import Camera, PixelFilter, build_filter_table
 from ray_tpu_torch.utils.device import resolve_device
@@ -46,8 +51,10 @@ class RenderSettings:
     height: int = 256
     min_samples: int = 16
     variance_threshold: float = 0.0   # 0 = adaptive sampling off
-    use_spatial_cache: bool = False   # not ported: ROADMAP Queue 1 item 24
+    use_spatial_cache: bool = False   # settings_t.use_spatial_cache
     cache_entries: int = 1 << 20
+    # update-pass resolution divisor (RAD_CACHE_DOWNSAMPLING_FACTOR = 4 in
+    # the reference; tiny renders need 1)
     cache_downsample: int = 4
     # per-sample wall-clock stats (stats_t, RendererBase.h:230-242); each
     # timed sample synchronises the device
@@ -117,6 +124,9 @@ class Renderer:
         self.stats = {"time_render_us": 0.0, "time_cache_update_us": 0.0,
                       "time_cache_resolve_us": 0.0, "time_denoise_us": 0.0,
                       "rays_traced": 0, "samples": 0}
+        self.cache = None            # spatial radiance cache state
+        self.cache_iteration = 0     # RegionContext.cache_iteration
+        self._unet = None
 
     def get_stats(self) -> dict:
         """RendererBase::GetStats (RendererBase.h:244)."""
@@ -133,25 +143,66 @@ class Renderer:
         self.sample_counts = torch.zeros_like(self.sample_counts)
         self.active_px = torch.ones_like(self.active_px)
 
-    def update_spatial_cache(self, scene, cam: Camera, rand_seed: int = 0):
-        raise not_ported("the spatial radiance cache (update pass)",
-                         "Queue 1 item 24")
-
-    def resolve_spatial_cache(self):
-        raise not_ported("the spatial radiance cache (resolve pass)",
-                         "Queue 1 item 24")
-
-    def render_sample(self, scene, cam: Camera, rand_seed: int = 0):
-        """Advance one progressive sample over the full frame; returns
-        ``render_tile``'s output for it."""
+    def _check_scene(self, scene):
         if scene.device != self.device:
             raise ValueError(f"the scene is on {scene.device}, the renderer "
                              f"on {self.device}")
-        if self.settings.use_spatial_cache:
-            self.update_spatial_cache(scene, cam, rand_seed)
+
+    def _timed(self, key, t0):
+        """Charge the time since ``t0`` to ``stats[key]`` (synchronising
+        the device first)."""
+        if self.settings.collect_stats:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stats[key] += (time.perf_counter() - t0) * 1e6
+
+    def update_spatial_cache(self, scene, cam: Camera, rand_seed: int = 0):
+        """The cache-feeding pass (RendererCPU.h:1010-1163
+        UpdateSpatialCache) at 1/``cache_downsample`` resolution: box
+        filter, no depth of field, ``cache_mode="update"``.  Returns
+        ``render_tile``'s output; the new state is ``self.cache``."""
+        self._check_scene(scene)
+        if self.cache is None:
+            self.cache = radcache.make_cache(
+                self.settings.cache_entries, np.asarray(cam.origin),
+                device=self.device)
+        self.cache_iteration += 1
+        f = self.settings.cache_downsample
+        w4 = max(self.settings.width // f, 1)
+        h4 = max(self.settings.height // f, 1)
+        cam_u = dataclasses.replace(cam, fstop=np.float32(0.0),
+                                    filter=int(PixelFilter.BOX))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = render_tile(
+                scene, cam_u, build_filter_table(cam_u.filter,
+                                                 cam_u.filter_width),
+                0, 0, self.cache_iteration, rand_seed, width=w4, height=h4,
+                tile_w=w4, tile_h=h4, settings=self.pass_settings,
+                use_filter_table=False, cache=self.cache,
+                cache_mode="update")
+        self.cache = out["cache"]
+        self._timed("time_cache_update_us", t0)
+        return out
+
+    def resolve_spatial_cache(self):
+        """Merge this frame's samples into the resolved radiance and age
+        the entries (RendererCPU.h:1165-1212)."""
+        if self.cache is None:
+            raise ValueError("no cache to resolve")
+        t0 = time.perf_counter()
+        self.cache = radcache.resolve(self.cache)
+        self._timed("time_cache_resolve_us", t0)
+
+    def render_sample(self, scene, cam: Camera, rand_seed: int = 0):
+        """Advance one progressive sample over the full frame; returns
+        ``render_tile``'s output for it.  With ``use_spatial_cache`` and a
+        cache, the sample queries it."""
+        self._check_scene(scene)
         self.iteration += 1
         adaptive = self.settings.variance_threshold > 0.0
         mask = self.active_px if adaptive else torch.ones_like(self.active_px)
+        use_cache = self.settings.use_spatial_cache and self.cache is not None
         w, h = self.settings.width, self.settings.height
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -160,7 +211,8 @@ class Renderer:
                 0, 0, self.iteration, rand_seed, width=w, height=h,
                 tile_w=w, tile_h=h, settings=self.pass_settings,
                 use_filter_table=cam.filter != PixelFilter.BOX,
-                pixel_mask=mask)
+                pixel_mask=mask, cache=self.cache if use_cache else None,
+                cache_mode="query" if use_cache else "off")
             self.full_buf, self.half_buf, self.sample_counts = _accumulate(
                 self.full_buf, self.half_buf, self.sample_counts,
                 out["color"], mask)
@@ -179,8 +231,13 @@ class Renderer:
         return out
 
     def render(self, scene, cam: Camera, samples: int, rand_seed: int = 0):
-        """``samples`` progressive samples; returns :meth:`radiance_image`."""
+        """``samples`` progressive samples; returns :meth:`radiance_image`.
+        With ``use_spatial_cache`` each sample runs the reference test
+        driver's loop: update → resolve → query render."""
         for _ in range(samples):
+            if self.settings.use_spatial_cache:
+                self.update_spatial_cache(scene, cam, rand_seed)
+                self.resolve_spatial_cache()
             self.render_sample(scene, cam, rand_seed)
         return self.radiance_image()
 
@@ -204,19 +261,26 @@ class Renderer:
         return v.reshape(self.settings.height, self.settings.width, 3)
 
     def save_state(self, path: str):
-        """Progressive render state (buffers + iteration) to ``.npz``."""
+        """Progressive render state (buffers + iteration, and the spatial
+        cache) to ``.npz``, in ``ray_tpu``'s layout."""
         data = {k: getattr(self, k).cpu().numpy() for k in self._STATE_KEYS}
         data["iteration"] = np.int64(self.iteration)
-        data["cache_iteration"] = np.int64(0)
+        data["cache_iteration"] = np.int64(self.cache_iteration)
+        if self.cache is not None:
+            for f, v in self.cache.to_numpy().items():
+                data[f"cache_{f}"] = v
         np.savez_compressed(path, **data)
 
     def load_state(self, path: str):
-        """Resume from :meth:`save_state` output; shapes must match the
-        settings.  A state that carries a spatial cache raises."""
+        """Resume from :meth:`save_state` output (the port's or
+        ``ray_tpu``'s); shapes must match the settings."""
         with np.load(path) as d:
+            cache = None
             if "cache_key_lo" in d:
-                raise not_ported("a saved spatial radiance cache",
-                                 "Queue 1 item 24")
+                cache = radcache.cache_from_numpy(
+                    {f.name: d[f"cache_{f.name}"] for f in
+                     dataclasses.fields(radcache.CacheState)},
+                    device=self.device)
             arrays = {}
             for k in self._STATE_KEYS:
                 cur = getattr(self, k)
@@ -225,13 +289,44 @@ class Renderer:
                                      f"the renderer {tuple(cur.shape)}")
                 arrays[k] = torch.from_numpy(d[k]).to(cur.device, cur.dtype)
             iteration = int(d["iteration"])
+            cache_iteration = int(d["cache_iteration"])
         for k, v in arrays.items():
             setattr(self, k, v)
         self.iteration = iteration
+        self.cache_iteration = cache_iteration
+        self.cache = cache
 
-    def denoise_image(self, mode: str = "nlm"):
-        if mode == "nlm":
-            raise not_ported("the NLM denoiser", "Queue 1 item 26")
-        if mode == "unet":
-            raise not_ported("the UNet denoiser", "Queue 1 item 27")
-        raise ValueError(mode)
+    def denoise_image(self, mode: str = "nlm") -> torch.Tensor:
+        """Denoise the accumulated radiance (RendererBase::DenoiseImage,
+        RendererBase.h:246-253) on the renderer's device: ``"nlm"`` the
+        joint non-local means guided by the AUX buffers, ``"unet"`` the
+        OIDN-style network.  Returns (H, W, 3)."""
+        from ray_tpu_torch.models import nlm, unet
+
+        h, w = self.settings.height, self.settings.width
+        color = self.full_buf.reshape(h, w, 3)
+        base = self.aux_base.reshape(h, w, 3)
+        dn = self.aux_dn.reshape(h, w, 4)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if mode == "nlm":
+                # the reference pipeline (RendererCPU.h:629-658 variance +
+                # :661-787 pre-pass): dual-buffer variance 0.5 (rt(2f - h)
+                # - rt(h))^2, Gauss-max blurred, NLM in reversible-tonemap
+                # space
+                half = self.half_buf.reshape(h, w, 3)
+                p1 = reversible_tonemap(torch.clamp_min(2.0 * color - half,
+                                                        0.0))
+                p2 = reversible_tonemap(half)
+                variance = nlm.filter_variance(0.5 * (p1 - p2) ** 2)
+                out = reversible_tonemap_invert(nlm.nlm_denoise(
+                    reversible_tonemap(color), variance, base_color=base,
+                    depth_normal=dn))
+            elif mode == "unet":
+                if self._unet is None:
+                    self._unet = unet.UNetFilter(device=self.device)
+                out = self._unet.denoise(color, base, dn[..., :3])
+            else:
+                raise ValueError(mode)
+        self._timed("time_denoise_us", t0)
+        return out

@@ -390,7 +390,8 @@ def _eval_diffuse(p: UberParams, V, N, L, feats: MatFeatures):
     return f_dif, pdf_dif
 
 
-def eval_uber(p: UberParams, T, B, N, I, L, feats: MatFeatures):
+def eval_uber(p: UberParams, T, B, N, I, L,
+              feats: MatFeatures = MatFeatures()):
     """Mixture f_cos + pdf for NEE (reference Evaluate_PrincipledNode,
     ShadeRef.cpp:811-903, generalized to all node types)."""
     n_dot_l = dot(N, L, False)
@@ -457,7 +458,7 @@ class BsdfSample(NamedTuple):
 
 
 def sample_uber(p: UberParams, T, B, N, I, rand2, mix_rand,
-                feats: MatFeatures):
+                feats: MatFeatures = MatFeatures()):
     """Pick one lobe by ``mix_rand`` against the normalized lobe weights and
     sample it (reference Sample_PrincipledNode, ShadeRef.cpp:905-1035)."""
     R = mix_rand.shape[0]

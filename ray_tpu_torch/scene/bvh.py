@@ -6,9 +6,9 @@ size and above the native C++ builder (:mod:`ray_tpu_torch.scene.native`,
 compiled with g++ at first use), as ``ray_tpu``'s ``use_native="auto"``
 does, so a scene gets the same nodes and leaf order here.  Also
 ``partition_subtrees``, which cuts a BVH2 into the subtree slabs of the
-binned trace (:mod:`ray_tpu_torch.scene.binned`).  The SBVH spatial splits
-are not ported yet (ROADMAP Queue 1 item 18): ``spatial_splits=True``
-raises.
+binned trace (:mod:`ray_tpu_torch.scene.binned`).  ``spatial_splits=True``
+builds an SBVH (``_build_sbvh``, or the native builder's SBVH entry point
+at the same size), whose leaves may reference a triangle more than once.
 
 Child code convention (int32) — self-contained so the traversal stack needs
 no side lookups:
@@ -22,8 +22,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-
-from ray_tpu_torch._roadmap import not_ported
 
 MAX_STACK_SIZE = 64  # ≥ reference MAX_STACK_SIZE 48 (internal/Constants.inl:4)
 NUM_SAH_BINS = 16
@@ -64,7 +62,7 @@ NATIVE_BUILDER_THRESHOLD = 8192  # prims; below this numpy is fast enough
 def build_bvh2(
     tri_lo: np.ndarray, tri_hi: np.ndarray, max_leaf: int = 4,
     use_native: str = "auto", fat_leaves: bool = False,
-    spatial_splits: bool = False,
+    spatial_splits: bool = False, tri_verts: np.ndarray = None,
 ) -> BVH2:
     """Build a binary SAH BVH over primitives with AABBs [tri_lo, tri_hi].
 
@@ -73,8 +71,18 @@ def build_bvh2(
     'always' forces native (``ray_tpu``'s switch; the port raises where the
     C++ builder cannot be built instead of falling back).  ``fat_leaves``:
     stop splitting as soon as a node fits ``max_leaf`` primitives (see
-    ``ray_tpu.scene.bvh.build_bvh2``).  ``spatial_splits`` (SBVH) is not
-    ported yet.
+    ``ray_tpu.scene.bvh.build_bvh2``).
+
+    ``spatial_splits``: SBVH reference splitting (Stich et al. 2009, the
+    reference's ``SplitPrimitives_SAH`` spatial path): where the best
+    object split's children overlap, a primitive straddling the best
+    spatial plane is clipped and referenced from both sides, so
+    ``prim_indices`` holds duplicates.  ``tri_verts`` (T, 3, 3) clips the
+    triangle polygons exactly; without it the reference box is clipped.
+    The native SBVH runs where the native BVH2 would; with ``"auto"`` a
+    :class:`~ray_tpu_torch.scene.native.NativeCapacityError` (more
+    references than its buffers hold) falls back to numpy, with
+    ``"always"`` it is raised.
     """
     tri_lo = np.asarray(tri_lo, np.float32)
     tri_hi = np.asarray(tri_hi, np.float32)
@@ -86,11 +94,31 @@ def build_bvh2(
     if use_native not in ("auto", "never", "always"):
         raise ValueError(f"use_native {use_native!r} is not auto, never or "
                          f"always")
+    native_size = use_native == "always" or (
+        use_native == "auto" and n >= NATIVE_BUILDER_THRESHOLD)
     if spatial_splits:
-        raise not_ported("the SBVH builder (spatial_splits=True)",
-                         "Queue 1 item 18")
-    if use_native == "always" or (
-            use_native == "auto" and n >= NATIVE_BUILDER_THRESHOLD):
+        if native_size:
+            from ray_tpu_torch.scene import native
+
+            try:
+                out = native.build_sbvh_native(
+                    tri_lo, tri_hi, None if tri_verts is None
+                    else np.asarray(tri_verts, np.float32), max_leaf,
+                    fat_leaves=fat_leaves)
+            except native.NativeCapacityError:
+                if use_native == "always":
+                    raise
+            else:
+                c_lo, c_hi, child, counts, prim, root_lo, root_hi = out
+                return BVH2(child_lo=c_lo, child_hi=c_hi, child=child,
+                            counts=counts, prim_indices=prim, root_lo=root_lo,
+                            root_hi=root_hi, max_leaf=max_leaf)
+        # the numpy builder clips in float64 from the vertices as given
+        return _build_sbvh(tri_lo, tri_hi, max_leaf,
+                           tri_verts=None if tri_verts is None
+                           else np.asarray(tri_verts),
+                           fat_leaves=fat_leaves)
+    if native_size:
         from ray_tpu_torch.scene import native
 
         c_lo, c_hi, child, counts, prim, root_lo, root_hi = (
@@ -241,6 +269,334 @@ def build_bvh2(
         prim_indices=order.copy(),
         root_lo=np.asarray(root_lo, np.float32),
         root_hi=np.asarray(root_hi, np.float32),
+        max_leaf=max_leaf,
+    )
+
+
+def _surface_area(lo, hi):
+    e = np.maximum(hi - lo, 0.0)
+    return 2.0 * (e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+
+def _clip_tris_slab(tris, axis, a, b):
+    """AABB of each triangle clipped to the axis slab ``a <= x[axis] <= b``,
+    vectorized over (M, 3, 3) ``tris``.  The clipped polygon's vertices are
+    exactly {original verts inside the slab} ∪ {edge–plane intersections},
+    so the AABB is a masked min/max over those ≤9 candidate points.
+    Returns (lo, hi) with lo > hi where the intersection is empty."""
+    tris = np.asarray(tris, np.float64)
+    x = tris[:, :, axis]                              # (M, 3)
+    pts = [tris]                                      # (M, 3, 3) candidates
+    masks = [(x >= a) & (x <= b)]                     # (M, 3)
+    edges = [(0, 1), (1, 2), (2, 0)]
+    for p in (a, b):
+        if not np.isfinite(p):
+            continue
+        cand = np.empty_like(tris)
+        ok = np.zeros(x.shape, bool)
+        for e, (i, j) in enumerate(edges):
+            vi, vj = tris[:, i], tris[:, j]
+            den = vj[:, axis] - vi[:, axis]
+            valid = den != 0.0
+            t = np.where(valid, (p - vi[:, axis]) / np.where(valid, den, 1.0),
+                         0.0)
+            valid &= (t >= 0.0) & (t <= 1.0)
+            cand[:, e] = vi + t[:, None] * (vj - vi)
+            ok[:, e] = valid
+        pts.append(cand)
+        masks.append(ok)
+    P = np.concatenate(pts, axis=1)                   # (M, K, 3)
+    M = np.concatenate(masks, axis=1)[:, :, None]     # (M, K, 1)
+    lo = np.where(M, P, np.inf).min(axis=1)
+    hi = np.where(M, P, -np.inf).max(axis=1)
+    # numerical safety: the slab axis never escapes the slab
+    lo[:, axis] = np.clip(lo[:, axis], a, b)
+    hi[:, axis] = np.clip(hi[:, axis], a, b)
+    return lo, hi
+
+
+def _build_sbvh(tri_lo, tri_hi, max_leaf, tri_verts=None, fat_leaves=False,
+                spatial_alpha=1e-5, max_refs_factor=1.75):
+    """SBVH builder (Stich et al. 2009): SAH object splits plus spatial
+    reference splits when the object split's children overlap more than
+    ``spatial_alpha`` of the root surface area.  Capability analogue of the
+    reference's spatial-split path (internal/BVHSplit.cpp
+    ``SplitPrimitives_SAH`` with clip_axis; settings Core.h:241).  Works on
+    per-*reference* (id, clipped-AABB) triples so a primitive can live in
+    several leaves; total references capped at ``max_refs_factor``·n."""
+    n = tri_lo.shape[0]
+    root_lo64 = tri_lo.min(axis=0).astype(np.float64)
+    root_hi64 = tri_hi.max(axis=0).astype(np.float64)
+    root_area = max(_surface_area(root_lo64, root_hi64), 1e-30)
+    max_refs = int(n * max_refs_factor) + 64
+    total_refs = [n]
+
+    child_lo, child_hi, child, counts = [], [], [], []
+    ref_ids_out = []           # leaf-order original prim ids (with dups)
+    ref_total = [0]
+
+    def make_slot():
+        child_lo.append(np.zeros((2, 3), np.float32))
+        child_hi.append(np.zeros((2, 3), np.float32))
+        child.append(np.zeros(2, np.int64))
+        counts.append(np.zeros(2, np.int64))
+        return len(child) - 1
+
+    def emit_leaf(ids):
+        first = ref_total[0]
+        ref_ids_out.append(np.asarray(ids, np.int32))
+        ref_total[0] += len(ids)
+        return _leaf_code(first, len(ids))
+
+    NB = NUM_SAH_BINS
+
+    def sweep_cost(blo, bhi, lcount, rcount, parent_area):
+        llo = np.minimum.accumulate(blo, axis=0)[:-1]
+        lhi = np.maximum.accumulate(bhi, axis=0)[:-1]
+        rlo = np.minimum.accumulate(blo[::-1], axis=0)[::-1][1:]
+        rhi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1][1:]
+
+        def area(lo, hi, cnt):
+            e = np.maximum(hi - lo, 0.0)
+            a = 2.0 * (e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2]
+                       + e[:, 2] * e[:, 0])
+            return np.where(cnt > 0, a, 0.0)
+
+        cost = TRAVERSAL_COST + (
+            area(llo, lhi, lcount) * lcount + area(rlo, rhi, rcount) * rcount
+        ) * INTERSECTION_COST / parent_area
+        valid = (lcount > 0) & (rcount > 0)
+        return np.where(valid, cost, np.inf), llo, lhi, rlo, rhi
+
+    def split(ids, rlo, rhi):
+        """Returns None (make a leaf) or (lids, llo, lhi, rids, rlo, rhi)."""
+        count = len(ids)
+        cent = 0.5 * (rlo + rhi)
+        c_lo, c_hi = cent.min(axis=0), cent.max(axis=0)
+        ext = c_hi - c_lo
+        p_lo = rlo.min(axis=0).astype(np.float64)
+        p_hi = rhi.max(axis=0).astype(np.float64)
+        parent_area = max(_surface_area(p_lo, p_hi), 1e-30)
+        leaf_cost = count * INTERSECTION_COST
+
+        best_obj = None  # (cost, axis, k, lo_a, scale, overlap_area)
+        for axis in range(3):
+            if ext[axis] < 1e-12:
+                continue
+            scale = NB * (1.0 - 1e-6) / ext[axis]
+            bins = np.minimum(
+                ((cent[:, axis] - c_lo[axis]) * scale).astype(np.int32),
+                NB - 1,
+            )
+            bcount = np.bincount(bins, minlength=NB)
+            blo = np.full((NB, 3), np.inf, np.float64)
+            bhi = np.full((NB, 3), -np.inf, np.float64)
+            np.minimum.at(blo, bins, rlo)
+            np.maximum.at(bhi, bins, rhi)
+            lcount = np.cumsum(bcount)[:-1]
+            rcount = count - lcount
+            cost, llo_s, lhi_s, rlo_s, rhi_s = sweep_cost(
+                blo, bhi, lcount, rcount, parent_area
+            )
+            k = int(np.argmin(cost))
+            if np.isfinite(cost[k]) and (
+                best_obj is None or cost[k] < best_obj[0]
+            ):
+                ov_lo = np.maximum(llo_s[k], rlo_s[k])
+                ov_hi = np.minimum(lhi_s[k], rhi_s[k])
+                best_obj = (float(cost[k]), axis, k, c_lo[axis], scale,
+                            _surface_area(ov_lo, ov_hi))
+
+        # ---- spatial-split candidate (SBVH): only when the object split's
+        # children overlap a meaningful fraction of the root area ----
+        best_sp = None  # (cost, axis, plane)
+        try_spatial = (
+            best_obj is not None
+            and best_obj[5] / root_area > spatial_alpha
+            and total_refs[0] < max_refs
+            and count > 1
+        )
+        if try_spatial:
+            for axis in range(3):
+                width = float(p_hi[axis] - p_lo[axis])
+                if width < 1e-12:
+                    continue
+                bw = width / NB
+                b0 = np.minimum(
+                    ((rlo[:, axis] - p_lo[axis]) / bw).astype(np.int32),
+                    NB - 1,
+                )
+                b1 = np.minimum(
+                    ((rhi[:, axis] - p_lo[axis]) / bw).astype(np.int32),
+                    NB - 1,
+                )
+                b0 = np.maximum(b0, 0)
+                b1 = np.maximum(b1, b0)
+                entries = np.bincount(b0, minlength=NB)
+                exits = np.bincount(b1, minlength=NB)
+                blo = np.full((NB, 3), np.inf, np.float64)
+                bhi = np.full((NB, 3), -np.inf, np.float64)
+                for k in range(NB):
+                    m = (b0 <= k) & (b1 >= k)
+                    if not m.any():
+                        continue
+                    slab_lo = p_lo[axis] + k * bw
+                    slab_hi = p_lo[axis] + (k + 1) * bw
+                    if tri_verts is not None:
+                        # exact chopped binning (SBVH §4.2): clip the
+                        # triangle polygon to the bin slab, then intersect
+                        # with the (possibly ancestor-clipped) ref box
+                        clo, chi = _clip_tris_slab(
+                            tri_verts[ids[m]], axis, slab_lo, slab_hi
+                        )
+                        clo = np.maximum(clo, rlo[m])
+                        chi = np.minimum(chi, rhi[m])
+                        ok = (clo <= chi).all(axis=1)
+                        if not ok.any():
+                            continue
+                        clo, chi = clo[ok], chi[ok]
+                    else:
+                        clo = rlo[m].copy()
+                        chi = rhi[m].copy()
+                        clo[:, axis] = np.maximum(clo[:, axis], slab_lo)
+                        chi[:, axis] = np.minimum(chi[:, axis], slab_hi)
+                    blo[k] = np.minimum(blo[k], clo.min(axis=0))
+                    bhi[k] = np.maximum(bhi[k], chi.max(axis=0))
+                lcount = np.cumsum(entries)[:-1]
+                rcount = count - np.cumsum(exits)[:-1]
+                cost, _, _, _, _ = sweep_cost(
+                    blo, bhi, lcount, rcount, parent_area
+                )
+                k = int(np.argmin(cost))
+                if np.isfinite(cost[k]) and (
+                    best_sp is None or cost[k] < best_sp[0]
+                ):
+                    best_sp = (float(cost[k]), axis,
+                               float(p_lo[axis] + (k + 1) * bw))
+
+        use_spatial = (
+            best_sp is not None
+            and (best_obj is None or best_sp[0] < best_obj[0])
+        )
+        best_cost = (best_sp[0] if use_spatial
+                     else (best_obj[0] if best_obj else np.inf))
+        if count <= max_leaf and (
+            fat_leaves or not np.isfinite(best_cost) or best_cost >= leaf_cost
+        ):
+            return None
+
+        if use_spatial:
+            _, axis, plane = best_sp
+            fully_l = rhi[:, axis] <= plane
+            fully_r = rlo[:, axis] >= plane
+            strad = ~(fully_l | fully_r)
+            n_str = int(strad.sum())
+            if n_str > 0 and total_refs[0] + n_str <= max_refs:
+                sidx = np.nonzero(strad)[0]
+                l_lo_s = rlo[sidx].copy()
+                l_hi_s = rhi[sidx].copy()
+                l_hi_s[:, axis] = np.minimum(l_hi_s[:, axis], plane)
+                r_lo_s = rlo[sidx].copy()
+                r_hi_s = rhi[sidx].copy()
+                r_lo_s[:, axis] = np.maximum(r_lo_s[:, axis], plane)
+                lok = np.ones(n_str, bool)
+                rok = np.ones(n_str, bool)
+                if tri_verts is not None:
+                    stri = tri_verts[ids[sidx]]
+                    cl_lo, cl_hi = _clip_tris_slab(stri, axis, -np.inf, plane)
+                    l_lo_s = np.maximum(l_lo_s, cl_lo)
+                    l_hi_s = np.minimum(l_hi_s, cl_hi)
+                    cr_lo, cr_hi = _clip_tris_slab(stri, axis, plane, np.inf)
+                    r_lo_s = np.maximum(r_lo_s, cr_lo)
+                    r_hi_s = np.minimum(r_hi_s, cr_hi)
+                    # a ref box clipped by an ancestor may sit entirely on
+                    # one side of the plane even though its box straddles —
+                    # drop the empty side instead of emitting a dead ref
+                    lok = (l_lo_s <= l_hi_s).all(axis=1)
+                    rok = (r_lo_s <= r_hi_s).all(axis=1)
+                lids = np.concatenate([ids[fully_l], ids[sidx][lok]])
+                llo = np.concatenate([rlo[fully_l], l_lo_s[lok]])
+                lhi = np.concatenate([rhi[fully_l], l_hi_s[lok]])
+                rids = np.concatenate([ids[fully_r], ids[sidx][rok]])
+                rlo_n = np.concatenate([rlo[fully_r], r_lo_s[rok]])
+                rhi_n = np.concatenate([rhi[fully_r], r_hi_s[rok]])
+                # both sides non-empty → accept (termination is bounded by
+                # the max_refs budget: degenerate all-straddle nodes stop
+                # duplicating once the cap is hit and fall back to object/
+                # median splits, whose recursion always terminates)
+                if len(lids) > 0 and len(rids) > 0:
+                    total_refs[0] += len(lids) + len(rids) - count
+                    return lids, llo, lhi, rids, rlo_n, rhi_n
+            if n_str == 0 and 0 < int(fully_l.sum()) < count:
+                return (ids[fully_l], rlo[fully_l], rhi[fully_l],
+                        ids[fully_r], rlo[fully_r], rhi[fully_r])
+            # else fall through to the object split
+
+        if best_obj is not None:
+            _, axis, k, lo_a, scale, _ = best_obj
+            bins = np.minimum(
+                ((cent[:, axis] - lo_a) * scale).astype(np.int32), NB - 1
+            )
+            lm = bins <= k
+            if 0 < int(lm.sum()) < count:
+                return (ids[lm], rlo[lm], rhi[lm],
+                        ids[~lm], rlo[~lm], rhi[~lm])
+
+        if count <= max_leaf:
+            return None
+        axis = int(np.argmax(ext))
+        perm = np.argsort(cent[:, axis], kind="stable")
+        mid = count // 2
+        lp, rp = perm[:mid], perm[mid:]
+        return ids[lp], rlo[lp], rhi[lp], ids[rp], rlo[rp], rhi[rp]
+
+    ids0 = np.arange(n, dtype=np.int32)
+    root_slot = make_slot()
+    first = split(ids0, tri_lo.astype(np.float64), tri_hi.astype(np.float64))
+    stack = []
+    if first is None:
+        child_lo[0][0] = tri_lo.min(axis=0)
+        child_hi[0][0] = tri_hi.max(axis=0)
+        child[0][0] = emit_leaf(ids0)
+        counts[0][0] = n
+        child_lo[0][1] = np.float32(np.inf)
+        child_hi[0][1] = np.float32(-np.inf)
+        child[0][1] = _leaf_code(0, 0)
+        counts[0][1] = 0
+    else:
+        lids, llo, lhi, rids, rlo, rhi = first
+        stack.append((root_slot, 0, lids, llo, lhi))
+        stack.append((root_slot, 1, rids, rlo, rhi))
+
+    while stack:
+        slot, side, ids, rlo, rhi = stack.pop()
+        child_lo[slot][side] = rlo.min(axis=0).astype(np.float32)
+        child_hi[slot][side] = rhi.max(axis=0).astype(np.float32)
+        res = split(ids, rlo, rhi)
+        if res is None:
+            child[slot][side] = emit_leaf(ids)
+            counts[slot][side] = len(ids)
+        else:
+            s = make_slot()
+            child[slot][side] = s
+            lids, llo, lhi, rids, rlo2, rhi2 = res
+            stack.append((s, 0, lids, llo, lhi))
+            stack.append((s, 1, rids, rlo2, rhi2))
+
+    root_lo = np.minimum(child_lo[0][0], child_lo[0][1]).astype(np.float32)
+    root_hi = np.maximum(child_hi[0][0], child_hi[0][1]).astype(np.float32)
+    if counts[0][1] == 0 and child[0][1] < 0:
+        root_lo, root_hi = child_lo[0][0], child_hi[0][0]
+
+    return BVH2(
+        child_lo=np.stack(child_lo).astype(np.float32),
+        child_hi=np.stack(child_hi).astype(np.float32),
+        child=np.stack(child).astype(np.int32),
+        counts=np.stack(counts).astype(np.int32),
+        prim_indices=np.concatenate(ref_ids_out)
+        if ref_ids_out else np.zeros(0, np.int32),
+        root_lo=root_lo,
+        root_hi=root_hi,
         max_leaf=max_leaf,
     )
 

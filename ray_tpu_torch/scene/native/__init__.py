@@ -1,6 +1,7 @@
-"""The native (C++) BVH2 builder, for scenes of 8,192 primitives and more.
+"""The native (C++) BVH2 and SBVH builders, for scenes of 8,192 primitives
+and more.
 
-A port of ``ray_tpu.scene.native``'s BVH2 part.  At its first use
+A port of ``ray_tpu.scene.native``.  At its first use
 ``bvh_builder.cpp`` (a copy of ``ray_tpu``'s) is compiled with g++ —
 ``ray_tpu``'s flags, ``-O3 -march=native -shared -fPIC``, which let g++
 contract multiplies and adds, so the same flags on the same machine give
@@ -8,8 +9,10 @@ the same nodes as ``ray_tpu`` — into
 ``build/ray_tpu_torch/libbvh_builder-<hash>.so`` at the repository root,
 named after a hash of the source and the flags, and loaded with ``ctypes``.
 A failed compile raises with g++'s message: unlike ``ray_tpu``, the port
-never falls back to the numpy builder silently.  The SBVH entry point is
-not bound (ROADMAP Queue 1 item 18).
+never falls back to the numpy builder silently.  The one failure a caller
+may catch is :class:`NativeCapacityError`: the SBVH ran out of the
+reference slots it was given, which ``build_bvh2(use_native="auto")``
+answers with the numpy SBVH, as ``ray_tpu`` does.
 """
 
 from __future__ import annotations
@@ -59,8 +62,32 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [f32, f32, ctypes.c_int, ctypes.c_int, f32, f32, i32,
                        i32, i32, f32, f32, ctypes.c_int, ctypes.c_int]
+        fs = lib.ray_tpu_build_sbvh
+        fs.restype = ctypes.c_int
+        # tri_lo, tri_hi, tri_verts (nullable), n, max_leaf, fat_leaves,
+        # child_lo, child_hi, child, counts, prim_indices, root_lo, root_hi,
+        # node_capacity, ref_capacity, out_n_refs
+        fs.argtypes = [f32, f32, f32, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, f32, f32, i32, i32, i32, f32, f32,
+                       ctypes.c_int, ctypes.c_int, i32]
         _LIB = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the native builder builds and loads here.  The builders
+    themselves raise the build's error instead."""
+    try:
+        _load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
+class NativeCapacityError(RuntimeError):
+    """The C++ builder ran but its output capacity was exceeded (it returns
+    -1): distinct from a builder that cannot be built, so that
+    ``use_native="auto"`` can fall back on it alone."""
 
 
 def build_bvh2_native(tri_lo: np.ndarray, tri_hi: np.ndarray, max_leaf: int,
@@ -100,4 +127,56 @@ def build_bvh2_native(tri_lo: np.ndarray, tri_hi: np.ndarray, max_leaf: int,
         child_lo[:n_slots].copy(), child_hi[:n_slots].copy(),
         child[:n_slots].copy(), counts[:n_slots].copy(),
         prim, root_lo, root_hi,
+    )
+
+
+def build_sbvh_native(tri_lo: np.ndarray, tri_hi: np.ndarray,
+                      tri_verts: np.ndarray | None, max_leaf: int,
+                      fat_leaves: bool = False,
+                      max_refs_factor: float = 1.75):
+    """The C++ SBVH: the numpy ``_build_sbvh``'s split logic with spatial
+    reference splits.  Returns the :func:`build_bvh2_native` tuple, whose
+    ``prim_indices`` holds duplicated references; raises
+    :class:`NativeCapacityError` when the references or node slots
+    overflow ``max_refs_factor`` x n + 64."""
+    lib = _load()
+    n = tri_lo.shape[0]
+    ref_cap = int(n * max_refs_factor) + 64
+    cap = max(ref_cap, 2)
+    tri_lo = np.ascontiguousarray(tri_lo, np.float32)
+    tri_hi = np.ascontiguousarray(tri_hi, np.float32)
+    child_lo = np.zeros((cap, 2, 3), np.float32)
+    child_hi = np.zeros((cap, 2, 3), np.float32)
+    child = np.zeros((cap, 2), np.int32)
+    counts = np.zeros((cap, 2), np.int32)
+    prim = np.zeros((ref_cap,), np.int32)
+    root_lo = np.zeros(3, np.float32)
+    root_hi = np.zeros(3, np.float32)
+    n_refs = np.zeros(1, np.int32)
+
+    def ptr(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    if tri_verts is not None:
+        tri_verts = np.ascontiguousarray(tri_verts.reshape(n, 9), np.float32)
+        vp = ptr(tri_verts, ctypes.c_float)
+    else:
+        vp = ctypes.POINTER(ctypes.c_float)()
+    n_slots = lib.ray_tpu_build_sbvh(
+        ptr(tri_lo, ctypes.c_float), ptr(tri_hi, ctypes.c_float), vp,
+        n, max_leaf, int(bool(fat_leaves)),
+        ptr(child_lo, ctypes.c_float), ptr(child_hi, ctypes.c_float),
+        ptr(child, ctypes.c_int32), ptr(counts, ctypes.c_int32),
+        ptr(prim, ctypes.c_int32),
+        ptr(root_lo, ctypes.c_float), ptr(root_hi, ctypes.c_float),
+        cap, ref_cap, ptr(n_refs, ctypes.c_int32),
+    )
+    if n_slots < 0:
+        raise NativeCapacityError(
+            f"native SBVH ref/slot capacity exceeded (n={n}, "
+            f"ref_cap={ref_cap}); raise max_refs_factor")
+    return (
+        child_lo[:n_slots].copy(), child_hi[:n_slots].copy(),
+        child[:n_slots].copy(), counts[:n_slots].copy(),
+        prim[:int(n_refs[0])].copy(), root_lo, root_hi,
     )

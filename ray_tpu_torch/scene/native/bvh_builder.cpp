@@ -1,4 +1,4 @@
-// Native binned-SAH BVH2 builder.
+// Native binned-SAH BVH2 and SBVH builders.
 //
 // A copy of ray_tpu/scene/native/bvh_builder.cpp (the code is unchanged;
 // only this header differs), so that ray_tpu_torch builds the same nodes
@@ -6,9 +6,9 @@
 // BVH construction is irregular, pointer-chasing work that numpy does
 // poorly at scale.  This builder emits the array layouts of the numpy
 // builder in ../bvh.py (child-bounds-in-parent slots, packed leaf codes);
-// scene/native/__init__.py compiles it on first use with g++ and raises
-// with g++'s message when that fails.  Only ray_tpu_build_bvh2 is bound:
-// the SBVH entry point below is not ported yet (ROADMAP Queue 1 item 18).
+// scene/native/__init__.py compiles it on first use with g++, raises with
+// g++'s message when that fails, and binds both ray_tpu_build_bvh2 and the
+// SBVH entry point ray_tpu_build_sbvh.
 //
 // Build: g++ -O3 -march=native -shared -fPIC bvh_builder.cpp -o libbvh.so
 

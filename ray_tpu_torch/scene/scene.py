@@ -22,8 +22,7 @@ material with ``alpha`` < 1 or an alpha texture expands, as in
 (``set_environment(map_id=...)``) gets ``ray_tpu``'s importance tables
 (:mod:`.env`); ``set_physical_sky`` bakes one from the procedural
 atmosphere.  ``finalize(fast_build=True)`` builds with the HLBVH builder
-(:mod:`.hlbvh`).  Not ported yet, and raising ``NotImplementedError`` with
-the ROADMAP entry that will port it: the SBVH builder.
+(:mod:`.hlbvh`), ``finalize(spatial_splits=True)`` with the SBVH builder.
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops.traverse import INST_LEAF_FLAG
 from ray_tpu_torch.scene import lights as lights_mod
 from ray_tpu_torch.scene.binned import CI, MAX_SUBTREES, pack_binned_scene
@@ -400,11 +398,9 @@ class Scene:
         to the binned kernel (``ray_tpu``'s opt-in of the same name).
         ``fast_build`` builds every BVH2 with the HLBVH builder
         (:mod:`.hlbvh`) instead of the SAH one, as ``ray_tpu`` does; it
-        takes precedence over ``spatial_splits`` (SBVH), which is not
-        ported yet."""
-        if spatial_splits and not fast_build:
-            raise not_ported("the SBVH builder (spatial_splits=True)",
-                             "Queue 1 item 18")
+        takes precedence over ``spatial_splits``, which builds SBVHs
+        (:func:`.bvh.build_bvh2`): a triangle that a leaf references more
+        than once registers one TRI light."""
         device = resolve_device(device)
         if not self._instances:
             for m in range(len(self._meshes)):
@@ -418,12 +414,14 @@ class Scene:
             return self._finalize_tlas(
                 max_leaf if max_leaf is not None else 4,
                 light_tree_min_lights, has_vis, device, fast_build,
+                spatial_splits,
             )
         if instancing != "flatten":
             raise ValueError(f"unknown instancing mode {instancing!r}")
         return self._finalize_flatten(
             max_leaf if max_leaf is not None else 8,
             light_tree_min_lights, has_vis, device, pallas_binned, fast_build,
+            spatial_splits,
         )
 
     def _material_solidity(self) -> np.ndarray:
@@ -476,7 +474,8 @@ class Scene:
         return col, d.two_sided
 
     def _finalize_flatten(self, max_leaf, light_tree_min_lights, has_vis,
-                          device, pallas_binned=False, fast_build=False):
+                          device, pallas_binned=False, fast_build=False,
+                          spatial_splits=False):
         verts, norms, uvs, tris, tri_mat, tri_vis = [], [], [], [], [], []
         tan_q, tan_q0 = [], []
         voffset = 0
@@ -529,6 +528,10 @@ class Scene:
         lo, hi = tri_bounds(vertices, tri_vidx)
         if fast_build:
             bvh = build_hlbvh(lo, hi, max_leaf=max_leaf)
+        elif spatial_splits:
+            bvh = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True,
+                             spatial_splits=True,
+                             tri_verts=vertices[tri_vidx])
         else:
             bvh = build_bvh2(lo, hi, max_leaf=max_leaf, fat_leaves=True)
         perm = bvh.prim_indices
@@ -542,9 +545,14 @@ class Scene:
         light_descs = list(self._lights)
         tri_areas = {}
         tri_light = np.full(tri_vidx.shape[0], -1, np.int32)
+        seen_orig = {}  # original tri id -> light index (SBVH duplicates)
         for t in range(tri_vidx.shape[0]):
             em = self._emissive_light_of(int(tri_mats[t, 0]))
             if em is None:
+                continue
+            orig_id = int(perm[t])
+            if orig_id in seen_orig:
+                tri_light[t] = seen_orig[orig_id]
                 continue
             col, two_sided = em
             p = vertices[tri_vidx[t]]
@@ -561,6 +569,7 @@ class Scene:
             )
             tri_areas[li] = float(area)
             tri_light[t] = li
+            seen_orig[orig_id] = li
 
         common = self._pack_common(
             light_descs, tri_areas, vertices, tri_vidx, light_tree_min_lights
@@ -602,7 +611,7 @@ class Scene:
         return SceneFlat.from_numpy(arrays, static, device)
 
     def _finalize_tlas(self, max_leaf, light_tree_min_lights, has_vis,
-                       device, fast_build=False):
+                       device, fast_build=False, spatial_splits=False):
         """Two-level compile (``ray_tpu``'s ``_finalize_tlas``): one
         object-space BVH per mesh shared by its instances, a TLAS over the
         instance boxes, all binary nodes in one code space (TLAS rows
@@ -620,6 +629,10 @@ class Scene:
             lo, hi = tri_bounds(m.vertices, m.indices)
             if fast_build:
                 blas[mi] = build_hlbvh(lo, hi, max_leaf=max_leaf)
+            elif spatial_splits:
+                blas[mi] = build_bvh2(lo, hi, max_leaf=max_leaf,
+                                      fat_leaves=True, spatial_splits=True,
+                                      tri_verts=m.vertices[m.indices])
             else:
                 blas[mi] = build_bvh2(lo, hi, max_leaf=max_leaf,
                                       fat_leaves=True)
@@ -642,11 +655,17 @@ class Scene:
             # per-mesh emissive ordinals (light id = inst light_base + ordinal)
             local = np.full(perm.shape[0], -1, np.int32)
             em_list = []
+            seen_orig = {}  # original tri id -> ordinal (SBVH duplicates)
             for t in range(perm.shape[0]):
                 em = self._emissive_light_of(int(m.tri_mat[perm[t], 0]))
                 if em is None:
                     continue
+                orig_id = int(perm[t])
+                if orig_id in seen_orig:
+                    local[t] = seen_orig[orig_id]
+                    continue
                 local[t] = len(em_list)
+                seen_orig[orig_id] = local[t]
                 em_list.append((t, em[0], em[1]))
             mesh_emissive[mi] = em_list
             tri_light_local_parts.append(local)

@@ -992,3 +992,125 @@ def test_compressed_decode_on_the_card(mode):
     fmt = pack["tex_fmt"][pack["tex_mip0"][np.maximum(ids, 0)]]
     rgbe = torch.from_numpy((fmt == 4) & (ids >= 0))
     assert torch.equal(outs[0][rgbe], outs[1][rgbe])
+
+
+# ---------------------------------------------------------------------------
+# The cache and denoising slice: radcache_accumulate, the cached renderer,
+# NLM and the UNet on the card
+# ---------------------------------------------------------------------------
+
+def _accumulate_case(n_entries, R, seed, dev):
+    g = np.random.default_rng(seed)
+    entry = torch.tensor(g.integers(0, n_entries, R), device=dev)
+    valid = torch.tensor(g.random(R) < 0.8, device=dev)
+    rad = torch.tensor((g.standard_normal((R, 3)) * 1e3).astype(np.float32),
+                       device=dev)
+    cnt = torch.tensor(g.integers(0, 4, R).astype(np.int32), device=dev)
+    table = torch.tensor(g.standard_normal((n_entries + 1, 3)).astype(
+        np.float32), device=dev)
+    counts = torch.tensor(g.integers(0, 9, n_entries + 1).astype(np.int32),
+                          device=dev)
+    return table, counts, entry, rad, cnt, valid
+
+
+@pytest.mark.parametrize("n_entries,R", [(1 << 6, 20_000), (1 << 20, 777_600),
+                                         (1, 50_000)])
+def test_radcache_accumulate_kernel_bit_exact(n_entries, R):
+    """Colliding lanes (2^6 entries), an update pass's lane count over the
+    default table, and one segment of 40,000 lanes: bit-equal to the plain
+    version on the same inputs on the CPU, and the same in two runs."""
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render.radcache import (accumulate_plain,
+                                               accumulate_segments)
+
+    args = _accumulate_case(n_entries, R, n_entries, torch.device("cuda"))
+    cuda_build.reset_launch_counts()
+    out = accumulate_segments(*args)
+    again = accumulate_segments(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["radcache_accumulate"] == 2
+    ref = accumulate_plain(*(a.cpu() for a in args))
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o.cpu().view(torch.int32), r.view(torch.int32))
+        assert torch.equal(o.view(torch.int32), a.view(torch.int32))
+
+
+def test_radcache_accumulate_rejects_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.render.radcache import accumulate_segments
+
+    table, counts, entry, rad, cnt, valid = _accumulate_case(
+        64, 100, 0, torch.device("cuda"))
+    with pytest.raises(TypeError):
+        accumulate_segments(table, counts, entry, rad.double(), cnt, valid)
+    # a valid lane outside the table raises, as on the CPU
+    wrong = entry.clone()
+    wrong[int(torch.nonzero(valid)[0])] = 65
+    with pytest.raises(IndexError, match="outside the table"):
+        accumulate_segments(table, counts, wrong, rad, cnt, valid)
+    # an invalid lane's entry is never read: the CPU's sums, bit for bit
+    wild = torch.where(valid, entry, torch.where(
+        torch.arange(100, device=entry.device) % 2 == 0, 4_000, -3))
+    out = accumulate_segments(table, counts, wild, rad, cnt, valid)
+    ref = accumulate_segments(*(a.cpu() for a in (table, counts, wild, rad,
+                                                  cnt, valid)))
+    for o, r in zip(out, ref):
+        assert torch.equal(o.cpu().view(torch.int32), r.view(torch.int32))
+
+
+def test_cached_renderer_on_the_card():
+    """A 64x48 cached renderer: each update pass launches the accumulate
+    kernel once; two runs give bit-identical caches; the image is within
+    the renderer gate of the CPU path's."""
+    _need_cuda()
+    import ray_tpu_torch as ray_tpu
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    def run(backend):
+        sc, cam = cornell_scene()
+        r = ray_tpu.create_renderer(
+            ray_tpu.RenderSettings(width=64, height=48,
+                                   use_spatial_cache=True,
+                                   cache_entries=1 << 16, cache_downsample=2),
+            ray_tpu.PassSettings(max_total_depth=5, min_total_depth=2),
+            enabled_types=(backend,))
+        img = r.render(sc.finalize(device=r.device), cam, 3)
+        return r, img
+
+    cuda_build.reset_launch_counts()
+    a, img_a = run("gpu")
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["radcache_accumulate"] == 3
+    b, img_b = run("gpu")
+    for f in ("key_lo", "key_hi", "rad_prev", "cnt_prev", "frames"):
+        assert torch.equal(getattr(a.cache, f), getattr(b.cache, f)), f
+    assert torch.equal(img_a, img_b)
+    _, img_c = run("cpu")
+    close = np.isclose(img_a.cpu().numpy(), img_c.numpy(), rtol=1e-3,
+                       atol=1e-4).all(-1).mean()
+    assert close >= 0.99, close
+
+
+def test_denoisers_on_the_card():
+    """NLM within 1e-5 relative of the CPU on >= 99.9% of values; the UNet
+    (TF32 off) within 1e-4 of the output's largest value."""
+    _need_cuda()
+    from ray_tpu_torch.models import nlm, unet
+
+    g = np.random.default_rng(0)
+    H, W = 96, 128
+    color = (g.random((H, W, 3)) ** 2 * 3).astype(np.float32)
+    var = (g.random((H, W, 3)) * 0.05).astype(np.float32)
+    base = g.random((H, W, 3)).astype(np.float32)
+    dn = g.random((H, W, 4)).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = [torch.tensor(a, device=dev) for a in (color, var, base, dn)]
+        den = nlm.nlm_denoise(t[0], t[1], base_color=t[2], depth_normal=t[3])
+        net = unet.UNetFilter(device=dev).denoise(t[0], t[2], t[3][..., :3])
+        outs.append((den.cpu().numpy(), net.cpu().numpy()))
+    (gd, gn), (cd, cn) = outs
+    assert np.isclose(gd, cd, rtol=1e-5, atol=1e-7).mean() >= 0.999
+    assert np.abs(gn - cn).max() <= 1e-4 * np.abs(cn).max()

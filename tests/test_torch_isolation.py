@@ -6,8 +6,10 @@
     physical sky (``render/sky.py``), one of compressed textures and
     normal maps, one of an HLBVH scene (``scene/hlbvh.py``) with the
     SH-L1 output, and a CPU renderer's frame through the user's entry
-    point (``create_renderer`` → ``render`` → ``pixels``); afterwards
-    neither ``jax`` nor any ``ray_tpu`` module is loaded.
+    point (``create_renderer`` → ``render`` → ``pixels``), an SBVH
+    finalize, a cached renderer's sample and ``denoise_image("nlm")`` and
+    ``("unet")``; afterwards neither ``jax`` nor any ``ray_tpu`` module is
+    loaded.
 (b) No file under ``ray_tpu_torch/`` imports ``jax`` or ``ray_tpu``.
 (c) On a machine without CUDA, ``finalize()`` with no device raises
     ``RuntimeError`` instead of falling back to the CPU; so do
@@ -57,6 +59,16 @@ r = ray_tpu.create_renderer(ray_tpu.RenderSettings(width=8, height=6),
                             enabled_types=("cpu",))
 r.render(sc.finalize(device="cpu"), cam, 2)
 assert r.pixels(cam, ray_tpu.ViewTransform.AGX).shape == (6, 8, 3)
+# the SBVH builder, a cached renderer's sample and both denoisers
+sbvh = sc.finalize(device="cpu", spatial_splits=True)
+rc = ray_tpu.create_renderer(
+    ray_tpu.RenderSettings(width=8, height=6, use_spatial_cache=True,
+                           cache_entries=1 << 10, cache_downsample=1),
+    ray_tpu.PassSettings(max_total_depth=2), enabled_types=("cpu",))
+rc.render(sbvh, cam, 1)
+assert rc.cache is not None
+for mode in ("nlm", "unet"):
+    assert tuple(rc.denoise_image(mode).shape) == (6, 8, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
 print("LOADED", bad)

@@ -16,6 +16,11 @@
   ``SceneFlat.from_numpy`` of ray_tpu's scene gives the port's.
 * ``colonnade_scene(n_cols=2)``: both packages refuse to partition it (a
   node too large to be a subtree has a two-triangle leaf child).
+
+ray_tpu's loader builds its library in place under several test
+processes; every test that needs it waits for it first
+(``wait_for_ray_tpu_native``), so a process that lost the race fails
+naming it, and never compares the port's native nodes with numpy ones.
 """
 
 import jax
@@ -30,7 +35,13 @@ from ray_tpu_torch.scene.binned import CI
 from ray_tpu_torch.scene.binned import pack_binned_scene as t_pack
 from ray_tpu_torch.scene.scene import SceneFlat
 from ray_tpu_torch.utils.test_scenes import colonnade_scene as t_colonnade
-from test_torch_scene import _ARRAYS, _STATIC, _assert_same, _assert_scene_equal
+from test_torch_scene import (
+    _ARRAYS,
+    _STATIC,
+    _assert_same,
+    _assert_scene_equal,
+    wait_for_ray_tpu_native,
+)
 
 BVH_FIELDS = ("child_lo", "child_hi", "child", "counts", "prim_indices",
               "root_lo", "root_hi")
@@ -62,6 +73,7 @@ def _interpret_cloud():
 def test_native_builder_matches_ray_tpu(max_leaf):
     lo, hi = _cloud_bounds(20_000, 7)
     assert lo.shape[0] >= tbvh.NATIVE_BUILDER_THRESHOLD
+    wait_for_ray_tpu_native()
     ref = jbvh.build_bvh2(lo, hi, max_leaf=max_leaf, use_native="always")
     for kw in ({}, {"use_native": "always"}):
         b = tbvh.build_bvh2(lo, hi, max_leaf=max_leaf, **kw)
@@ -71,6 +83,7 @@ def test_native_builder_matches_ray_tpu(max_leaf):
 
 def test_native_builder_fat_leaves_matches_ray_tpu():
     lo, hi = _cloud_bounds(9_000, 5)
+    wait_for_ray_tpu_native()
     ref = jbvh.build_bvh2(lo, hi, max_leaf=8, use_native="always",
                           fat_leaves=True)
     b = tbvh.build_bvh2(lo, hi, max_leaf=8, fat_leaves=True)
@@ -79,9 +92,14 @@ def test_native_builder_fat_leaves_matches_ray_tpu():
 
 
 def test_sbvh_raises_naming_item_18():
+    """Item 18 is ported: ``spatial_splits=True`` builds ray_tpu's numpy
+    SBVH below the native threshold (tests/test_torch_sbvh.py holds both
+    builders and both finalize modes)."""
     lo, hi = _cloud_bounds(100, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        tbvh.build_bvh2(lo, hi, spatial_splits=True)
+    ref = jbvh.build_bvh2(lo, hi, spatial_splits=True)
+    b = tbvh.build_bvh2(lo, hi, spatial_splits=True)
+    for f in BVH_FIELDS:
+        _assert_same(getattr(b, f), getattr(ref, f), f)
 
 
 def test_partition_and_pack_match_ray_tpu():
@@ -108,7 +126,10 @@ def test_partition_and_pack_match_ray_tpu():
 
 @pytest.fixture(scope="module")
 def colonnade3():
-    """~5 s: both finalizes of the 106,402-triangle scene."""
+    """~5 s: both finalizes of the 106,402-triangle scene (ray_tpu's with
+    its native builder: "auto", which would quietly build numpy nodes if
+    the library were missing)."""
+    wait_for_ray_tpu_native()
     jsc, _ = j_colonnade(n_cols=3)
     tsc, _ = t_colonnade(n_cols=3)
     kw = dict(instancing="flatten", pallas_binned=True)

@@ -35,6 +35,7 @@ from ray_tpu.utils.test_scenes import cornell_scene as j_cornell
 from ray_tpu_torch.api import RendererType, create_renderer
 from ray_tpu_torch.render import tonemap as ttm
 from ray_tpu_torch.render.integrator import PassSettings
+from ray_tpu_torch.render.radcache import make_cache
 from ray_tpu_torch.render.renderer import Renderer, RenderSettings
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
 import test_torch_scene  # noqa: F401  (one intra-op thread)
@@ -173,7 +174,9 @@ def test_renderer_adaptive_sampling_matches_ray_tpu(renderers):
 
 def test_save_and_load_state_round_trip(tmp_path):
     """A renderer restored from ``save_state`` continues exactly as the one
-    that saved it; wrong shapes and a saved cache raise."""
+    that saved it; wrong shapes raise; a saved cache (which raised until
+    ROADMAP Queue 1 item 24 was ported) comes back
+    (tests/test_torch_radcache.py holds a cached round trip)."""
     sc, cam = t_cornell()
     scene = sc.finalize(device="cpu")
     settings = RenderSettings(width=8, height=6, min_samples=1,
@@ -193,28 +196,38 @@ def test_save_and_load_state_round_trip(tmp_path):
     with pytest.raises(ValueError):
         wrong.load_state(str(path))
     data = dict(np.load(path))
-    data["cache_key_lo"] = np.zeros(4, np.uint32)
+    cache = make_cache(4, device="cpu").to_numpy()
+    cache["key_lo"][1] = 7
+    data.update({f"cache_{k}": v for k, v in cache.items()})
     np.savez(tmp_path / "cached.npz", **data)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        b.load_state(str(tmp_path / "cached.npz"))
+    b.load_state(str(tmp_path / "cached.npz"))
+    assert b.cache is not None and int(b.cache.key_lo[1]) == 7
 
 
 def test_unported_renderer_parts_raise():
+    """The spatial cache (item 24) and the NLM and UNet denoisers (items 26
+    and 27) raised here until they were ported: now they run
+    (tests/test_torch_radcache.py and tests/test_torch_denoise.py hold
+    them to ray_tpu); an unknown denoiser and a resolve before any update
+    still raise."""
     sc, cam = t_cornell()
     scene = sc.finalize(device="cpu")
     r = Renderer(RenderSettings(width=4, height=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 24"):
-        r.update_spatial_cache(scene, cam)
-    with pytest.raises(NotImplementedError, match="item 24"):
+    with pytest.raises(ValueError, match="no cache"):
         r.resolve_spatial_cache()
-    with pytest.raises(NotImplementedError, match="item 26"):
-        r.denoise_image("nlm")
-    with pytest.raises(NotImplementedError, match="item 27"):
-        r.denoise_image("unet")
+    r.update_spatial_cache(scene, cam)
+    r.resolve_spatial_cache()
+    assert r.cache_iteration == 1
+    r.render(scene, cam, 1)
+    for mode in ("nlm", "unet"):
+        assert tuple(r.denoise_image(mode).shape) == (4, 4, 3)
+    with pytest.raises(ValueError):
+        r.denoise_image("bilateral")
     cached = Renderer(RenderSettings(width=4, height=4,
-                                     use_spatial_cache=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 24"):
-        cached.render(scene, cam, 1)
+                                     use_spatial_cache=True,
+                                     cache_entries=1 << 8), device="cpu")
+    cached.render(scene, cam, 1)
+    assert cached.cache is not None and cached.cache_iteration == 1
     # a scene on another device than the renderer's
     other = Renderer(RenderSettings(width=4, height=4), device="meta")
     with pytest.raises(ValueError, match="renderer"):

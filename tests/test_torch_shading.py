@@ -27,6 +27,7 @@ from ray_tpu_torch.render import raygen as trg
 from ray_tpu_torch.render import surface as tsurf
 from ray_tpu_torch.render import uber as tuber
 from ray_tpu_torch.render.integrator import PassSettings, render_tile
+from ray_tpu_torch.render.radcache import make_cache
 from ray_tpu_torch.scene.lights import LightDesc, LightType
 from ray_tpu_torch.scene.materials import MaterialDesc, ShadingNode
 from ray_tpu_torch.utils.test_scenes import cornell_scene as t_cornell
@@ -361,17 +362,21 @@ def test_unported_render_options_raise():
     assert tuple(out["shl1"].shape) == (64, 4, 3)
     assert bool(torch.isfinite(out["shl1"]).all())
     # a line light raised here until ROADMAP Queue 1 item 30 was ported,
-    # and per-ray-type visibility masks until item 20 was; the radiance
-    # cache (item 24) still raises
+    # per-ray-type visibility masks until item 20 was, and the radiance
+    # cache until item 24 was (tests/test_torch_radcache.py); without a
+    # cache to update the cache modes refuse
     sc2, cam2 = t_cornell()
     sc2.add_light(LightDesc(type=LightType.LINE, radius=0.1, height=0.5))
     assert bool(torch.isfinite(_render_small(sc2, cam2)["color"]).all())
     sc2.add_instance(0, visibility=1)
     assert bool(torch.isfinite(_render_small(sc2, cam2)["color"]).all())
-    with pytest.raises(NotImplementedError, match="item 24"):
-        render_tile(scene, cam, None, 0, 0, 1, 0, width=8, height=8,
-                    tile_w=8, tile_h=8, settings=PassSettings(),
-                    use_filter_table=False, cache_mode="update")
+    kw = dict(width=8, height=8, tile_w=8, tile_h=8, settings=PassSettings(),
+              use_filter_table=False)
+    out = render_tile(scene, cam, None, 0, 0, 1, 0, cache_mode="update",
+                      cache=make_cache(1 << 8, device="cpu"), **kw)
+    assert int(out["cache"].cnt_curr.sum()) > 0
+    with pytest.raises(ValueError, match="needs a cache"):
+        render_tile(scene, cam, None, 0, 0, 1, 0, cache_mode="update", **kw)
 
 
 # ---------------------------------------------------------------------------
