@@ -103,7 +103,10 @@ Phases:
    scene, and of one frame of each ``SKY`` scene; every launch of a
    1080p frame of each ``SBVH`` scene (the colonnade's 2x2 grid), with
    its finalize seconds against the SAH one's; ``radcache_accumulate``
-   on ``COLLIDE`` (64 entries, 20,000 lanes);
+   on ``COLLIDE`` (64 entries, 20,000 lanes) and on each of
+   ``ACC_STRESS`` (``accumulate_stress_case``), twice, the runs
+   bit-identical, and its 100,000-lane segment timed beside
+   ``index_add_``;
 4. holds a 64x48 tile of each scene rendered on the card against the same
    tile on the port's plain CPU path (the colonnade's covers columns,
    terrain and floor; the alpha box's lies on the box, which stands in the
@@ -195,8 +198,11 @@ Phases:
    a ``sphere_vis`` flatten frame (``trace_tlas_vis``), each masked
    kernel beside its unmasked one on the same rays; ``radcache_accumulate``
    on the last update pass's lanes beside its plain version and
-   ``index_add_``; and prints one ``kernels`` JSON line (17 entries), the
-   card line, and last the ``{"ok": true, ...}`` line.
+   ``index_add_`` (both back to back, as every kernel, and in one CUDA
+   graph: device time), and the whole ``accumulate_segments`` call beside
+   the plain version (mask + ``index_add_`` x2); and prints one
+   ``kernels`` JSON line (17 entries), the card line, and last the
+   ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
 """
@@ -826,6 +832,32 @@ def time_launches(fn, reps, warmup=True):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_graph(fn, reps):
+    """Mean device ms of ``fn`` over ``reps`` calls captured in one CUDA
+    graph: a kernel of a few microseconds launches faster than the host
+    can issue it, so back-to-back calls would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -2552,10 +2584,20 @@ CACHE_MEAN_REL = 0.08
 CACHE_DET_SAMPLES = 3
 # the forced-collision case: entries, lanes
 COLLIDE = (1 << 6, 20_000)
+# radcache_accumulate's stress cases (accumulate_stress_case)
+ACC_STRESS = ("segment lengths", "one segment of 100,000 lanes",
+              "every lane invalid", "one lane valid", "rows 0 and n_rows - 1",
+              "signed zeros, infinities and NaNs")
+# their segment lengths, each placed with its head at each of the offsets
+# in a tile of the kernel's (512 sorted positions, position t + 128 j on
+# thread t: warps of 32, rows of 128)
+ACC_LENGTHS = (1, 31, 32, 33, 255, 256, 257, 1025)
+ACC_TILE = 512
+ACC_OFFSETS = (0, 1, 31, 32, 127, 128, 129, 511)
 # radcache_accumulate's bound: a valid lane reads its entry (4 B), its
-# radiance (12 B), its count (4 B) and its sort index (4 B); a touched
-# entry reads and writes its radiance and count (32 B)
-ACC_BYTES_PER_LANE = 24
+# radiance (12 B), its count (4 B) and its sort index (8 B: torch.sort's
+# int64); a touched entry reads and writes its radiance and count (32 B)
+ACC_BYTES_PER_LANE = 28
 ACC_BYTES_PER_ENTRY = 32
 SAMPLE04 = dict(size=256, samples=8, max_total_depth=4)
 DENOISE_REPS = 3
@@ -2694,6 +2736,106 @@ def check_collisions(errs):
     print(f"  parity forced collisions ({n_entries} entries, {R} lanes, "
           f"{int(valid.sum())} valid, longest segment "
           f"{int(torch.bincount(entry[valid]).max())}): bit-exact")
+
+
+def accumulate_stress_case(name):
+    """The CPU tensors (table, counts, entry, rad, cnt, valid) of the
+    ``ACC_STRESS`` case ``name``, from a numpy seed.  The lanes are
+    shuffled and ~25% of them invalid (their entries random), so a
+    segment's sorted lanes are scattered over ``rad``.
+
+    * "segment lengths": a segment of each of ``ACC_LENGTHS`` lanes with its
+      head at each of ``ACC_OFFSETS`` within an ``ACC_TILE``-position tile
+      (so at tile, warp and thread boundaries), fillers of other lengths
+      between them;
+    * "one segment of 100,000 lanes", after three of 37 lanes and before
+      one of 5;
+    * "every lane invalid" and "one lane valid" (3,000 lanes);
+    * "rows 0 and n_rows - 1": every valid lane in the table's first or
+      last row (1,025 rows);
+    * "signed zeros, infinities and NaNs": 64 entries of skewed sizes (a
+      few lanes to thousands), entry e drawing its radiance by e % 8 from
+      normals, ±0, -0 only (on a -0 table value), +inf with normals, +inf
+      with -inf, NaNs with payloads (quiet and signalling, both signs)
+      among normals, subnormals with ±0, normals on a signalling-NaN table
+      value."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(ACC_STRESS.index(name) + 40)
+    if name == "segment lengths":
+        sizes, pos = [], 0
+        for length in ACC_LENGTHS:
+            for off in ACC_OFFSETS:
+                fill = (off - pos) % ACC_TILE
+                if fill:
+                    sizes.append(fill)
+                sizes += [length, int(g.integers(1, 40))]
+                pos += fill + length + sizes[-1]
+    elif name == "one segment of 100,000 lanes":
+        sizes = [37, 37, 37, 100_000, 5]
+    elif name == "rows 0 and n_rows - 1":
+        sizes = [4_000] + [0] * 1_023 + [3_000]
+    else:
+        sizes = {"every lane invalid": [0, 0, 0],
+                 "one lane valid": [0, 1, 0],
+                 "signed zeros, infinities and NaNs":
+                     np.floor(3_000 * g.random(64) ** 4).astype(int) + 1,
+                 }[name]
+    sizes = np.asarray(sizes, np.int64)
+    n_rows = len(sizes) + 1 if name != "rows 0 and n_rows - 1" else len(sizes)
+    n_valid = int(sizes.sum())
+    R = max(n_valid * 4 // 3, 3_000)
+    lanes = g.permutation(R)
+    entry = g.integers(0, n_rows, R)
+    valid = np.zeros(R, bool)
+    entry[lanes[:n_valid]] = np.repeat(np.arange(len(sizes)), sizes)
+    valid[lanes[:n_valid]] = True
+    rad = (g.standard_normal((R, 3)) * 1e3).astype(np.float32)
+    table = g.standard_normal((n_rows, 3)).astype(np.float32)
+    if name == "signed zeros, infinities and NaNs":
+        cat = np.where(valid, entry % 8, 0)[:, None]
+        u = g.random((R, 3), dtype=np.float32)
+        signs = np.where(u < 0.5, -1.0, 1.0).astype(np.float32)
+        nan_bits = (g.integers(1, 1 << 22, (R, 3)) | 0x7F800000
+                    | (g.integers(0, 2, (R, 3)) << 31)
+                    | (g.integers(0, 2, (R, 3)) << 22)).astype(np.uint32)
+        rad = np.where(cat == 1, signs * 0.0, rad)
+        rad = np.where(cat == 2, np.float32(-0.0), rad)
+        rad = np.where((cat == 3) & (u < 0.1), np.inf, rad)
+        rad = np.where(cat == 4, signs * np.inf, rad)
+        rad = np.where((cat == 5) & (u < 0.05), nan_bits.view(np.float32),
+                       rad)
+        rad = np.where(cat == 6, np.where(u < 0.3, signs * 0.0, signs
+                                          * np.float32(1e-40) * u), rad)
+        rad = rad.astype(np.float32)
+        table[2::8] = -0.0
+        table.view(np.uint32)[7::8] = 0x7FA12345
+    cnt = g.integers(0, 4, R).astype(np.int32)
+    counts = g.integers(0, 9, n_rows).astype(np.int32)
+    return tuple(torch.from_numpy(a) for a in (table, counts, entry, rad,
+                                                cnt, valid))
+
+
+def check_accumulate_stress(errs):
+    """radcache_accumulate on each ``ACC_STRESS`` case, twice: both runs
+    bit-identical and bit-exact against the plain version on the CPU; the
+    100,000-lane segment's launch timed beside ``index_add_`` x2."""
+    from ray_tpu_torch.render import radcache
+
+    for name in ACC_STRESS:
+        args = accumulate_stress_case(name)
+        gpu = tuple(a.cuda() for a in args)
+        out = radcache.accumulate_segments(*gpu)
+        again = radcache.accumulate_segments(*gpu)
+        if not all(same_bits(a, b) for a, b in zip(out, again)):
+            fail(f"two radcache_accumulate runs differ on {name}")
+        check_accumulate(out, radcache.accumulate_plain(*args), name, errs)
+        print(f"  parity {name} ({args[2].shape[0]} lanes, "
+              f"{int(args[5].sum())} valid): bit-exact, two runs "
+              f"bit-identical")
+        if name == "one segment of 100,000 lanes":
+            accumulate_timing(gpu, label="the 100,000-lane segment case's")
 
 
 def check_accumulate(out, ref, label, errs):
@@ -2928,11 +3070,18 @@ def denoise_timings(r):
               f"{base / 2**30:.3f} GiB [{CARD}]")
 
 
-def accumulate_timing(args):
-    """radcache_accumulate at an update pass's inputs: the kernel (the
-    wrapper's own launch, ``launch_sorted``, on the lanes ``sort_lanes``
-    ordered), the plain version and ``index_add_`` (the library call: the
-    same sums in atomics' order), and the bound."""
+def accumulate_timing(args, label="an update pass's"):
+    """radcache_accumulate on ``args``: the kernel (the wrapper's own
+    launch, ``launch_sorted``, on the lanes ``sort_lanes`` ordered) beside
+    ``index_add_`` x2 (the library call: the same sums in atomics' order),
+    each timed back to back (``time_launches``, as every kernel of the
+    ``kernels`` line: ``ms`` and ``library_ms``) and in one CUDA graph
+    (``time_graph``: ``device_ms`` and ``library_device_ms``, since a
+    launch of ~0.01 ms back to back times the host's issue rate), and the
+    bound; the whole ``accumulate_segments`` call as the renderer makes it
+    (checks and their host sync, key, sort, clones, kernel) beside the
+    plain version, mask + ``index_add_`` x2, the whole library route
+    (back to back)."""
     import torch
 
     from ray_tpu_torch.render import radcache
@@ -2957,14 +3106,20 @@ def accumulate_timing(args):
     bound = (ACC_BYTES_PER_LANE * n_valid + ACC_BYTES_PER_ENTRY * touched) / (
         PEAK_BYTES_PER_S) * 1e3
     row = dict(ms=time_launches(kernel, 50),
+               device_ms=time_graph(kernel, 50),
                plain_ms=time_launches(
                    lambda: radcache.accumulate_plain(*args), 20),
-               library_ms=time_launches(library, 50), bound_ms=bound)
-    print(f"radcache_accumulate on an update pass's {R} lanes ({n_valid} "
-          f"valid, {touched} entries touched): kernel {row['ms']:.4f} ms, "
-          f"plain {row['plain_ms']:.4f} ms, index_add_ x2 "
-          f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms (bytes) "
-          f"[{CARD}]")
+               library_ms=time_launches(library, 50),
+               library_device_ms=time_graph(library, 50), bound_ms=bound,
+               whole_ms=time_launches(
+                   lambda: radcache.accumulate_segments(*args), 20))
+    print(f"radcache_accumulate on {label} {R} lanes ({n_valid} valid, "
+          f"{touched} entries touched): kernel {row['ms']:.5f} ms back to "
+          f"back, {row['device_ms']:.5f} ms in a graph; index_add_ x2 "
+          f"{row['library_ms']:.5f} / {row['library_device_ms']:.5f} ms; "
+          f"bound {bound:.5f} ms (bytes); the whole accumulate_segments "
+          f"{row['whole_ms']:.5f} ms, the plain version (mask + index_add_ "
+          f"x2) {row['plain_ms']:.5f} ms [{CARD}]")
     return row
 
 
@@ -3154,6 +3309,7 @@ def main() -> int:
     # radcache_accumulate on forced collisions
     sbvhs = sbvh_scenes(worker, settings, settings_big, errs)
     check_collisions(errs)
+    check_accumulate_stress(errs)
 
     phase("card vs CPU tiles", t_start)
     # ---- small tiles: card vs the port's plain CPU path ---------------
@@ -3429,6 +3585,9 @@ def main() -> int:
         "ms": acc["ms"], "plain_ms": acc["plain_ms"],
         "bound_ms": acc["bound_ms"], "bound_by": "bytes",
         "library_ms": acc["library_ms"],
+        # the same two launches in one CUDA graph: device time
+        "device_ms": acc["device_ms"],
+        "library_device_ms": acc["library_device_ms"],
     })
     g = gather_rows["frame 2,073,600 lanes"]
     kernels.append({

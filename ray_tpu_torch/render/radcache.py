@@ -277,9 +277,10 @@ def accumulate_segments(rad_curr, cnt_curr, entry, rad, cnt, valid):
     ``rad_curr`` (N+1, 3) f32 and ``cnt_curr`` (N+1,) i32 are the tables,
     ``entry`` (R,) int64 in [0, N+1), ``rad`` (R, 3) f32, ``cnt`` (R,)
     i32, ``valid`` (R,) bool.  The lanes are sorted by entry with a stable
-    sort (invalid lanes keyed past the end), then one thread an entry's
-    segment adds its lanes in lane order, starting from the table's value:
-    the plain version's sums, bit for bit.  A valid lane whose entry lies
+    sort (invalid lanes keyed past the end), then each entry's segment adds
+    its lanes in lane order, starting from the table's value (one thread a
+    segment inside the kernel's tile, one warp one that runs past it): the
+    plain version's sums, bit for bit, NaN bits included.  A valid lane whose entry lies
     outside the table raises ``IndexError`` on either device (one host
     sync); an invalid lane's entry is never read."""
     n_rows = rad_curr.shape[0]
@@ -324,11 +325,10 @@ def _check_entries(entry, valid, n_rows):
 
 def sort_lanes(entry, valid, n_rows):
     """The kernel's lane order: int32 keys (an invalid lane keyed
-    ``n_rows``, past every entry) sorted stably, and the int32 lane index
-    of each sorted key."""
+    ``n_rows``, past every entry) sorted stably, and the int64 lane index
+    of each sorted key, as ``torch.sort`` gives them."""
     key = torch.where(valid, entry, n_rows).to(torch.int32)
-    keys, order = torch.sort(key, stable=True)
-    return keys, order.to(torch.int32)
+    return torch.sort(key, stable=True)
 
 
 def launch_sorted(keys, order, rad, cnt, rad_out, cnt_out):

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 pytestmark = pytest.mark.cuda
 
 
@@ -395,8 +397,6 @@ def stress():
     last three with rays starting inside boxes, zero and NaN direction
     components, NaN origins and t_min > 0."""
     _need_cuda()
-    import chip_smoke
-
     return chip_smoke.stress_cases(100_000, torch.device("cuda"))
 
 
@@ -1013,18 +1013,24 @@ def _accumulate_case(n_entries, R, seed, dev):
     return table, counts, entry, rad, cnt, valid
 
 
-@pytest.mark.parametrize("n_entries,R", [(1 << 6, 20_000), (1 << 20, 777_600),
-                                         (1, 50_000)])
-def test_radcache_accumulate_kernel_bit_exact(n_entries, R):
+@pytest.mark.parametrize("case", [
+    (1 << 6, 20_000), (1 << 20, 777_600), (1, 50_000), *chip_smoke.ACC_STRESS])
+def test_radcache_accumulate_kernel_bit_exact(case):
     """Colliding lanes (2^6 entries), an update pass's lane count over the
-    default table, and one segment of 40,000 lanes: bit-equal to the plain
-    version on the same inputs on the CPU, and the same in two runs."""
+    default table, one segment of 40,000 lanes, and ``chip_smoke.py``'s
+    ``ACC_STRESS`` cases (``accumulate_stress_case``): bit-equal to the
+    plain version on the same inputs on the CPU, NaN bits included, and
+    the same in two runs."""
     _need_cuda()
     from ray_tpu_torch.ops import cuda_build
     from ray_tpu_torch.render.radcache import (accumulate_plain,
                                                accumulate_segments)
 
-    args = _accumulate_case(n_entries, R, n_entries, torch.device("cuda"))
+    if isinstance(case, str):
+        args = tuple(a.cuda() for a in chip_smoke.accumulate_stress_case(case))
+    else:
+        n_entries, R = case
+        args = _accumulate_case(n_entries, R, n_entries, torch.device("cuda"))
     cuda_build.reset_launch_counts()
     out = accumulate_segments(*args)
     again = accumulate_segments(*args)

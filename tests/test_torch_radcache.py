@@ -9,6 +9,10 @@
 * ``accumulate`` (``index_add_`` on the CPU), ``resolve`` and ``query`` on
   a state carried across from ray_tpu (``cache_from_numpy``): every table
   bit-equal, the count cap and aging included.
+* ``accumulate`` on each of ``chip_smoke.py``'s ``ACC_STRESS`` cases (the
+  inputs the card's tests hold ``csrc/radcache_accumulate.cu`` to), on a
+  state carried across: bit-equal to ray_tpu's, NaN bits each by its own
+  rule (``test_accumulate_stress_matches_ray_tpu``).
 * ``Renderer`` with ``use_spatial_cache`` (update → resolve → query, 6
   samples of a 24x24 flagship) against ray_tpu's: the hit positions differ
   by ulps, so a few vertices land in a neighbouring voxel — at least 99%
@@ -25,6 +29,7 @@
 
 import dataclasses
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,6 +192,73 @@ def test_accumulate_entries_outside_the_table():
         with pytest.raises(IndexError, match="outside the table"):
             T.accumulate_segments(_t(table), _t(cnt_t), _t(wrong), _t(rad),
                                   _t(cnt), _t(valid))
+
+
+QUIET, DEFAULT_NAN = 0x00400000, 0xFFC00000
+
+
+def _nan_bits(seq, sum_first):
+    """The bits x86 gives the float32 fold ``seq[0] + seq[1] + ...`` where
+    it is NaN.  An add returns its first operand's NaN, quieted, else the
+    second's, else the default NaN (inf + -inf).  With the running sum as
+    the first operand (``index_add_``, the port's plain version) the first
+    NaN of the fold stays; with the lane first (XLA's scatter-add) each
+    later NaN lane replaces it."""
+    if len(seq) == 1:
+        return int(seq.view(np.uint32)[0])     # nothing was added
+    with np.errstate(invalid="ignore", over="ignore"):
+        first = int(np.argmax(np.isnan(np.cumsum(seq, dtype=np.float32))))
+    bits = seq.view(np.uint32)
+    lead = (int(bits[first]) | QUIET if np.isnan(seq[first])
+            else DEFAULT_NAN)
+    later = np.flatnonzero(np.isnan(seq[first + 1:]))
+    if sum_first or not len(later):
+        return lead
+    return int(bits[first + 1 + later[-1]]) | QUIET
+
+
+@pytest.mark.parametrize("name", chip_smoke.ACC_STRESS)
+def test_accumulate_stress_matches_ray_tpu(name):
+    """``accumulate`` on ``chip_smoke.accumulate_stress_case(name)``: its
+    table as the state's first rows, carried across from ray_tpu (whose
+    dump row, past them, takes its invalid lanes' zeros).  The tables are
+    bit-equal to ray_tpu's where a value is not NaN, and NaN at the same
+    places.  A NaN's bits differ where two NaNs meet: ray_tpu's XLA
+    scatter-add adds (lane, sum), the port's ``index_add_`` (sum, lane),
+    and x86 keeps the first operand's NaN.  Each is held to its own rule
+    (``_nan_bits``); ``csrc/radcache_accumulate.cu`` keeps the port's."""
+    table, counts, entry, rad, cnt, valid = (
+        a.numpy() for a in chip_smoke.accumulate_stress_case(name))
+    n = table.shape[0]
+    rs = J.make_cache(n, CAM)._replace(
+        rad_curr=jnp.asarray(np.concatenate([table, np.zeros((1, 3),
+                                                             np.float32)])),
+        cnt_curr=jnp.asarray(np.concatenate([counts, np.zeros(1, np.int32)])))
+    port = T.cache_from_numpy({f: np.asarray(getattr(rs, f))
+                               for f in rs._fields}, device="cpu")
+    ra = J.accumulate(rs, jnp.asarray(entry), jnp.asarray(rad),
+                      jnp.asarray(cnt), jnp.asarray(valid))
+    pa = T.accumulate(port, _t(entry), _t(rad), _t(cnt), _t(valid))
+    np.testing.assert_array_equal(pa.cnt_curr.numpy(), np.asarray(ra.cnt_curr))
+    got, ref = pa.rad_curr.numpy(), np.asarray(ra.rad_curr)
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.uint32)[~nan],
+                                  ref.view(np.uint32)[~nan])
+    for e, ch in zip(*np.nonzero(nan)):
+        seq = np.concatenate([table[e, ch:ch + 1],
+                              rad[valid & (entry == e), ch]])
+        assert int(got.view(np.uint32)[e, ch]) == _nan_bits(seq, True)
+        assert int(ref.view(np.uint32)[e, ch]) == _nan_bits(seq, False)
+    if name == "signed zeros, infinities and NaNs":
+        # the case reaches what it is for: -0 sums, infinities, NaN sums
+        # from a lane's payload, from the table's and from inf + -inf, and
+        # rows where the two rules part
+        b = got.view(np.uint32)
+        assert (b == 0x80000000).any() and np.isinf(got).any()
+        assert (b == DEFAULT_NAN).any() and (b == 0x7FE12345).any()
+        assert (nan & (b != DEFAULT_NAN) & (b != 0x7FE12345)).any()
+        assert (nan & (b != ref.view(np.uint32))).any()
 
 
 def test_cache_lives_on_cuda_by_default():

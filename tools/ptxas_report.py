@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Print what ``ptxas -v`` says of the port's trace kernels, and count the
-SASS instructions of their loops.
+"""Print what ``ptxas -v`` says of the port's trace kernels and of
+``radcache_accumulate``, and count the SASS instructions of the trace
+kernels' loops.
 
     python3 tools/ptxas_report.py [REPO_DIR ...]
 
 For each repository checkout given (default: this one), compiles its
-``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,tlas_bin,binned}.cu`` (those it
-has) with the port's own
+``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,tlas_bin,binned}.cu`` and
+``radcache_accumulate.cu`` (those it has) with the port's own
 nvcc flags (``ray_tpu_torch/ops/cuda_build.py`` NVCC_FLAGS) plus
 ``-Xptxas -v`` into ``build/ptxas_report/`` and prints, per kernel entry,
 its registers, stack frame, spill stores / loads and shared memory (a
@@ -31,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SOURCES = ("trace_brute", "trace_bvh", "trace_binned", "trace_tlas",
-           "trace_tlas_bin")
+           "trace_tlas_bin", "radcache_accumulate")
 # the sources whose loops are counted
 SASS_SOURCES = ("trace_brute", "trace_bvh")
 # one SASS line: /*address*/ [@predicate] OPCODE operands ;
@@ -44,6 +45,8 @@ def _kind(entry: str, name: str) -> str:
     m = re.search(r"ILb([01])E(?:Lb([01])E)?E", entry)
     if "sort_key" in entry:
         return "binned_sort_key"
+    if "radcache_accumulate" in entry:
+        return "radcache_accumulate"
     if m is None:
         return entry
     kind = f"{name} {'any-hit' if m.group(1) == '1' else 'closest'}"
