@@ -64,7 +64,16 @@ finalize runs in a worker process, ``chip_smoke.py --sbvh-scene PATH``,
 beside the card's phases), the flagship through ``create_renderer`` with
 ``use_spatial_cache=True`` (the spatial radiance cache and
 ``radcache_accumulate``), ``samples/04_denoising.py``'s ``main()`` and the
-NLM and UNet denoisers at 1080p.
+NLM and UNet denoisers at 1080p;
+
+and the last slice's (``LIGHTMAP``, the sharded paths): lightmaps baked
+through ``bake_lightmap`` at 1024x1024 (the flagship's back wall:
+``trace_brute``; ``cornell_sphere``'s sphere: ``trace_bvh``), the
+flagship at 1080p through ``render_sharded`` and
+``render_sharded_balanced`` and the sharded train step
+(``ray_tpu_torch.parallel.train``) on a 1-rank NCCL tile mesh,
+``samples/02_multichip.py``'s ``main()`` through ``render_sharded``, and
+the RNG's PMJ02 table mode.
 
 Phases:
 
@@ -177,7 +186,17 @@ Phases:
    ``CACHE_DET_SAMPLES`` samples bit-identical), a 64x48 cached renderer
    card vs CPU, ``samples/04_denoising``'s ``main()`` (its TGAs in
    ``OUT_DIR``) with NLM and UNet card vs CPU on its buffers, NLM and UNet
-   at 1080p (ms, peak memory); then the sky bake at ``SKY_BAKE``:
+   at 1080p (ms, peak memory); then the lightmaps: each ``LIGHTMAP`` bake
+   at 1024x1024 (rasterizer host s, every trace launch of an iteration
+   bit-exact against the plain version, ms an iteration, Mray/s, peak
+   memory, 6 + 6 launches an iteration, the SH L0 band against 0.282095 x
+   color) and a ``LIGHTMAP_CHECK`` bake card vs CPU; a 1-rank NCCL group
+   through a ``file://`` store and its tile mesh: the sharded and the
+   balanced flagship frame bit-identical to ``render_tile`` and timed in
+   turns with it, the sharded train step at 1080p (loss bit-identical to
+   an unsharded step's, gradients within the atomics' noise), sample 02;
+   one PMJ02 table draw over 2,073,600 lanes card vs CPU, timed beside
+   the computed mode; then the sky bake at ``SKY_BAKE``:
    forward ms, its CUDA kernel count, fwd+bwd ms w.r.t.
    ``atmosphere_density`` and ``clouds_density`` and the backward's peak
    memory, beside the sky scene's finalize;
@@ -215,6 +234,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -789,6 +809,13 @@ def capture_frame(scene, cam, settings, iteration, x0=0, y0=0, tw=None,
                   th=None):
     """Render one frame (or one tile of it), keeping a copy of every trace
     kernel's inputs as (kernel, args, any_hit)."""
+    return capture(lambda: render(scene, cam, settings, iteration, x0, y0,
+                                  tw, th))
+
+
+def capture(run):
+    """``run()``'s result and a copy of every trace kernel's inputs it
+    launched, as (kernel, args, any_hit)."""
     from ray_tpu_torch.ops import traverse
 
     calls = []
@@ -813,7 +840,7 @@ def capture_frame(scene, cam, settings, iteration, x0=0, y0=0, tw=None,
     for k in wrappers:
         setattr(traverse, k, recorder(k))
     try:
-        out = render(scene, cam, settings, iteration, x0, y0, tw, th)
+        out = run()
     finally:
         for k, fn in real.items():
             setattr(traverse, k, fn)
@@ -3123,6 +3150,373 @@ def accumulate_timing(args, label="an update pass's"):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The lightmap baker, tile sharding on torch.distributed with the sharded
+# train step, and the PMJ02 table mode
+# ---------------------------------------------------------------------------
+# the bakes: label -> (scene builder, kernel, triangle range, iterations).
+# A finalized scene keeps its triangles in BVH leaf order.  The flagship's
+# floor (its triangles 0-1) has its normals out of the box (make_quad's
+# u x v is -Y there): its texels' rays start under it and see its unlit
+# underside, so its lightmap is black in both packages.  The back wall
+# (triangles 14-15) faces into the box.  cornell_sphere's sphere lies in
+# two runs (0-330 and 344-366, the floor and the tall box between), and a
+# bake takes one range: the longest, 330 of the sphere's 352 triangles
+LIGHTMAP = {"flagship back wall": (flagship, "trace_brute", (14, 16), 16),
+            "cornell_sphere sphere": (cornell_sphere, "trace_bvh", (0, 330),
+                                      4)}
+LIGHTMAP_SIZE = 1024
+# the card-vs-CPU bake: texels a side, iterations
+LIGHTMAP_CHECK = (64, 2)
+# samples/02_multichip.py's main(): size, samples, depth
+SAMPLE02 = (64, 4, 4)
+# timed frames of each route of the sharded flagship
+SHARDED_FRAMES = 2
+SHARDED_KEYS = ("color", "base_color", "depth_normal")
+
+
+def bake_settings(settings):
+    """A bake's pass settings: the frame's depth, lighting only, SH-L1."""
+    return dataclasses.replace(settings, lighting_only=True, output_sh=True)
+
+
+def lightmap_bake(label, settings, errs):
+    """One 1024x1024 bake of ``LIGHTMAP[label]`` through ``bake_lightmap``:
+    the rasterizer's host seconds, every trace launch of one iteration
+    bit-exact against the plain version, then the bake (6 + 6 launches an
+    iteration, counted from 0 just before it): ms an iteration, Mray/s,
+    peak memory, the SH L0 band against 0.282095 x color.  Returns the
+    bake's launch counts."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render import integrator
+    from ray_tpu_torch.render.lightmap import bake_lightmap, rasterize_uv_rays
+
+    make, kernel, (lo, hi), iters = LIGHTMAP[label]
+    st = bake_settings(settings)
+    scene = make()[0].finalize()
+    n = LIGHTMAP_SIZE
+    t0 = time.perf_counter()
+    rays, mask, _ = rasterize_uv_rays(scene.vertices, scene.normals,
+                                      scene.uvs, scene.tri_vidx, n, n, lo, hi,
+                                      device=scene.device)
+    raster_s = time.perf_counter() - t0
+    _, calls = capture(lambda: integrator.render_tile(
+        scene, None, None, 0, 0, 1, 0, width=n, height=n, tile_w=n,
+        tile_h=n, settings=st, use_filter_table=False, pixel_mask=mask,
+        rays=rays))
+    torch.cuda.synchronize()
+    if len(calls) != 12 or any(c[0] != kernel for c in calls):
+        fail(f"an iteration of the {label} bake made {[c[0] for c in calls]}"
+             f", expected 12 {kernel} calls")
+    for i, (k, args, any_hit) in enumerate(calls):
+        check_parity(k, args, (any_hit,), f"{label} bake launch {i}", errs)
+    del calls
+    # the bake, the rays of its render_tile calls counted
+    tally = []
+    real = integrator.render_tile
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        tally.append(out["rays_traced"])
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    integrator.render_tile = counted
+    try:
+        t0 = time.perf_counter()
+        out = bake_lightmap(scene, n, n, st, iterations=iters, prim_lo=lo,
+                            prim_hi=hi)
+        wall = time.perf_counter() - t0
+    finally:
+        integrator.render_tile = real
+    counts = dict(cuda_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(f"{label} bake", counts, kernel, iters)
+    n_rays = sum(int(r) for r in tally)
+    color, sh, covered = out["color"], out["shl1"], out["mask"]
+    if not (color.shape == (n, n, 3) and sh.shape == (n, n, 4, 3)
+            and np.isfinite(color).all() and np.isfinite(sh).all()
+            and color[covered].mean() > 0.0):
+        fail(f"the {label} bake is not finite, black or of the wrong shape")
+    err = np.abs(sh[..., 0, :] - 0.282095 * color)
+    bad = int((err > SH_ATOL + SH_RTOL * np.abs(0.282095 * color)).sum())
+    print(f"lightmap {label} {n}x{n}, {iters} iterations, depth "
+          f"{st.max_total_depth}, lighting only, SH-L1: {int(covered.sum())} "
+          f"texels covered; rasterizer {raster_s:.3f} s (host); bake "
+          f"{wall * 1e3:.1f} ms, {wall / iters * 1e3:.1f} ms an iteration, "
+          f"{n_rays / wall / 1e6:.3f} Mray/s ({n_rays / iters:.0f} rays an "
+          f"iteration); peak memory {peak / 2**30:.3f} GiB; SH L0 vs "
+          f"0.282095 x color max |diff| {float(err.max()):.3e} ({bad} values "
+          f"past rtol {SH_RTOL:g} / atol {SH_ATOL:g}); launch counts "
+          f"{counts} [{CARD}]")
+    if bad:
+        fail(f"the {label} bake's SH L0 band disagrees with its color")
+    return counts
+
+
+def check_bake_against_cpu(label, settings):
+    """A ``LIGHTMAP_CHECK`` bake of ``LIGHTMAP[label]`` on the card against
+    the port's CPU bake: masks equal, ≥ 99% of the covered texels' color
+    and SH within rtol 1e-3 (atol 1e-4), as the card-vs-CPU tiles."""
+    import numpy as np
+
+    from ray_tpu_torch.render.lightmap import bake_lightmap
+
+    make, _, (lo, hi), _ = LIGHTMAP[label]
+    n, iters = LIGHTMAP_CHECK
+    g, c = (bake_lightmap(make()[0].finalize(device=dev), n, n,
+                          bake_settings(settings), iterations=iters,
+                          prim_lo=lo, prim_hi=hi) for dev in ("cuda", "cpu"))
+    if not np.array_equal(g["mask"], c["mask"]):
+        fail(f"the {label} bake's coverage differs between card and CPU")
+    m = c["mask"]
+    shares = {k: np.isclose(g[k], c[k], rtol=1e-3, atol=1e-4).reshape(
+        n, n, -1).all(-1)[m].mean() for k in ("color", "shl1")}
+    print(f"lightmap {label} {n}x{n}, {iters} iterations, card vs cpu: "
+          f"{int(m.sum())} texels covered, color close "
+          f"{shares['color']:.4f}, shl1 close {shares['shl1']:.4f}")
+    if min(shares.values()) < 0.99:
+        fail(f"the card's {label} bake disagrees with the CPU's")
+
+
+def start_tile_mesh(tmp):
+    """A 1-rank NCCL process group through a ``file://`` store in ``tmp``,
+    and its tile mesh."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.shard import make_tile_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    return make_tile_mesh()
+
+
+def sharded_frames(scene, cam, settings, mesh):
+    """The flagship at 1920x1080 through ``render_sharded`` and
+    ``render_sharded_balanced`` on the mesh, each bit-identical to
+    ``render_tile``, then ``SHARDED_FRAMES`` timed frames of each route in
+    turns, the launches counted from 0 just before the sharded ones.
+    Returns those launch counts."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.parallel.shard import (
+        render_sharded, render_sharded_balanced)
+
+    def sharded(fn):
+        return lambda it: fn(scene, cam, None, it, 0, mesh=mesh, width=WIDTH,
+                             height=HEIGHT, settings=settings)
+
+    routes = {"render_tile": lambda it: render(scene, cam, settings, it),
+              "render_sharded": sharded(render_sharded),
+              "render_sharded_balanced": sharded(render_sharded_balanced)}
+    with torch.no_grad():
+        ref = routes["render_tile"](1)
+        for name in ("render_sharded", "render_sharded_balanced"):
+            out = routes[name](1)
+            for k in SHARDED_KEYS:
+                if not same_bits(out[k].full_tensor(), ref[k]):
+                    fail(f"{name}'s {k} differs from render_tile's")
+            if int(out["rays_traced"]) != int(ref["rays_traced"]):
+                fail(f"{name} traced {int(out['rays_traced'])} rays, "
+                     f"render_tile {int(ref['rays_traced'])}")
+        del out, ref
+        ms = {k: [] for k in routes}
+        counts = {}
+        for f in range(SHARDED_FRAMES):
+            for name, run in routes.items():
+                torch.cuda.synchronize()
+                if name != "render_tile":
+                    cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                int(run(2 + f)["rays_traced"])   # synchronises
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                if name != "render_tile":
+                    for k, v in cuda_build.launch_counts.items():
+                        counts[k] = counts.get(k, 0) + v
+    check_counts("sharded flagship", counts, "trace_brute",
+                 2 * SHARDED_FRAMES)
+    print(f"sharded flagship 1920x1080 1spp depth5 on a 1-rank NCCL mesh: "
+          f"render_sharded and render_sharded_balanced bit-identical to "
+          f"render_tile (color, base_color, depth_normal, rays_traced); "
+          f"frame ms over {SHARDED_FRAMES} each, in turns: "
+          + ", ".join(f"{k} {statistics.fmean(v):.1f}" for k, v in ms.items())
+          + f"; launch counts {counts} [{CARD}]")
+    return counts
+
+
+def unsharded_step(scene, cam, params, target, settings):
+    """The train step's loss and gradients through ``render_tile`` over the
+    whole frame, written here apart from ``ray_tpu_torch.parallel.train``:
+    ``mean((color - target)**2)`` w.r.t. the float material columns and
+    ``env_col``."""
+    import torch
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params["materials"].items()}
+    env = params["env_col"].detach().clone().requires_grad_(True)
+    sc = dataclasses.replace(scene, materials={**scene.materials, **leaves},
+                             env_col=env)
+    out = render(sc, cam, settings, 1)
+    loss = torch.mean((out["color"] - target) ** 2)
+    grads = torch.autograd.grad(loss, [*leaves.values(), env],
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), {**dict(zip(leaves, grads)), "env_col": grads[-1]}
+
+
+def sharded_train_step(scene, cam, mesh):
+    """``ray_tpu_torch.parallel.train.train_step`` at 1920x1080 at the
+    dry run's settings (depth 2, remat) on the mesh, against
+    :func:`unsharded_step`: the loss bit-identical, gradients finite
+    (base_color's and env_col's non-zero) and within ``REMAT_NOISE_MULT``
+    times the largest gap between two of ``REMAT_NOISE_RUNS`` unsharded
+    runs (``index_add_``'s atomics sum in any order), or 1e-4; the new
+    parameters one SGD step from the old.  3 + 3 launches, none in
+    backward.  Returns the step's launch counts."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.parallel.train import SGD_LR, params_of, train_step
+    from ray_tpu_torch.render.integrator import PassSettings
+
+    st = PassSettings(max_total_depth=2, min_total_depth=2, remat=True)
+    target = torch.zeros((WIDTH * HEIGHT, 3), device="cuda")
+    params = params_of(scene)
+    kw = dict(mesh=mesh, width=WIDTH, height=HEIGHT, settings=st)
+    train_step(scene, cam, params, target, **kw)   # warm-up
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads, new = train_step(scene, cam, params, target, **kw)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(cuda_build.launch_counts)
+    check_counts("sharded train step", counts, "trace_brute", 1, 3)
+    g = {**grads["materials"], "env_col": grads["env_col"]}
+    check_grads("sharded train step", g)
+    for k, p in params["materials"].items():
+        if not torch.equal(new["materials"][k], p - SGD_LR * g[k]):
+            fail(f"the sharded train step's new {k} is not one SGD step")
+    runs, run_ms = [], []
+    for _ in range(REMAT_NOISE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(unsharded_step(scene, cam, params, target, st))
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    for loss_u, _ in runs:
+        if not same_bits(loss, loss_u):
+            fail(f"the sharded train step's loss {float(loss)!r} differs from "
+                 f"the unsharded step's {float(loss_u)!r}")
+    gaps = [grad_diff(runs[j][1], runs[i][1], "unsharded step again")
+            for i in range(len(runs)) for j in range(i + 1, len(runs))]
+    spread = grad_diff(g, runs[0][1], "sharded train step")
+    limit = max(REMAT_NOISE_MULT * max(gaps), 1e-4)
+    print(f"sharded train step 1920x1080 depth 2 remat on a 1-rank NCCL mesh: "
+          f"{step_ms:.1f} ms (unsharded step {statistics.fmean(run_ms):.1f} "
+          f"ms); loss bit-identical to the unsharded step's "
+          f"({float(loss):.9e}); worst gradient column max |diff| / max |g| "
+          f"{spread:.2e} (unsharded runs against each other: "
+          f"{', '.join(f'{x:.2e}' for x in gaps)}; limit {limit:.2e}); "
+          f"launch counts {counts} [{CARD}]")
+    if spread > limit:
+        fail(f"the sharded train step's gradients differ from the unsharded "
+             f"step's by {spread:.3e} of a column's largest entry")
+    return counts
+
+
+def sample02(mesh):
+    """``samples/02_multichip.py``'s ``main()`` on the port: the flagship
+    at ``SAMPLE02``'s size, samples and depth through ``render_sharded`` on
+    the mesh, the mean into ``OUT_DIR``; held bit-exact against the same
+    samples of ``render_tile``, both timed.  Returns the sharded samples'
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.parallel.shard import render_sharded
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils.image_io import write_tga
+
+    size, samples, depth = SAMPLE02
+    sc, cam = flagship()
+    scene = sc.finalize()
+    st = PassSettings(max_total_depth=depth)
+
+    def sharded(it):
+        return render_sharded(scene, cam, None, it, 0, mesh=mesh, width=size,
+                              height=size, settings=st)["color"].full_tensor()
+
+    def single(it):
+        return render_tile(scene, cam, None, 0, 0, it, 0, width=size,
+                           height=size, tile_w=size, tile_h=size, settings=st,
+                           use_filter_table=False)["color"]
+
+    res, counts = {}, {}
+    with torch.no_grad():
+        for name, fn in (("render_sharded", sharded), ("render_tile", single)):
+            torch.cuda.synchronize()
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            acc = torch.zeros((size * size, 3), device="cuda")
+            for it in range(1, samples + 1):
+                acc = acc + fn(it)
+            img = (acc / samples).reshape(size, size, 3).cpu().numpy()
+            res[name] = (img, (time.perf_counter() - t0) / samples * 1e3)
+            if name == "render_sharded":
+                counts = dict(cuda_build.launch_counts)
+    check_counts("samples/02_multichip", counts, "trace_brute", samples,
+                 depth + 1)
+    img = res["render_sharded"][0]
+    if not (np.isfinite(img).all() and img.mean() > 0.0
+            and np.array_equal(img, res["render_tile"][0])):
+        fail("samples/02_multichip's image is not finite, black, or differs "
+             "from render_tile's")
+    OUT_DIR.mkdir(exist_ok=True)
+    write_tga(str(OUT_DIR / "02_multichip.tga"), np.clip(img, 0, 1) ** (1 / 2.2))
+    print(f"samples/02_multichip {size}x{size}, {samples} samples, depth "
+          f"{depth}, render_sharded on a 1-rank NCCL mesh: "
+          f"{res['render_sharded'][1]:.2f} ms a sample (render_tile "
+          f"{res['render_tile'][1]:.2f}), the image bit-identical to "
+          f"render_tile's; wrote 02_multichip.tga [{CARD}]")
+    return counts
+
+
+def rng_table_draw():
+    """One ``scrambled_2d_rand(table=True)`` draw over a frame's lanes on
+    the card, bit-exact against the CPU's, timed beside the computed
+    mode's."""
+    import torch
+
+    from ray_tpu_torch.ops import rng
+
+    seed = torch.arange(WIDTH * HEIGHT, device="cuda", dtype=torch.int64)
+    card = rng.scrambled_2d_rand(7, seed, 0, table=True)
+    cpu = rng.scrambled_2d_rand(7, seed.cpu(), 0, table=True)
+    if not all(same_bits(a.cpu(), b) for a, b in zip(card, cpu)):
+        fail("the PMJ02 table draw differs between card and CPU")
+    table_ms = time_launches(
+        lambda: rng.scrambled_2d_rand(7, seed, 0, table=True), 10)
+    computed_ms = time_launches(lambda: rng.scrambled_2d_rand(7, seed, 0), 10)
+    print(f"rng table mode: one scrambled_2d_rand(table=True) over "
+          f"{WIDTH * HEIGHT} lanes {table_ms:.3f} ms (computed mode "
+          f"{computed_ms:.3f} ms), bit-exact against the CPU [{CARD}]")
+
+
+def add_launches(launches, counts):
+    """Add a path's trace launch counts into the kernels line's."""
+    for kernel in ("trace_brute", "trace_bvh"):
+        for mode in ("closest", "anyhit"):
+            key = f"{kernel}_{mode}"
+            launches[key] = launches.get(key, 0) + counts.get(key, 0)
+
+
 def phase(name: str, t_start: float) -> None:
     """Mark where a phase starts, in seconds since the script began."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {name}")
@@ -3131,6 +3525,7 @@ def phase(name: str, t_start: float) -> None:
 def main() -> int:
     global CARD
     import torch
+    import torch.distributed as dist
 
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3463,6 +3858,22 @@ def main() -> int:
         launches[f"trace_brute_{mode}"] += counts[f"trace_brute_{mode}"]
     denoise_timings(cached)
     del cached
+
+    phase("lightmap, sharding, table RNG", t_start)
+    for label in LIGHTMAP:
+        add_launches(launches, lightmap_bake(label, settings, errs))
+        check_bake_against_cpu(label, settings)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = start_tile_mesh(tmp)
+        try:
+            flag = scenes["flagship"]
+            add_launches(launches, sharded_frames(flag[0], flag[1], settings,
+                                                  mesh))
+            add_launches(launches, sharded_train_step(flag[0], flag[1], mesh))
+            add_launches(launches, sample02(mesh))
+        finally:
+            dist.destroy_process_group()
+    rng_table_draw()
 
     phase("sky bake", t_start)
     sky_bake_timings(sky_s)

@@ -8,16 +8,24 @@ constants are split into 16-bit halves so no product leaves int64.  The
 same code runs on the CPU and on CUDA.
 
 A sample is a pure function of (pixel, iteration, dimension, seed) —
-``scrambled_2d_rand`` never draws from a generator.  The reference's PMJ02
-table mode (``table=True`` in ``ray_tpu``) is not ported yet (ROADMAP
-Queue 1 item 2): the integrator never asks for it, and asking raises.
+``scrambled_2d_rand`` never draws from a generator.  ``table=True`` reads
+the reference's own PMJ02 table instead of computing Sobol points, with
+the reference's addressing (CoreRef.cpp:1418-1426: a shuffled dimension
+row, an Owen-shuffled sample index) and the same value scramble; the table
+(``ray_tpu_torch/data/pmj02_samples.npz``, a byte-for-byte copy of
+``ray_tpu``'s) is cached on each device that asks for it.  ``ray_tpu``
+falls back to the computed sampler when its file is missing; here a
+missing file raises: the sampler never changes unasked.  The integrator
+uses the computed mode.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
+import pathlib
 
-from ray_tpu_torch._roadmap import not_ported
+import numpy as np
+import torch
 
 # Random-sequence dimension map (reference: internal/Constants.inl:31-43).
 RAND_DIM_FILTER = 0
@@ -37,6 +45,26 @@ RAND_DIM_BOUNCE_COUNT = 8
 RAND_SAMPLES_COUNT = 1 << 16  # index domain of the Owen shuffle
 
 _M32 = 0xFFFFFFFF
+
+# the reference's PMJ02 table (data, like the tonemap LUTs)
+_PMJ_PATH = (pathlib.Path(__file__).resolve().parent.parent / "data"
+             / "pmj02_samples.npz")
+
+
+@functools.lru_cache(maxsize=1)
+def _pmj_table():
+    """(samples, count, dims): the table's (dims * 2 * count,) uint32 words
+    as int64, its samples a dimension and its dimensions.  Raises
+    ``FileNotFoundError`` when the data file is missing."""
+    with np.load(_PMJ_PATH) as z:
+        return (torch.from_numpy(z["samples"].astype(np.int64)),
+                int(z["sample_count"]), int(z["dims_count"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _pmj_words(device: torch.device) -> torch.Tensor:
+    """The table's words on ``device``, copied there once."""
+    return _pmj_table()[0].to(device)
 
 
 def _u32(x):
@@ -125,22 +153,35 @@ def _u32_to_unit_float(x):
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def _pmj_indices(dim, seed, sample, count, dims):
+    """Reference table addressing (CoreRef.cpp:1418-1426): shuffled
+    dimension row + Owen-shuffled sample index -> flat index of the x
+    word."""
+    shuffled_dim = nested_uniform_scramble(dim, seed) & (dims - 1)
+    shuffled_i = nested_uniform_scramble(sample, hash_combine(seed, dim)) & (
+        count - 1
+    )
+    return shuffled_dim * (2 * count) + 2 * shuffled_i
+
+
 def scrambled_2d_rand(dim, seed, sample, /, table=False):
     """2-D low-discrepancy sample for (dimension, per-pixel seed, sample
-    index): computed Owen-Sobol with the reference's addressing.  Returns
-    two float32 tensors in [0, 1); ``dim``/``seed``/``sample`` broadcast.
-    ``table=True`` (``ray_tpu``'s PMJ02 table mode) raises, naming ROADMAP
-    Queue 1 item 2."""
-    if table:
-        raise not_ported("scrambled_2d_rand(table=True) (the PMJ02 table "
-                         "mode)", "Queue 1 item 2")
+    index): computed Owen-Sobol with the reference's addressing, or with
+    ``table=True`` the reference's PMJ02 table words (on the device of the
+    tensor arguments).  Returns two float32 tensors in [0, 1);
+    ``dim``/``seed``/``sample`` broadcast."""
     dim = _u32(dim)
     seed = _u32(seed)
     sample = _u32(sample)
-    shuffled_i = nested_uniform_scramble(sample, hash_combine(seed, dim)) & (
-        RAND_SAMPLES_COUNT - 1
-    )
-    sx, sy = sobol02(shuffled_i)
+    if table:
+        _, count, dims = _pmj_table()
+        idx = torch.as_tensor(_pmj_indices(dim, seed, sample, count, dims))
+        words = _pmj_words(idx.device)
+        sx, sy = words[idx], words[idx + 1]
+    else:
+        shuffled_i = nested_uniform_scramble(
+            sample, hash_combine(seed, dim)) & (RAND_SAMPLES_COUNT - 1)
+        sx, sy = sobol02(shuffled_i)
     rx = nested_uniform_scramble(sx, hash_combine(seed, (dim * 2) & _M32))
     ry = nested_uniform_scramble(sy, hash_combine(seed, (dim * 2 + 1) & _M32))
     return _u32_to_unit_float(rx), _u32_to_unit_float(ry)
@@ -148,8 +189,8 @@ def scrambled_2d_rand(dim, seed, sample, /, table=False):
 
 def scrambled_2d_rand_many(dim_list, seed, sample, /, table=False):
     """:func:`scrambled_2d_rand` for each dimension of ``dim_list``: a list
-    of (rx, ry) pairs (``ray_tpu`` fetches the table mode's words with one
-    gather; the computed mode is one call a dimension there too)."""
+    of (rx, ry) pairs (``ray_tpu``'s table mode fetches every dimension's
+    words with one gather, a TPU economy; the words are the same)."""
     return [scrambled_2d_rand(d, seed, sample, table=table) for d in dim_list]
 
 

@@ -68,8 +68,8 @@ product (the table reads are ``index_select``).
 more state tensors that the bounce carries, compaction off, as in
 ``ray_tpu``; path replay replays them with the rest.
 
-Render options and scene features the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP entry.
+``rays`` replaces the camera's primary rays with a given batch (the
+lightmap baker's texels, the balanced sharded route's exchanged lanes).
 """
 
 from __future__ import annotations
@@ -81,7 +81,6 @@ from typing import NamedTuple
 import torch
 from torch.utils import checkpoint
 
-from ray_tpu_torch._roadmap import not_ported
 from ray_tpu_torch.ops import rng
 from ray_tpu_torch.ops.linalg import (
     HIT_BIAS,
@@ -252,16 +251,16 @@ def _peek_ior(stack, skip_first, default=1.0):
 
 
 def _check_supported(settings: PassSettings, cache, cache_mode: str,
-                     rays) -> None:
+                     rays, n_lanes: int) -> None:
     if settings.tex_filter not in _TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {settings.tex_filter!r}")
     if cache_mode not in ("off", "update", "query"):
         raise ValueError(f"unknown cache_mode {cache_mode!r}")
     if cache_mode != "off" and cache is None:
         raise ValueError(f"cache_mode {cache_mode!r} needs a cache")
-    if rays is not None:
-        raise not_ported("render_tile(rays=...) (the lightmap baker's ray "
-                         "source)", "Queue 1 item 25")
+    if rays is not None and tuple(rays.px.shape) != (n_lanes,):
+        raise ValueError(f"a rays batch of {tuple(rays.px.shape)} lanes for "
+                         f"a {n_lanes}-lane tile (tile_w * tile_h)")
 
 
 def render_tile(
@@ -303,16 +302,23 @@ def render_tile(
     ``RAD_CACHE_MIN_ROUGHNESS`` and back-propagates into the cache after
     the last bounce: the new state is ``out["cache"]`` (compaction off, as
     in ``ray_tpu``).  The cache is constant within a call, so a replayed
-    bounce queries what the forward did.  ``rays`` (the lightmap baker's
-    ray source) raises, naming ROADMAP Queue 1 item 25."""
-    _check_supported(settings, cache, cache_mode, rays)
-    device = scene.device
-    rays = generate_primary_rays(
-        cam, filter_table, x0, y0, iteration, rand_seed,
-        width=width, height=height, tile_w=tile_w, tile_h=tile_h,
-        use_filter_table=use_filter_table, device=device,
-    )
+    bounce queries what the forward did.
+
+    ``rays``: a :class:`~ray_tpu_torch.render.raygen.PrimaryRays` batch of
+    ``tile_w * tile_h`` lanes in place of the camera's (the lightmap
+    baker's texels, :mod:`.lightmap`, or the lanes another rank sent,
+    :func:`~ray_tpu_torch.parallel.shard.render_sharded_balanced`); ``cam``
+    may then be None.  Each lane's seed comes from its own ``px`` /
+    ``py``, so its pixels need not form the tile at (x0, y0)."""
     R = tile_w * tile_h
+    _check_supported(settings, cache, cache_mode, rays, R)
+    device = scene.device
+    if rays is None:
+        rays = generate_primary_rays(
+            cam, filter_table, x0, y0, iteration, rand_seed,
+            width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+            use_filter_table=use_filter_table, device=device,
+        )
     sample_i = (int(iteration) - 1) & 0xFFFFFFFF
     feats = uber.mat_features(scene.mat_types)
 

@@ -9,9 +9,8 @@
   ``ray_tpu``'s names, in ``ray_tpu``'s order, of the same kinds and with
   equal defaults (``inspect.signature``), so a call means the same in
   both; any parameter the port adds after them is keyword-only (such as
-  ``Scene.finalize``'s ``device``).  The port lacks no such name: what it
-  does not carry yet exists and raises ``NotImplementedError`` naming its
-  ROADMAP item.  ``EXEMPT`` lists, each with its reason, the differences
+  ``Scene.finalize``'s ``device``).  The port lacks no such name.
+  ``EXEMPT`` lists, each with its reason, the differences
   that stay.
 * ``Scene.finalize(4)`` builds with ``max_leaf=4``;
   ``finalize(fast_build=True)`` raised for item 15, ``set_physical_sky()``
@@ -182,10 +181,15 @@ def test_exemptions_are_still_differences():
 def test_repaired_wrappers_take_ray_tpus_keywords():
     """The tlas traces take ``nodes=`` and ``force_xla=``, the flatten
     traces ``force_xla=``, ``render_tile`` ``cache=None`` and
-    ``scrambled_2d_rand`` ``table=False``; ``table=True`` and ``rays=``
-    raise naming their ROADMAP items."""
+    ``scrambled_2d_rand`` ``table=False``; ``rays=`` (item 25) and
+    ``table=True`` (item 2) raised naming their ROADMAP items until they
+    were ported: now ``rays=`` renders a lightmap's texels with
+    ``cam=None`` (tests/test_torch_lightmap.py holds it to ray_tpu's) and
+    ``table=True`` draws from the PMJ02 table (tests/test_torch_rng.py).
+    """
     from ray_tpu_torch.ops import rng, traverse
     from ray_tpu_torch.render.integrator import render_tile
+    from ray_tpu_torch.render.lightmap import rasterize_uv_rays
     from ray_tpu_torch.utils.test_scenes import cornell_tlas
 
     sc, cam = cornell_tlas()
@@ -221,13 +225,21 @@ def test_repaired_wrappers_take_ray_tpus_keywords():
     out = render_tile(flat, cornell_scene()[1], None, 0, 0, 1, 0, cache=None,
                       **kw)
     assert tuple(out["color"].shape) == (48, 3) and "cache" not in out
-    with pytest.raises(NotImplementedError, match="item 25"):
-        render_tile(flat, None, None, 0, 0, 1, 0, rays=object(), **kw)
+    rays, mask, _ = rasterize_uv_rays(flat.vertices, flat.normals, flat.uvs,
+                                      flat.tri_vidx, 8, 6, 0, 2, device="cpu")
+    texels = render_tile(flat, None, None, 0, 0, 1, 0, pixel_mask=mask,
+                         rays=rays, **kw)
+    assert tuple(texels["color"].shape) == (48, 3)
+    # each texel's ray hits its floor 1e-3 away (but a few on the quad's
+    # edges, which tests/test_torch_lightmap.py discusses)
+    depth = texels["depth_normal"][mask, 3]
+    assert float(((depth - 1e-3).abs() < 1e-6).float().mean()) > 0.8
     dim, seed, sample = (torch.tensor(v) for v in (3, 7, 1))
     x, y = rng.scrambled_2d_rand(dim, seed, sample, table=False)
     assert 0.0 <= float(x) < 1.0 and 0.0 <= float(y) < 1.0
-    with pytest.raises(NotImplementedError, match="item 2"):
-        rng.scrambled_2d_rand(dim, seed, sample, table=True)
+    tx, ty = rng.scrambled_2d_rand(dim, seed, sample, table=True)
+    assert 0.0 <= float(tx) < 1.0 and 0.0 <= float(ty) < 1.0
+    assert (float(tx), float(ty)) != (float(x), float(y))
     with pytest.raises(TypeError):
         rng.scrambled_2d_rand(dim=dim, seed=seed, sample=sample)
 

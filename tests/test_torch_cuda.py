@@ -20,7 +20,10 @@ bit-exact, and every launch of a tile of the slice's scenes.  The sky
 and texture slice: every launch of a tile of ``physical_sky``,
 ``tex_features``, ``sphere_hlbvh`` (``fast_build=True``) and the flagship
 with ``output_sh``, and the compressed-texture decode on the card against
-the CPU.
+the CPU.  The last slice: a lightmap bake (every launch of an iteration,
+the bake card vs CPU), a 1-rank NCCL tile mesh (both sharded routes
+bit-identical to ``render_tile``, the dry-run train step) and the PMJ02
+table draw card vs CPU.
 """
 
 import numpy as np
@@ -1120,3 +1123,95 @@ def test_denoisers_on_the_card():
     (gd, gn), (cd, cn) = outs
     assert np.isclose(gd, cd, rtol=1e-5, atol=1e-7).mean() >= 0.999
     assert np.abs(gn - cn).max() <= 1e-4 * np.abs(cn).max()
+
+
+def test_lightmap_bake_on_the_card():
+    """A 64x64 bake of the flagship's back wall (``trace_brute``): 6 + 6
+    launches an iteration, each launch of an iteration bit-exact against
+    the plain version, and the bake within the card-vs-CPU bound of the
+    CPU's (chip_smoke.check_bake_against_cpu's: 99% of texels within rtol
+    1e-3)."""
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build
+    from ray_tpu_torch.render import integrator
+    from ray_tpu_torch.render.lightmap import bake_lightmap, rasterize_uv_rays
+
+    make, kernel, (lo, hi), _ = chip_smoke.LIGHTMAP["flagship back wall"]
+    st = chip_smoke.bake_settings(
+        integrator.PassSettings(max_total_depth=5, min_total_depth=2))
+    scene = make()[0].finalize()
+    rays, mask, _ = rasterize_uv_rays(scene.vertices, scene.normals,
+                                      scene.uvs, scene.tri_vidx, 64, 64, lo,
+                                      hi)
+    _, calls = chip_smoke.capture(lambda: integrator.render_tile(
+        scene, None, None, 0, 0, 1, 0, width=64, height=64, tile_w=64,
+        tile_h=64, settings=st, use_filter_table=False, pixel_mask=mask,
+        rays=rays))
+    assert [c[0] for c in calls] == [kernel] * 12
+    for k, args, any_hit in calls:
+        a = chip_smoke.kernel_call(k, args, any_hit)
+        b = chip_smoke.kernel_call(k, args, any_hit, plain=True)
+        for f in a._fields:
+            assert chip_smoke.same_bits(getattr(a, f), getattr(b, f)), f
+    cuda_build.reset_launch_counts()
+    g = bake_lightmap(scene, 64, 64, st, iterations=2, prim_lo=lo, prim_hi=hi)
+    assert cuda_build.launch_counts[f"{kernel}_closest"] == 12
+    assert cuda_build.launch_counts[f"{kernel}_anyhit"] == 12
+    c = bake_lightmap(make()[0].finalize(device="cpu"), 64, 64, st,
+                      iterations=2, prim_lo=lo, prim_hi=hi)
+    np.testing.assert_array_equal(g["mask"], c["mask"])
+    for key in ("color", "shl1"):
+        close = np.isclose(g[key], c[key], rtol=1e-3, atol=1e-4).reshape(
+            64, 64, -1).all(-1)[c["mask"]]
+        assert close.mean() >= 0.99, key
+
+
+def test_one_rank_nccl_mesh(tmp_path):
+    """A 1-rank NCCL group through a ``file://`` store: both sharded routes
+    bit-identical to ``render_tile`` at 64x48, and the dry-run train step."""
+    _need_cuda()
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.shard import (
+        render_sharded, render_sharded_balanced)
+    from ray_tpu_torch.parallel.train import dryrun_multichip
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    mesh = chip_smoke.start_tile_mesh(tmp_path)
+    try:
+        sc, cam = cornell_scene("emissive_quad")
+        scene = sc.finalize()
+        st = PassSettings(max_total_depth=3)
+        ref = render_tile(scene, cam, None, 0, 0, 1, 0, width=64, height=48,
+                          tile_w=64, tile_h=48, settings=st,
+                          use_filter_table=False)
+        for fn in (render_sharded, render_sharded_balanced):
+            out = fn(scene, cam, None, 1, 0, mesh=mesh, width=64, height=48,
+                     settings=st)
+            for k in chip_smoke.SHARDED_KEYS:
+                assert chip_smoke.same_bits(out[k].full_tensor(), ref[k]), k
+            assert int(out["rays_traced"]) == int(ref["rays_traced"])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            dryrun_multichip(1)
+        assert printed.getvalue().startswith("dryrun_multichip(1): ok")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_pmj02_table_draw_on_the_card():
+    """``scrambled_2d_rand(table=True)`` on the card bit-exact against the
+    CPU over 100,000 lanes."""
+    _need_cuda()
+    from ray_tpu_torch.ops import rng
+
+    seed = torch.arange(100_000, device="cuda", dtype=torch.int64) * 7919
+    for dim in (0, 9, 40):
+        card = rng.scrambled_2d_rand(dim, seed, 3, table=True)
+        cpu = rng.scrambled_2d_rand(dim, seed.cpu(), 3, table=True)
+        for a, b in zip(card, cpu):
+            assert chip_smoke.same_bits(a.cpu(), b)

@@ -1,8 +1,13 @@
 """ray_tpu_torch.ops.rng against ray_tpu.ops.rng: bit-exact.
 
 The port computes 32-bit words in int64 (PyTorch's CPU uint32 has no shifts
-or adds); every output is compared as uint32 bits, floats included.
+or adds); every output is compared as uint32 bits, floats included.  The
+PMJ02 table mode (``table=True``) too, over a grid of dimensions (past the
+table's 32 rows), seeds and sample indices (past its 4,096), with the
+table a byte-for-byte copy of ``ray_tpu``'s; without the file it raises.
 """
+
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -91,3 +96,55 @@ def test_pixel_seed_bit_exact(rand_seed):
     t = trng.pixel_seed(torch.from_numpy(px), torch.from_numpy(py), rand_seed)
     j = jrng.pixel_seed(jnp.asarray(px), jnp.asarray(py), jnp.uint32(rand_seed))
     np.testing.assert_array_equal(_bits(t), _bits(j))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("fn", ["scrambled_2d_rand", "scrambled_2d_rand_many"])
+def test_table_mode_bit_exact(fn, seed):
+    """Each (dim, sample) of a grid over 512 pixel seeds; ``_many`` takes
+    the grid's dimensions as its list."""
+    dims = np.array([0, 1, 2, 7, 31, 32, 33, 63, 1000], np.uint32)
+    samples = np.array([0, 1, 5, 4095, 4096, 65535, 1 << 20], np.uint32)
+    pix = _words(seed, 512)
+    d, p, s = np.meshgrid(dims, pix, samples, indexing="ij")
+    if fn == "scrambled_2d_rand":
+        tx, ty = trng.scrambled_2d_rand(_t(d), _t(p), _t(s), table=True)
+        jx, jy = jrng.scrambled_2d_rand(jnp.asarray(d), jnp.asarray(p),
+                                        jnp.asarray(s), table=True)
+        pairs = [((tx, ty), (jx, jy))]
+    else:
+        t = trng.scrambled_2d_rand_many([int(x) for x in dims], _t(pix),
+                                        int(samples[seed]), table=True)
+        j = jrng.scrambled_2d_rand_many(
+            [jnp.uint32(x) for x in dims], jnp.asarray(pix),
+            jnp.uint32(samples[seed]), table=True)
+        pairs = list(zip(t, j))
+    for (tx, ty), (jx, jy) in pairs:
+        assert tx.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(tx), _bits(jx))
+        np.testing.assert_array_equal(_bits(ty), _bits(jy))
+
+
+def test_table_mode_differs_from_computed():
+    seeds = _t(_words(9, 256))
+    table = trng.scrambled_2d_rand(3, seeds, 7, table=True)
+    computed = trng.scrambled_2d_rand(3, seeds, 7)
+    assert not torch.equal(table[0], computed[0])
+
+
+def test_pmj02_table_is_ray_tpus():
+    ours = pathlib.Path(trng.__file__).parent.parent / "data" / "pmj02_samples.npz"
+    ref = pathlib.Path(jrng.__file__).parent.parent / "data" / "pmj02_samples.npz"
+    assert ours.read_bytes() == ref.read_bytes()
+
+
+def test_missing_table_raises(monkeypatch, tmp_path):
+    """``ray_tpu`` falls back to the computed sampler without its file; the
+    port raises."""
+    monkeypatch.setattr(trng, "_PMJ_PATH", tmp_path / "pmj02_samples.npz")
+    trng._pmj_table.cache_clear()
+    try:
+        with pytest.raises(FileNotFoundError):
+            trng.scrambled_2d_rand(3, 7, 1, table=True)
+    finally:
+        trng._pmj_table.cache_clear()
