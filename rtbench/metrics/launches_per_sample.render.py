@@ -1,0 +1,8 @@
+"""Device kernels launched in the traced window over the samples it
+completed: the dispatch cost of a progressive sample."""
+
+
+def read(run):
+    if run.window is None or run.traced_units == 0 or not run.window.kernels():
+        return None
+    return len(run.window.kernels()) / run.traced_units
