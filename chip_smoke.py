@@ -1713,12 +1713,14 @@ def shading_forward(label, scene, cam, settings, kernel,
 
     from ray_tpu_torch.ops import cuda_build
     from ray_tpu_torch.render import integrator
+    from ray_tpu_torch.utils import trace
 
     render_frame(scene, cam, settings, 1, (1, 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
     integrator.march_counts.clear()
+    trace.host_syncs.clear()
     rays, frame_s = 0, []
     t_all = time.perf_counter()
     for f in range(frames):
@@ -1730,6 +1732,7 @@ def shading_forward(label, scene, cam, settings, kernel,
     wall = time.perf_counter() - t_all
     counts = dict(cuda_build.launch_counts)
     marches = dict(integrator.march_counts)
+    syncs = trace.host_syncs["march_closest"] + trace.host_syncs["march_shadow"]
     peak = torch.cuda.max_memory_allocated()
     shading_counts_ok(label, counts, marches, kernel, frames,
                       scene.has_transparency)
@@ -1745,7 +1748,7 @@ def shading_forward(label, scene, cam, settings, kernel,
           f"{n_march / frames:.1f} (closest-hit march "
           f"{marches.get('through', 0) / frames:.1f}, shadow march "
           f"{marches.get('transmittance', 0) / frames:.1f}); march host syncs"
-          f" a frame {marches.get('syncs', 0) / frames:.1f}")
+          f" a frame {syncs / frames:.1f}")
     print(f"  frame ms: {', '.join(f'{s * 1e3:.1f}' for s in frame_s)}")
     return counts, frame_ms, marches
 

@@ -8,7 +8,8 @@ once) it is compiled with ``nvcc`` for ``sm_90a`` into
 loaded with ``ctypes``; the file name carries a hash of the source, of
 every ``csrc/*.cuh`` header and of the flags, so an edited source or
 header is rebuilt.  Nothing is compiled or loaded when this module is
-imported.
+imported.  ``loads`` records each kernel's first :func:`load` in the
+process: its seconds, build included, and whether it was built.
 
 Flags: IEEE float32 everywhere (``-fmad=false -prec-div=true
 -prec-sqrt=true``, never ``--use_fast_math``) — what makes each kernel
@@ -25,6 +26,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
+from typing import NamedTuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
@@ -37,6 +40,16 @@ NVCC_FLAGS = (
 
 # launches per kernel wrapper; each wrapper adds one where it launches
 launch_counts: collections.Counter = collections.Counter()
+
+
+class KernelLoad(NamedTuple):
+    name: str
+    seconds: float     # in load: the build (if any) and the dlopen
+    built: bool        # nvcc ran for it in this process
+
+
+# each kernel's first load in this process, in order
+loads: list = []
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -71,9 +84,10 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{source_hash(CSRC, name)}.so"
 
 
-def build(names) -> None:
+def build(names) -> list:
     """Compile each ``csrc/<name>.cu`` whose library is not built yet: one
-    ``nvcc`` per source, all started together."""
+    ``nvcc`` per source, all started together.  Returns the names it
+    compiled."""
     jobs = []
     for name in names:
         target = _target(name)
@@ -93,6 +107,7 @@ def build(names) -> None:
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return [name for name, *_ in jobs]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -100,7 +115,10 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
+            t0 = time.perf_counter()
+            built = build([name])
             lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
+            loads.append(KernelLoad(name, time.perf_counter() - t0,
+                                    bool(built)))
     return lib

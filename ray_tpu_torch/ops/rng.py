@@ -27,6 +27,8 @@ import pathlib
 import numpy as np
 import torch
 
+from ray_tpu_torch.utils import trace
+
 # Random-sequence dimension map (reference: internal/Constants.inl:31-43).
 RAND_DIM_FILTER = 0
 RAND_DIM_LENS = 1
@@ -170,6 +172,11 @@ def scrambled_2d_rand(dim, seed, sample, /, table=False):
     ``table=True`` the reference's PMJ02 table words (on the device of the
     tensor arguments).  Returns two float32 tensors in [0, 1);
     ``dim``/``seed``/``sample`` broadcast."""
+    with trace.span("rt.rng"):
+        return _scrambled_2d_rand(dim, seed, sample, table)
+
+
+def _scrambled_2d_rand(dim, seed, sample, table):
     dim = _u32(dim)
     seed = _u32(seed)
     sample = _u32(sample)
@@ -191,11 +198,13 @@ def scrambled_2d_rand_many(dim_list, seed, sample, /, table=False):
     """:func:`scrambled_2d_rand` for each dimension of ``dim_list``: a list
     of (rx, ry) pairs (``ray_tpu``'s table mode fetches every dimension's
     words with one gather, a TPU economy; the words are the same)."""
-    return [scrambled_2d_rand(d, seed, sample, table=table) for d in dim_list]
+    with trace.span("rt.rng"):
+        return [_scrambled_2d_rand(d, seed, sample, table) for d in dim_list]
 
 
 def pixel_seed(px, py, rand_seed):
     """Per-pixel RNG seed: hash of packed pixel coords combined with the
     frame seed (reference internal/CoreRef.cpp:1477-1478)."""
-    packed = ((_u32(px) << 16) & _M32) | _u32(py)
-    return hash_combine(hash_u32(packed), _u32(rand_seed))
+    with trace.span("rt.rng"):
+        packed = ((_u32(px) << 16) & _M32) | _u32(py)
+        return hash_combine(hash_u32(packed), _u32(rand_seed))

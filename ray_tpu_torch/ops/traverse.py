@@ -69,6 +69,7 @@ from ray_tpu_torch.scene.bvh import (
     MAX_STACK_SIZE,
 )
 from ray_tpu_torch.scene.wbvh import INST_ROW_BIT, NODE_COLS
+from ray_tpu_torch.utils import trace
 
 
 class Hit(NamedTuple):
@@ -1568,8 +1569,10 @@ def _trace_tlas_soa(bvh, tris, inst, ro, rd, t_min, t_max, active, ray_mask,
     if "wrows_tlas" not in bvh:
         return trace_tlas_bin(bvh["packed"], tris["packed"], inst, *rays,
                               mask, max_leaf, stack_size, any_hit=any_hit)
-    return trace_tlas(bvh["wrows_tlas"], int(bvh["winst_base"]), *rays, mask,
-                      max_leaf, stack_size, any_hit=any_hit)
+    with trace.sync("tlas_base"):
+        winst_base = int(bvh["winst_base"])
+    return trace_tlas(bvh["wrows_tlas"], winst_base, *rays, mask, max_leaf,
+                      stack_size, any_hit=any_hit)
 
 
 def trace_closest_tlas(nodes, tris, inst, ro, rd, t_min, t_max, active,

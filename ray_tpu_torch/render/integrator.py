@@ -18,10 +18,11 @@ CoreRef.cpp:3041-3158) carries a camera or BSDF ray through Transparent
 surfaces without spending a bounce, and the shadow march
 (:func:`_trace_transmittance`, CoreRef.cpp:3160-3262) multiplies a shadow
 ray's transmittance by each transparent surface's Mix-weighted color.
-Each loop test is one host synchronisation (``march_counts`` counts them
-and the marches' traces).  The closest-hit march runs detached, as in
-``ray_tpu``: Transparent colors reach the gradient only through the
-shadow march's :func:`~ray_tpu_torch.render.surface.shadow_transmittance`.
+Each loop test is one host synchronisation (``trace.host_syncs`` counts
+them, ``march_counts`` the marches' traces).  The closest-hit march runs
+detached, as in ``ray_tpu``: Transparent colors reach the gradient only
+through the shadow march's
+:func:`~ray_tpu_torch.render.surface.shadow_transmittance`.
 
 Per-ray-type visibility (``add_instance(..., visibility=...)``) follows
 ``ray_tpu``: every lane carries its ray type as a mask bit — the camera
@@ -70,6 +71,12 @@ more state tensors that the bounce carries, compaction off, as in
 
 ``rays`` replaces the camera's primary rays with a given batch (the
 lightmap baker's texels, the balanced sharded route's exchanged lanes).
+
+Each stage of a tile and of a bounce is a span of
+:mod:`ray_tpu_torch.utils.trace` (``rt.raygen``, ``rt.trace_closest``,
+``rt.emission``, ``rt.surface``, ``rt.nee``, ``rt.trace_shadow``,
+``rt.bsdf``, ``rt.compact``), recorded only while tracing is on; each host
+synchronisation is counted by site in ``trace.host_syncs``.
 """
 
 from __future__ import annotations
@@ -108,10 +115,12 @@ from ray_tpu_torch.scene.visibility import (
     RAY_SHADOW,
     RAY_SPECULAR,
 )
+from ray_tpu_torch.utils import trace
 
 # the transparency marches' traces ("through": the closest-hit march past
-# a bounce's first trace; "transmittance": the shadow march) and their loop
-# tests ("syncs": one host synchronisation each), summed over renders
+# a bounce's first trace; "transmittance": the shadow march), summed over
+# renders; their loop tests are host syncs, counted in ``trace.host_syncs``
+# ("march_closest", "march_shadow")
 march_counts: collections.Counter = collections.Counter()
 
 
@@ -313,45 +322,47 @@ def render_tile(
     R = tile_w * tile_h
     _check_supported(settings, cache, cache_mode, rays, R)
     device = scene.device
-    if rays is None:
-        rays = generate_primary_rays(
-            cam, filter_table, x0, y0, iteration, rand_seed,
-            width=width, height=height, tile_w=tile_w, tile_h=tile_h,
-            use_filter_table=use_filter_table, device=device,
+    with trace.span("rt.raygen"):
+        if rays is None:
+            rays = generate_primary_rays(
+                cam, filter_table, x0, y0, iteration, rand_seed,
+                width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+                use_filter_table=use_filter_table, device=device,
+            )
+        sample_i = (int(iteration) - 1) & 0xFFFFFFFF
+        feats = uber.mat_features(scene.mat_types)
+
+        def f32(shape, value):
+            return torch.full(shape, value, dtype=torch.float32, device=device)
+
+        st = _PathState(
+            ro=rays.ro,
+            rd=rays.rd,
+            t_max=rays.t_max,
+            throughput=f32((R, 3), 1.0),
+            bsdf_pdf=f32((R,), 1e6),            # camera rays: delta pdf
+            active=(torch.ones((R,), dtype=torch.bool, device=device)
+                    if pixel_mask is None else pixel_mask.to(device)),
+            depth=torch.zeros((R, 4), dtype=torch.int32, device=device),
+            ior_stack=f32((R, 4), -1.0),
+            accum=f32((R, 3), 0.0),
+            aux_base=f32((R, 3), 0.0),
+            aux_dn=f32((R, 4), 0.0),
+            ray_mask=torch.full((R,), RAY_CAMERA, dtype=torch.int32,
+                                device=device),
+            cone_width=f32((R,), 0.0),
+            cone_spread=(rays.cone_spread.to(torch.float32).expand(R)
+                         .contiguous()),
+            vertex_count=torch.zeros((R,), dtype=torch.int32, device=device),
+            seed=rng.pixel_seed(rays.px, rays.py, rand_seed),
         )
-    sample_i = (int(iteration) - 1) & 0xFFFFFFFF
-    feats = uber.mat_features(scene.mat_types)
-
-    def f32(shape, value):
-        return torch.full(shape, value, dtype=torch.float32, device=device)
-
-    st = _PathState(
-        ro=rays.ro,
-        rd=rays.rd,
-        t_max=rays.t_max,
-        throughput=f32((R, 3), 1.0),
-        bsdf_pdf=f32((R,), 1e6),            # camera rays: delta pdf
-        active=(torch.ones((R,), dtype=torch.bool, device=device)
-                if pixel_mask is None else pixel_mask.to(device)),
-        depth=torch.zeros((R, 4), dtype=torch.int32, device=device),
-        ior_stack=f32((R, 4), -1.0),
-        accum=f32((R, 3), 0.0),
-        aux_base=f32((R, 3), 0.0),
-        aux_dn=f32((R, 4), 0.0),
-        ray_mask=torch.full((R,), RAY_CAMERA, dtype=torch.int32,
-                            device=device),
-        cone_width=f32((R,), 0.0),
-        cone_spread=rays.cone_spread.to(torch.float32).expand(R).contiguous(),
-        vertex_count=torch.zeros((R,), dtype=torch.int32, device=device),
-        seed=rng.pixel_seed(rays.px, rays.py, rand_seed),
-    )
-    if settings.output_sh:
-        st = st._replace(
-            sh_dir=rays.rd,
-            sh_open=torch.ones((R,), dtype=torch.bool, device=device),
-            aux_sh=f32((R, 4, 3), 0.0))
-    totals = {"n": torch.zeros((), dtype=torch.int64, device=device),
-              "bad": torch.zeros((), dtype=torch.int64, device=device)}
+        if settings.output_sh:
+            st = st._replace(
+                sh_dir=rays.rd,
+                sh_open=torch.ones((R,), dtype=torch.bool, device=device),
+                aux_sh=f32((R, 4, 3), 0.0))
+        totals = {"n": torch.zeros((), dtype=torch.int64, device=device),
+                  "bad": torch.zeros((), dtype=torch.int64, device=device)}
 
     bounce_fn = (_replayed_bounce if settings.remat and torch.is_grad_enabled()
                  else _bounce)
@@ -380,16 +391,23 @@ def render_tile(
     else:
         st = run(st, range(c))
         K = max(R // settings.compact_factor, 512)
-        if int(st.active.sum()) <= K:
-            # stable: live lanes first, in their original order; each
-            # lane's state scatters back to its own pixel afterwards
-            perm = torch.argsort((~st.active).to(torch.int32), stable=True)
-            idx = perm[:K]
-            head = run(_PathState(*(None if a is None else a[idx]
-                                    for a in st)), range(c, n_iters))
-            st = _PathState(*(None if full is None
-                              else torch.index_copy(full, 0, idx, h)
-                              for full, h in zip(st, head)))
+        with trace.span("rt.compact"):
+            with trace.sync("compact"):
+                fits = int(st.active.sum()) <= K
+            if fits:
+                # stable: live lanes first, in their original order; each
+                # lane's state scatters back to its own pixel afterwards
+                perm = torch.argsort((~st.active).to(torch.int32),
+                                     stable=True)
+                idx = perm[:K]
+                head = _PathState(*(None if a is None else a[idx]
+                                    for a in st))
+        if fits:
+            head = run(head, range(c, n_iters))
+            with trace.span("rt.compact"):
+                st = _PathState(*(None if full is None
+                                  else torch.index_copy(full, 0, idx, h)
+                                  for full, h in zip(st, head)))
         else:
             st = run(st, range(c, n_iters))
 
@@ -405,10 +423,11 @@ def render_tile(
         # shl1_data_t analogue (Types.h:51): 4 SH-L1 coefficients × RGB
         out["shl1"] = st.aux_sh
     if cache_mode == "update":
-        delta, t_in, vtx_p, vtx_n, vtx_valid = (torch.stack(c)
-                                                for c in zip(*records))
-        out["cache"] = radcache.propagate_and_accumulate(
-            cache, delta, t_in, vtx_p, vtx_n, vtx_valid)
+        with trace.span("rt.cache"):
+            delta, t_in, vtx_p, vtx_n, vtx_valid = (torch.stack(c)
+                                                    for c in zip(*records))
+            out["cache"] = radcache.propagate_and_accumulate(
+                cache, delta, t_in, vtx_p, vtx_n, vtx_valid)
     return out
 
 
@@ -538,8 +557,9 @@ def _trace_transmittance(scene, settings: PassSettings, traced, ro, rd,
     act = active
     it = 0
     while it <= settings.max_transp_depth:
-        march_counts["syncs"] += 1
-        if not bool(act.any()):
+        with trace.sync("march_shadow"):
+            live = bool(act.any())
+        if not live:
             break
         march_counts["transmittance"] += 1
         hit, _ = traced(_trace_closest, scene, ro, rd, dist, act,
@@ -618,8 +638,9 @@ def _trace_closest_through(scene, settings: PassSettings, traced, ro, rd,
         t_base = torch.zeros_like(t_max)
         t_mult = torch.ones_like(ro_c)
         while True:
-            march_counts["syncs"] += 1
-            if not bool(cont.any()):
+            with trace.sync("march_closest"):
+                live = bool(cont.any())
+            if not live:
                 break
             march_counts["through"] += 1
             c3 = cont[:, None]
@@ -652,6 +673,14 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     throughput, vertex position, geometric normal, cacheable) columns
     (else None).  ``tape``: a :class:`_TraceTape` that both traces go
     through."""
+    with trace.Stages() as stage:
+        return _bounce_stages(stage, scene, settings, feats, st, bounce,
+                              sample_i, cache, cache_mode, tape)
+
+
+def _bounce_stages(stage, scene, settings, feats, st, bounce, sample_i,
+                   cache, cache_mode, tape):
+    """:func:`_bounce`'s body; ``stage`` marks its stages."""
     traced = _untaped if tape is None else tape
     ro, rd, t_max, throughput, bsdf_pdf, active, depth = st[:7]
     ior_stack, accum, aux_base, aux_dn = (st.ior_stack, st.accum, st.aux_base,
@@ -660,6 +689,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     cone_width, cone_spread, seed = st.cone_width, st.cone_spread, st.seed
     vertex_count = st.vertex_count
     accum_in, throughput_in = accum, throughput
+    stage.next("rt.trace_closest")
     Rl = ro.shape[0]
     device = ro.device
     have_lights = scene.num_lights > 0
@@ -690,6 +720,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         depth[:, 3], total_depth, seed, sample_i)
     if scene.has_transparency:
         depth = torch.cat([depth[:, :3], transp_d[:, None]], dim=-1)
+    stage.next("rt.emission")
     miss = hit.prim < 0
     indirect = total_depth > 0
 
@@ -754,6 +785,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
 
     alive = active & (~miss) & (~light_first)
 
+    stage.next("rt.surface")
     # ---------- surface attributes (one packed row gather per hit) ----
     tri_row = surface_mod.fetch_tri_row(scene, hit.prim)
     surf = surface_mod.compute_surface(
@@ -814,6 +846,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         params = params._replace(base_color=torch.ones_like(params.base_color))
 
     # ---------- emissive hit (ShadeRef.cpp:1502-1539) ----------
+    stage.next("rt.emission")
     emis_mask = alive & (params.emission.amax(dim=-1) > 0.0)
     mis_w = torch.ones((Rl,), dtype=torch.float32, device=device)
     if settings.use_nee and have_lights:
@@ -844,6 +877,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
 
     # ---------- spatial cache query exit (ShadeRef.cpp:1370-1392) ----------
     if cache_mode == "query":
+        stage.next("rt.cache")
         c_r1, c_r2 = rng.scrambled_2d_rand(
             rand_dim + rng.RAND_DIM_CACHE, seed, sample_i)
         p_d, n_d = surf.P.detach(), surf.plane_N.detach()
@@ -857,6 +891,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
     # ---------- NEE (SampleLightSource + eval + shadow ray) ----------
     n_shadow = None
     if settings.use_nee and have_lights:
+        stage.next("rt.nee")
         pick_r, _ = rng.scrambled_2d_rand(
             rand_dim + rng.RAND_DIM_LIGHT_PICK, seed, sample_i)
         luv_x, luv_y = rng.scrambled_2d_rand(
@@ -896,8 +931,10 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
             pblock = ls.from_env & light_sampling.portal_shadow_block(
                 scene, sh_o, sh_d, sh_dist * 0.999)
         if scene.has_transparency:
+            stage.next("rt.trace_shadow")
             rc = _trace_transmittance(scene, settings, traced, sh_o, sh_d,
                                       sh_dist * 0.999, shadow_active)
+            stage.next("rt.nee")
             factor = torch.where(ls.cast_shadow[:, None], rc, 1.0)
             if pblock is not None:
                 factor = torch.where(pblock[:, None], 0.0, factor)
@@ -905,8 +942,10 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
                                              limit0)
             accum = add(accum, sh_contrib, nee_valid, w_dir=ls.L)
         else:
+            stage.next("rt.trace_shadow")
             occluded = traced(_trace_occlusion, scene, sh_o, sh_d,
                               sh_dist * 0.999, shadow_active)
+            stage.next("rt.nee")
             visible = nee_valid & ((~ls.cast_shadow) | (~occluded))
             if pblock is not None:
                 visible = visible & (~pblock)
@@ -915,6 +954,7 @@ def _bounce(scene, settings: PassSettings, feats, st: _PathState, bounce: int,
         n_shadow = shadow_active.sum()
 
     # ---------- BSDF sampling / next bounce ----------
+    stage.next("rt.bsdf")
     brx, bry = rng.scrambled_2d_rand(rand_dim + rng.RAND_DIM_BSDF, seed, sample_i)
     bs = uber.sample_uber(
         params, surf.T, surf.B, surf.N, rd,

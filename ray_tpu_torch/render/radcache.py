@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.ops import cuda_build
+from ray_tpu_torch.utils import trace
 from ray_tpu_torch.utils.device import resolve_device
 
 # Constants.inl:112-146 (same names and values)
@@ -318,7 +319,9 @@ def accumulate_segments(rad_curr, cnt_curr, entry, rad, cnt, valid):
 
 
 def _check_entries(entry, valid, n_rows):
-    if bool((valid & ((entry < 0) | (entry >= n_rows))).any()):
+    with trace.sync("radcache_check"):
+        bad = bool((valid & ((entry < 0) | (entry >= n_rows))).any())
+    if bad:
         raise IndexError(f"a valid lane's entry lies outside the table's "
                          f"{n_rows} rows")
 

@@ -16,6 +16,7 @@ import torch
 from ray_tpu_torch.ops import rng
 from ray_tpu_torch.ops.linalg import dot, normalize
 from ray_tpu_torch.render.bsdf.microfacet import PI
+from ray_tpu_torch.utils import trace
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -60,7 +61,10 @@ def generate_primary_rays(
     dev = resolve_device(device)
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+        # a host value copied from pageable memory: the copy waits for the
+        # device's queue to drain
+        with trace.sync("upload"):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
     px = int(x0) + torch.arange(tile_w, dtype=torch.int32, device=dev)[None, :] \
         .expand(tile_h, tile_w).reshape(-1)

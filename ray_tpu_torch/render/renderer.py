@@ -38,6 +38,7 @@ from ray_tpu_torch.render.tonemap import (
     reversible_tonemap_invert,
 )
 from ray_tpu_torch.scene.camera import Camera, PixelFilter, build_filter_table
+from ray_tpu_torch.utils import trace
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -153,7 +154,8 @@ class Renderer:
         the device first)."""
         if self.settings.collect_stats:
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                with trace.sync("stats"):
+                    torch.cuda.synchronize(self.device)
             self.stats[key] += (time.perf_counter() - t0) * 1e6
 
     def update_spatial_cache(self, scene, cam: Camera, rand_seed: int = 0):
@@ -213,20 +215,23 @@ class Renderer:
                 use_filter_table=cam.filter != PixelFilter.BOX,
                 pixel_mask=mask, cache=self.cache if use_cache else None,
                 cache_mode="query" if use_cache else "off")
-            self.full_buf, self.half_buf, self.sample_counts = _accumulate(
-                self.full_buf, self.half_buf, self.sample_counts,
-                out["color"], mask)
-            it = self.iteration
-            self.aux_base = self.aux_base + (out["base_color"]
-                                             - self.aux_base) / it
-            self.aux_dn = self.aux_dn + (out["depth_normal"] - self.aux_dn) / it
-            if adaptive and it >= self.settings.min_samples:
-                self.active_px = self.active_px & _variance_mask(
-                    self.full_buf, self.half_buf,
-                    self.settings.variance_threshold)
+            with trace.span("rt.accumulate"):
+                self.full_buf, self.half_buf, self.sample_counts = \
+                    _accumulate(self.full_buf, self.half_buf,
+                                self.sample_counts, out["color"], mask)
+                it = self.iteration
+                self.aux_base = self.aux_base + (out["base_color"]
+                                                 - self.aux_base) / it
+                self.aux_dn = (self.aux_dn
+                               + (out["depth_normal"] - self.aux_dn) / it)
+                if adaptive and it >= self.settings.min_samples:
+                    self.active_px = self.active_px & _variance_mask(
+                        self.full_buf, self.half_buf,
+                        self.settings.variance_threshold)
         self.stats["samples"] += 1
         if self.settings.collect_stats:
-            self.stats["rays_traced"] += int(out["rays_traced"])  # syncs
+            with trace.sync("stats"):
+                self.stats["rays_traced"] += int(out["rays_traced"])
             self.stats["time_render_us"] += (time.perf_counter() - t0) * 1e6
         return out
 

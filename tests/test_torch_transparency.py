@@ -32,6 +32,7 @@ from ray_tpu.render.integrator import PassSettings as JPass
 from ray_tpu.render.integrator import render_tile as j_render
 from ray_tpu_torch.render import integrator as tint
 from ray_tpu_torch.render.integrator import PassSettings, render_tile
+from ray_tpu_torch.utils import trace
 from ray_tpu_torch.utils.test_scenes import alpha_box
 
 import test_torch_scene  # noqa: F401  (one intra-op thread)
@@ -92,10 +93,13 @@ def _render_pair(lift):
                    use_filter_table=False)
     scene = tsc.finalize(device="cpu")
     tint.march_counts.clear()
+    trace.host_syncs.clear()
     out = render_tile(scene, tcam, None, x0, y0, 1, 0, width=W, height=H,
                       tile_w=tw, tile_h=th, settings=PassSettings(**DEPTH),
                       use_filter_table=False)
-    marches = dict(tint.march_counts)
+    marches = dict(tint.march_counts,
+                   syncs=(trace.host_syncs["march_closest"]
+                          + trace.host_syncs["march_shadow"]))
     return ({k: v.numpy() for k, v in out.items()},
             {k: np.asarray(v) for k, v in ref.items()}, scene, tcam, marches)
 
