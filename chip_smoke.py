@@ -79,11 +79,14 @@ Phases:
 
 1. the card's name and power limit (``nvidia-smi``); exits non-zero when
    CUDA is absent;
-2. builds the seven CUDA sources of ``ray_tpu_torch/csrc`` (one ``nvcc``
+2. builds the eight CUDA sources of ``ray_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version: the
    gather probe's ``gather_table`` on the probe's own inputs, on a table
-   with NaNs and -0 and on 2,073,600 random lanes; the traces on the
+   with NaNs and -0 and on 2,073,600 random lanes; the RNG's
+   ``rng_draw`` (``scrambled_2d_rand`` in computed and table mode, ``dim``
+   and ``sample`` each an int and per lane, and ``pixel_seed``) over a
+   frame's 2,073,600 lanes (``rng_cases``); the traces on the
    traversal tests' generator scenes (at 2M rays brute 8/24/40 triangles,
    BVH 100/300/500 and 512 in leaves of one (511 nodes, the largest
    tables), TLAS 6 and 64 instances of one mesh and a 12,600-row
@@ -203,8 +206,11 @@ Phases:
 9. profiles one forward and one fwd+bwd flagship frame and one forward
    960x540 tile (the top-right one) of the instanced and of the binned
    colonnade with ``torch.profiler``: device time, its share of the
-   unprofiled frame (of a quarter of the 2x2 frame for a tile), the RNG's
-   cost; op tables in ``OUT_DIR``;
+   unprofiled frame (of a quarter of the 2x2 frame for a tile); the RNG's
+   cost: the draws of one flagship frame, one draw over a frame's lanes
+   through the kernel (back to back, and in one CUDA graph: device time)
+   beside the plain int64 route and the bound, and ``pixel_seed`` alike;
+   op tables in ``OUT_DIR``;
 10. times each kernel (CUDA events) at its frame's (a colonnade: its
    tile's) launch shapes beside its plain version (``trace_binned``'s on
    one launch of each mode: it takes seconds) and its bound, ``gather_table``
@@ -220,7 +226,7 @@ Phases:
    ``index_add_`` (both back to back, as every kernel, and in one CUDA
    graph: device time), and the whole ``accumulate_segments`` call beside
    the plain version (mask + ``index_add_`` x2); and prints one
-   ``kernels`` JSON line (17 entries), the card line, and last the
+   ``kernels`` JSON line (18 entries), the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero.
@@ -271,7 +277,7 @@ KERNELS = {
 }
 # the CUDA sources to build, one nvcc each
 SOURCES = ("trace_brute", "trace_bvh", "trace_tlas", "trace_tlas_bin",
-           "trace_binned", "gather_table", "radcache_accumulate")
+           "trace_binned", "gather_table", "radcache_accumulate", "rng_draw")
 # the wrapper each kernel family launches through (the masked ones: their
 # unmasked wrapper with the masks as keywords)
 WRAPPER = {"trace_bvh_vis": "trace_bvh", "trace_tlas_vis": "trace_tlas"}
@@ -279,6 +285,12 @@ WRAPPER = {"trace_bvh_vis": "trace_bvh", "trace_tlas_vis": "trace_tlas"}
 GATHER_TABLE = 1024
 GATHER = dict(source="ray_tpu_torch/csrc/gather_table.cu",
               replaces="scripts/test_pallas_gather.py:31")
+# the RNG's draw and pixel seed (XLA in ray_tpu: no TPU kernel)
+RNG = dict(source="ray_tpu_torch/csrc/rng_draw.cu",
+           replaces="ray_tpu/ops/rng.py:184, :248 (XLA)")
+# the seeds each RNG case's lanes start with, and the frame seeds of
+# pixel_seed: 0, 1, 2^31 and 2^32 - 1
+RNG_SEEDS = (0, 1, 1 << 31, (1 << 32) - 1)
 # trace_binned's sort-key kernel: the first-subtree pre-pass of
 # trace_flat_binned (XLA in ray_tpu, beside its pallas_call)
 SORTKEY = dict(source="ray_tpu_torch/csrc/trace_binned.cu",
@@ -1279,6 +1291,12 @@ def check_sort_key(args, label, errs):
           f"of {key.shape[0]} rays enter a subtree)")
 
 
+def without_rng(counts):
+    """Launch counts of every kernel but the RNG's ``rng_draw`` (a remat
+    backward replays its forward's draws)."""
+    return {k: v for k, v in counts.items() if not k.startswith("rng_")}
+
+
 def check_counts(label, counts, kernel, frames, per_frame=6):
     """``per_frame`` closest-hit + ``per_frame`` any-hit launches a frame of
     ``kernel`` (6 a tile: one of each a bounce), none of the others."""
@@ -1813,7 +1831,7 @@ def shading_fwd_bwd(label, scene, cam, settings, kernel, grid=(1, 1)):
         counts = dict(cuda_build.launch_counts)
         peak = torch.cuda.max_memory_allocated()
         check_grads(f"{label} fwd+bwd ({policy})", grads)
-        if counts != fwd_counts:
+        if without_rng(counts) != without_rng(fwd_counts):
             fail(f"{label} fwd+bwd ({policy}) launched {counts}, the forward "
                  f"{fwd_counts}")
         res[policy] = (loss, grads)
@@ -2371,17 +2389,124 @@ def profile_frames(cases):
               f"{trace_ms:.2f} ms; table in {path} [{CARD}]")
 
 
-def rng_cost(settings):
-    """The cost of one RNG draw over a frame's lanes."""
+def rng_cases(n, device):
+    """{label: (dim, seed, sample, table)}: ``scrambled_2d_rand`` over
+    ``n`` lanes in computed and table mode, ``dim`` and ``sample`` each an
+    int and a per-lane int64 tensor.  Seeds are random 32-bit words that
+    start with ``RNG_SEEDS``; per-lane dimensions lie below the deepest
+    bounce's (64) but for one lane at 2^32 - 1, per-lane samples over all
+    32 bits; the int dimension 2^32 - 3 wraps in ``dim * 2``."""
+    import numpy as np
     import torch
 
-    from ray_tpu_torch.ops import rng
+    r = np.random.default_rng(n)
+    seed = r.integers(0, 1 << 32, n, dtype=np.int64)
+    k = min(n, len(RNG_SEEDS))
+    seed[:k] = RNG_SEEDS[:k]
+    dims = r.integers(0, 64, n, dtype=np.int64)
+    dims[1:2] = (1 << 32) - 1
+    samples = r.integers(0, 1 << 32, n, dtype=np.int64)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    seed, dims, samples = t(seed), t(dims), t(samples)
+    cases = {}
+    for table in (False, True):
+        for dim_label, dim in (("int", (1 << 32) - 3), ("lanes", dims)):
+            for sample_label, sample in (("int", 70_000), ("lanes", samples)):
+                label = (f"{'table' if table else 'computed'}, dim "
+                         f"{dim_label}, sample {sample_label}")
+                cases[label] = (dim, seed, sample, table)
+    return cases
 
-    seed = torch.arange(WIDTH * HEIGHT, device="cuda", dtype=torch.int64)
-    rng_ms = time_launches(lambda: rng.scrambled_2d_rand(7, seed, 0), 10)
-    n_rng = 2 + 4 * (settings.max_total_depth + 1)
-    print(f"rng: one scrambled_2d_rand over {WIDTH * HEIGHT} lanes "
-          f"{rng_ms:.3f} ms x {n_rng} draws a frame = {rng_ms * n_rng:.1f} ms")
+
+def pixel_cases(n, device):
+    """(px, py): ``n`` random int32 pixel coordinates over the whole int32
+    range, for ``pixel_seed``."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(n + 1)
+    px, py = r.integers(-(1 << 31), 1 << 31, (2, n)).astype(np.int32)
+    return torch.from_numpy(px).to(device), torch.from_numpy(py).to(device)
+
+
+def check_rng(n, device):
+    """``rng_draw`` bit-exact against the plain int64 route on the same
+    card tensors: every ``rng_cases`` draw and ``pixel_seed`` at every
+    ``RNG_SEEDS`` frame seed, one launch each."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build, rng
+
+    before = cuda_build.launch_counts.copy()
+    cases = rng_cases(n, device)
+    for label, (dim, seed, sample, table) in cases.items():
+        k = rng.scrambled_2d_rand(dim, seed, sample, table=table)
+        p = rng._scrambled_2d_rand_plain(dim, seed, sample, table)
+        if not all(same_bits(a, b) for a, b in zip(k, p)):
+            fail(f"rng_draw differs from the plain version ({label}, {n} "
+                 f"lanes)")
+    px, py = pixel_cases(n, device)
+    for rand_seed in RNG_SEEDS:
+        if not torch.equal(rng.pixel_seed(px, py, rand_seed),
+                           rng.pixel_seed_plain(px, py, rand_seed)):
+            fail(f"rng_pixel_seed differs from the plain version (frame "
+                 f"seed {rand_seed}, {n} lanes)")
+    counts = cuda_build.launch_counts
+    if (counts["rng_draw"] - before["rng_draw"] != len(cases)
+            or counts["rng_pixel_seed"] - before["rng_pixel_seed"]
+            != len(RNG_SEEDS)):
+        fail("a draw or pixel seed did not take one launch of rng_draw")
+    print(f"  parity rng_draw: {len(cases)} draws and {len(RNG_SEEDS)} pixel "
+          f"seeds over {n} lanes bit-exact, one launch each")
+
+
+def rng_cost(scene, cam, settings):
+    """The RNG's cost: the draws and pixel seeds of one flagship frame,
+    and one draw over a frame's lanes (per-lane dimensions, as the
+    integrator's) through the kernel back to back and in one CUDA graph
+    (device time) beside the plain int64 route and the bound (24 B a
+    lane); ``pixel_seed`` alike (16 B a lane).  Returns the kernels
+    line's row."""
+    import torch
+
+    from ray_tpu_torch.ops import cuda_build, rng
+
+    n = WIDTH * HEIGHT
+    cuda_build.reset_launch_counts()
+    render_frame(scene, cam, settings, 99, (1, 1))
+    draws = cuda_build.launch_counts["rng_draw"]
+    seeds = cuda_build.launch_counts["rng_pixel_seed"]
+    seed = torch.arange(n, device="cuda", dtype=torch.int64)
+    dim = seed % 48 + rng.RAND_DIM_BASE_COUNT
+    px = (seed % WIDTH).to(torch.int32)
+    py = (seed // WIDTH).to(torch.int32)
+    row = {
+        "ms": time_launches(lambda: rng.scrambled_2d_rand(dim, seed, 0), 50),
+        "device_ms": time_graph(
+            lambda: rng.scrambled_2d_rand(dim, seed, 0), 50),
+        "plain_ms": time_launches(
+            lambda: rng._scrambled_2d_rand_plain(dim, seed, 0, False), 10),
+        "bound_ms": 24 * n / PEAK_BYTES_PER_S * 1e3,
+        "pixel_seed_ms": time_launches(lambda: rng.pixel_seed(px, py, 7), 50),
+        "pixel_seed_device_ms": time_graph(
+            lambda: rng.pixel_seed(px, py, 7), 50),
+        "pixel_seed_plain_ms": time_launches(
+            lambda: rng.pixel_seed_plain(px, py, 7), 10),
+        "pixel_seed_bound_ms": 16 * n / PEAK_BYTES_PER_S * 1e3,
+        "launches": draws + seeds,
+    }
+    print(f"rng: a flagship frame draws {draws} times and makes {seeds} "
+          f"pixel seeds, one rng_draw launch each; one scrambled_2d_rand "
+          f"over {n} lanes: kernel {row['ms']:.4f} ms back to back, device "
+          f"{row['device_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms (bytes); pixel_seed: kernel "
+          f"{row['pixel_seed_ms']:.4f} ms, device "
+          f"{row['pixel_seed_device_ms']:.4f} ms, plain "
+          f"{row['pixel_seed_plain_ms']:.3f} ms, bound "
+          f"{row['pixel_seed_bound_ms']:.4f} ms; a frame's draws: plain "
+          f"{row['plain_ms'] * draws:.1f} ms, kernel "
+          f"{row['device_ms'] * draws:.2f} ms of device time [{CARD}]")
+    return row
 
 
 def gather_cases(device):
@@ -3567,6 +3692,8 @@ def main() -> int:
     # ---- the gather probe: bit-exact on its inputs and a frame's ------
     gathers = gather_cases(device)
     check_gather(gathers)
+    # ---- the RNG: every draw form over a frame's lanes ----------------
+    check_rng(WIDTH * HEIGHT, device)
     # ---- kernel parity on the generator scenes ------------------------
     errs = {}
     for kernel, sizes in (("trace_brute", (8, 24, 40)),
@@ -3902,7 +4029,7 @@ def main() -> int:
         *(colonnade_tile(label) for label in
           ("colonnade", "colonnade binned")),
     ))
-    rng_cost(settings)
+    rng_row = rng_cost(flag[0], flag[1], settings)
 
     phase("kernel timing", t_start)
     gather_rows = gather_timings(gathers)
@@ -4010,6 +4137,13 @@ def main() -> int:
         "launches": 0, "max_abs_err": 0.0, "ms": g["ms"],
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": "bytes", "library_ms": g["library_ms"],
+    })
+    kernels.append({
+        "name": "rng_draw", "route": "cuda", **RNG,
+        "launches": rng_row["launches"], "max_abs_err": 0.0,
+        "ms": rng_row["ms"], "device_ms": rng_row["device_ms"],
+        "plain_ms": rng_row["plain_ms"], "bound_ms": rng_row["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
     })
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

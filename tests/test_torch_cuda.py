@@ -23,8 +23,12 @@ with ``output_sh``, and the compressed-texture decode on the card against
 the CPU.  The last slice: a lightmap bake (every launch of an iteration,
 the bake card vs CPU), a 1-rank NCCL tile mesh (both sharded routes
 bit-identical to ``render_tile``, the dry-run train step) and the PMJ02
-table draw card vs CPU.
+table draw card vs CPU.  The RNG's ``rng_draw``: every draw form and
+``pixel_seed`` bit-equal to the plain int64 version on the card, a
+flagship tile drawing only through it, and its wrappers' refusals.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -593,7 +597,8 @@ def test_gather_table_rejects_bad_inputs():
 def test_remat_tile_launch_counts(save_trace):
     """A 256x128 colonnade fwd+bwd tile at bench.py's big settings with
     remat: the forward launches 6 + 6 trace_tlas kernels; the backward none
-    with ``remat_save_trace``, the same 6 + 6 again without it."""
+    with ``remat_save_trace``, the same 6 + 6 again without it (the RNG's
+    launches aside: a remat backward replays the draws)."""
     _need_cuda()
     import dataclasses
 
@@ -616,10 +621,10 @@ def test_remat_tile_launch_counts(save_trace):
                                             compact_factor=4, remat=True,
                                             remat_save_trace=save_trace),
                       use_filter_table=False)
-    fwd = dict(cuda_build.launch_counts)
+    fwd = chip_smoke.without_rng(cuda_build.launch_counts)
     (out["color"] ** 2).sum().backward()
     torch.cuda.synchronize()
-    total = dict(cuda_build.launch_counts)
+    total = chip_smoke.without_rng(cuda_build.launch_counts)
     assert fwd == {"trace_tlas_closest": 6, "trace_tlas_anyhit": 6}, fwd
     assert total == {k: v * (1 if save_trace else 2)
                      for k, v in fwd.items()}, total
@@ -629,7 +634,8 @@ def test_remat_tile_launch_counts(save_trace):
 
 def test_renderer_sample_on_the_card():
     """``create_renderer`` puts the renderer on the card; one flagship
-    sample launches 6 + 6 trace_brute kernels and lands in the buffers."""
+    sample launches 6 + 6 trace_brute kernels besides the RNG's and lands
+    in the buffers."""
     _need_cuda()
     import ray_tpu_torch as ray_tpu
     from ray_tpu_torch.ops import cuda_build
@@ -646,8 +652,9 @@ def test_renderer_sample_on_the_card():
     px = r.pixels(cam, ray_tpu.ViewTransform.AGX)
     torch.cuda.synchronize()
     counts = dict(cuda_build.launch_counts)
-    assert counts == {"trace_brute_closest": 6, "trace_brute_anyhit": 6}, \
-        counts
+    assert chip_smoke.without_rng(counts) == {"trace_brute_closest": 6,
+                                              "trace_brute_anyhit": 6}, counts
+    assert counts.get("rng_draw", 0) > 0, counts
     assert img.device.type == px.device.type == "cuda"
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
     assert bool(((px >= 0) & (px <= 1)).all())
@@ -1215,3 +1222,129 @@ def test_pmj02_table_draw_on_the_card():
         cpu = rng.scrambled_2d_rand(dim, seed.cpu(), 3, table=True)
         for a, b in zip(card, cpu):
             assert chip_smoke.same_bits(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 2_073_600])
+@pytest.mark.parametrize("label", list(chip_smoke.rng_cases(4, "cpu")))
+def test_rng_draw_kernel_bit_exact(label, n):
+    """``scrambled_2d_rand`` on the card, one ``rng_draw`` launch, bit-equal
+    to the plain int64 version on the same tensors: computed and table
+    mode, ``dim`` and ``sample`` each an int and per lane, seeds that start
+    with 0, 1, 2^31 and 2^32 - 1."""
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build, rng
+
+    dim, seed, sample, table = chip_smoke.rng_cases(n, "cuda")[label]
+    before = cuda_build.launch_counts["rng_draw"]
+    k = rng.scrambled_2d_rand(dim, seed, sample, table=table)
+    p = rng._scrambled_2d_rand_plain(dim, seed, sample, table)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["rng_draw"] == before + (n > 0)
+    for a, b in zip(k, p):
+        assert a.dtype == torch.float32 and a.shape == (n,)
+        assert chip_smoke.same_bits(a, b)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 2_073_600])
+def test_rng_pixel_seed_kernel_bit_exact(n):
+    """``pixel_seed`` on the card, one launch, equal to the plain int64
+    version at the frame seeds 0, 1, 2^31 and 2^32 - 1."""
+    _need_cuda()
+    from ray_tpu_torch.ops import cuda_build, rng
+
+    px, py = chip_smoke.pixel_cases(n, "cuda")
+    for rand_seed in chip_smoke.RNG_SEEDS:
+        before = cuda_build.launch_counts["rng_pixel_seed"]
+        k = rng.pixel_seed(px, py, rand_seed)
+        p = rng.pixel_seed_plain(px, py, rand_seed)
+        torch.cuda.synchronize()
+        assert cuda_build.launch_counts["rng_pixel_seed"] == before + (n > 0)
+        assert k.dtype == torch.int64 and torch.equal(k, p)
+
+
+def test_flagship_tile_draws_only_through_the_rng_kernel(monkeypatch):
+    """A 256x128 tile of the 1080p flagship: each ``rt.rng`` span is one
+    ``rng_draw`` launch, and no draw runs a PyTorch operation but the
+    allocation of its outputs (the plain route's int64 chain is gone)."""
+    _need_cuda()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ray_tpu_torch.ops import cuda_build, rng
+    from ray_tpu_torch.render.integrator import PassSettings, render_tile
+    from ray_tpu_torch.utils import trace
+    from ray_tpu_torch.utils.test_scenes import cornell_scene
+
+    depth = [0]
+    ops = collections.Counter()
+
+    class CountOps(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if depth[0]:
+                ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    def counted(fn):
+        def draw(*args, **kwargs):
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return draw
+
+    for name in ("scrambled_2d_rand", "scrambled_2d_rand_many",
+                 "pixel_seed"):
+        monkeypatch.setattr(rng, name, counted(getattr(rng, name)))
+    sc, cam = cornell_scene()
+    scene = sc.finalize()
+    cuda_build.reset_launch_counts()
+    with trace.recording() as spans, CountOps():
+        out = render_tile(scene, cam, None, 832, 476, 1, 0, width=1920,
+                          height=1080, tile_w=256, tile_h=128,
+                          settings=PassSettings(max_total_depth=5,
+                                                min_total_depth=2),
+                          use_filter_table=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out["color"]).all())
+    draws = sum(s.name == "rt.rng" for s in spans)
+    counts = cuda_build.launch_counts
+    assert counts["rng_pixel_seed"] == 2, dict(counts)
+    assert draws > 2 and counts["rng_draw"] + 2 == draws, (draws, counts)
+    assert set(ops) == {"aten.empty.memory_format"}, ops
+
+
+def test_rng_wrappers_reject_bad_inputs():
+    _need_cuda()
+    from ray_tpu_torch.ops import rng
+
+    seed = torch.arange(64, dtype=torch.int64, device="cuda")
+    dim = seed % 8
+    px = torch.arange(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        rng.scrambled_2d_rand(3, seed.int(), 0)
+    with pytest.raises(TypeError):
+        rng.scrambled_2d_rand(dim.int(), seed, 0)
+    with pytest.raises(TypeError):
+        rng.scrambled_2d_rand(3, seed, seed.double())
+    with pytest.raises(ValueError):
+        rng.scrambled_2d_rand(3, seed.reshape(8, 8), 0)
+    with pytest.raises(ValueError):
+        rng.scrambled_2d_rand(dim[:32], seed, 0)
+    with pytest.raises(ValueError):
+        rng.scrambled_2d_rand(3, seed[::2], 0)
+    with pytest.raises(ValueError):
+        rng.scrambled_2d_rand(dim.cpu(), seed, 0)
+    with pytest.raises(ValueError):
+        rng.scrambled_2d_rand(dim, seed.cpu(), 0)
+    with pytest.raises(ValueError):
+        rng.scrambled_2d_rand(3, seed, seed.cpu(), table=True)
+    with pytest.raises(TypeError):
+        rng.pixel_seed(px.long(), px, 0)
+    with pytest.raises(ValueError):
+        rng.pixel_seed(px, px.cpu(), 0)
+    with pytest.raises(ValueError):
+        rng.pixel_seed(px, px[:32], 0)
+    with pytest.raises(ValueError):
+        rng.pixel_seed(px.reshape(8, 8), px.reshape(8, 8), 0)
+    with pytest.raises(TypeError):
+        rng.pixel_seed(px, px, torch.tensor(3, device="cuda"))

@@ -5,6 +5,9 @@ or adds); every output is compared as uint32 bits, floats included.  The
 PMJ02 table mode (``table=True``) too, over a grid of dimensions (past the
 table's 32 rows), seeds and sample indices (past its 4,096), with the
 table a byte-for-byte copy of ``ray_tpu``'s; without the file it raises.
+On CPU tensors the public functions are the plain version and never reach
+the card's kernel (``csrc/rng_draw.cu``, held on the card by
+``tests/test_torch_cuda.py``), whose wrappers refuse CPU tensors.
 """
 
 import pathlib
@@ -148,3 +151,45 @@ def test_missing_table_raises(monkeypatch, tmp_path):
             trng.scrambled_2d_rand(3, 7, 1, table=True)
     finally:
         trng._pmj_table.cache_clear()
+
+
+@pytest.mark.parametrize("table", [False, True])
+def test_cpu_route_is_the_plain_version(monkeypatch, table):
+    """Every draw form and ``pixel_seed`` on CPU tensors return the plain
+    version's words, and nothing loads or launches a kernel."""
+    from ray_tpu_torch.ops import cuda_build
+
+    def no_kernel(name):
+        raise AssertionError(f"a CPU draw loaded the {name} kernel")
+
+    monkeypatch.setattr(cuda_build, "load", no_kernel)
+    before = cuda_build.launch_counts.copy()
+    seeds = _t(_words(21, 512))
+    dims = _t(np.arange(512) % 48)
+    samples = _t(_words(22, 512))
+    for dim, sample in ((dims, 7), (5, samples), (dims, samples), (3, 0)):
+        got = trng.scrambled_2d_rand(dim, seeds, sample, table=table)
+        want = trng._scrambled_2d_rand_plain(dim, seeds, sample, table)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    many = trng.scrambled_2d_rand_many([0, 9], seeds, 4, table=table)
+    for d, pair in zip([0, 9], many):
+        for a, b in zip(pair, trng._scrambled_2d_rand_plain(d, seeds, 4,
+                                                            table)):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    px = torch.arange(-3, 509, dtype=torch.int32)
+    py = torch.flip(px, (0,))
+    np.testing.assert_array_equal(
+        trng.pixel_seed(px, py, 2**32 - 1).numpy(),
+        trng.pixel_seed_plain(px, py, 2**32 - 1).numpy())
+    assert cuda_build.launch_counts == before
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel's wrappers never compute a CPU tensor's draw."""
+    seeds = _t(_words(23, 64))
+    px = torch.arange(64, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        trng.scrambled_2d_rand_cuda(3, seeds, 0)
+    with pytest.raises(ValueError):
+        trng.pixel_seed_cuda(px, px, 0)

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Print what ``ptxas -v`` says of the port's trace kernels and of
-``radcache_accumulate``, and count the SASS instructions of the trace
-kernels' loops.
+"""Print what ``ptxas -v`` says of the port's trace kernels, of
+``radcache_accumulate`` and of the RNG's ``rng_draw``, and count the SASS
+instructions of the trace kernels' loops.
 
     python3 tools/ptxas_report.py [REPO_DIR ...]
 
 For each repository checkout given (default: this one), compiles its
-``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,tlas_bin,binned}.cu`` and
-``radcache_accumulate.cu`` (those it has) with the port's own
-nvcc flags (``ray_tpu_torch/ops/cuda_build.py`` NVCC_FLAGS) plus
+``ray_tpu_torch/csrc/trace_{brute,bvh,tlas,tlas_bin,binned}.cu``,
+``radcache_accumulate.cu`` and ``rng_draw.cu`` (those it has) with the
+port's own nvcc flags (``ray_tpu_torch/ops/cuda_build.py`` NVCC_FLAGS) plus
 ``-Xptxas -v`` into ``build/ptxas_report/`` and prints, per kernel entry,
 its registers, stack frame, spill stores / loads and shared memory (a
 masked instantiation marked "masked").  Then,
@@ -32,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SOURCES = ("trace_brute", "trace_bvh", "trace_binned", "trace_tlas",
-           "trace_tlas_bin", "radcache_accumulate")
+           "trace_tlas_bin", "radcache_accumulate", "rng_draw")
 # the sources whose loops are counted
 SASS_SOURCES = ("trace_brute", "trace_bvh")
 # one SASS line: /*address*/ [@predicate] OPCODE operands ;
@@ -47,6 +47,10 @@ def _kind(entry: str, name: str) -> str:
         return "binned_sort_key"
     if "radcache_accumulate" in entry:
         return "radcache_accumulate"
+    if "scrambled_2d_rand_kernel" in entry:
+        return "rng_draw scrambled_2d_rand"
+    if "pixel_seed_kernel" in entry:
+        return "rng_draw pixel_seed"
     if m is None:
         return entry
     kind = f"{name} {'any-hit' if m.group(1) == '1' else 'closest'}"
